@@ -1,0 +1,179 @@
+"""Public entry points of the kernels package, and the integer word stages.
+
+Port of ``repro/kernels/ops.py``.  ``chaotic_trajectory`` and
+``chaotic_bits`` keep that module's signatures.  The default backend
+(``"auto"``) calls the kernel wrappers of ``chaotic_ann``: on a CUDA tensor
+they launch the hand-written kernel, on a CPU tensor they take the plain
+PyTorch version.  ``backend="ref"`` asks for the plain version explicitly,
+on any device.
+
+The integer stages (low-mantissa fold, pair packing, Weyl offsets, Murmur3
+finalizer) are bitwise twins of the JAX ones.  They compute in int64 masked
+to 32 bits, because PyTorch on the CPU has no uint32 shift, add or multiply,
+and reach ``torch.uint32`` only at the edge, through a same-width view.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import chaotic_ann, ref
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9          # Weyl increment (2^32 / phi)
+_TODO_LATTICE = "queue 1, item 'Lattices' (and queue 2, 'K5')"
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` in [0, 2**32) without int64
+    overflow: the high half of ``a`` only contributes its low 16 bits."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def to_uint32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> ``torch.uint32`` (same-width view)."""
+    signed = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return signed.to(torch.int32).view(torch.uint32)
+
+
+def from_uint32(words: torch.Tensor) -> torch.Tensor:
+    """``torch.uint32`` -> int64 values in [0, 2**32)."""
+    return words.view(torch.int32).to(torch.int64) & _M32
+
+
+def word_offsets(word_offset, n_lanes: int, device) -> torch.Tensor:
+    """A scalar or (S,) word-row offset -> an (S,) int64 tensor mod 2**32."""
+    if isinstance(word_offset, torch.Tensor):
+        off = (from_uint32(word_offset) if word_offset.dtype == torch.uint32
+               else word_offset.to(torch.int64))
+        off = off.to(device)
+    else:
+        off = torch.as_tensor(np.asarray(word_offset, np.int64), device=device)
+    return torch.broadcast_to(off & _M32, (n_lanes,))
+
+
+def _fold_low16(traj: torch.Tensor) -> torch.Tensor:
+    """(..., I) floats -> (...,) int64: low mantissa bits, I folded in.
+
+    f32 keeps the low 16 bits of its bit pattern.  bf16 is viewed at its
+    own width and masked to its 7 mantissa bits: upcasting it to f32 first
+    would leave the low 16 bits all zero.
+    """
+    if traj.dtype == torch.bfloat16:
+        lo = traj.view(torch.int16).to(torch.int64) & 0x7F
+    else:
+        lo = traj.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFF
+    folded = lo[..., 0]
+    for i in range(1, traj.shape[-1]):
+        folded = folded ^ (lo[..., i] << (5 * i % 16))
+    return folded
+
+
+def _finalize_words(words: torch.Tensor) -> torch.Tensor:
+    """Final avalanche (Murmur3 finalizer) on int64 words in [0, 2**32)."""
+    words = words ^ (words >> 16)
+    words = _mul32(words, 0x85EBCA6B)
+    words = words ^ (words >> 13)
+    words = _mul32(words, 0xC2B2AE35)
+    return words ^ (words >> 16)
+
+
+def _packed(traj: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Fold, pack pairs high|low, XOR the Weyl row index, finalize.
+    ``offsets`` broadcasts against one packed row; returns int64."""
+    folded = _fold_low16(traj)
+    t = folded.shape[0] // 2
+    words = ((folded[0:2 * t:2] << 16) & _M32) | folded[1:2 * t:2]
+    rows = torch.arange(t, dtype=torch.int64, device=traj.device)
+    idx = (rows.reshape((t,) + (1,) * (words.ndim - 1)) + offsets) & _M32
+    return _finalize_words(words ^ _mul32(idx, _GOLDEN))
+
+
+def bits_from_trajectory(traj: torch.Tensor) -> torch.Tensor:
+    """(T, ..., I) floats -> (T // 2, ...) uint32 words, rows counted from 0."""
+    zero = torch.zeros((), dtype=torch.int64, device=traj.device)
+    return to_uint32(_packed(traj, zero))
+
+
+def pack_words(traj: torch.Tensor, word_offset=0) -> torch.Tensor:
+    """Offset-aware packing stage of the fused kernel.
+
+    traj: (T, S, I) floats, T even.  word_offset: scalar or (S,), the
+    absolute word-row index of the first packed row of each lane.
+    Returns (T // 2, S) uint32.
+    """
+    off = word_offsets(word_offset, traj.shape[1], traj.device)
+    return to_uint32(_packed(traj, off))
+
+
+def uniform_from_trajectory(traj: torch.Tensor) -> torch.Tensor:
+    """Uniform [0, 1) f32 from the top 24 bits of each word (a full word
+    over 2**32 would round up to 1.0 near 2**32)."""
+    zero = torch.zeros((), dtype=torch.int64, device=traj.device)
+    bits = _packed(traj, zero)
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def _check_ported(params: Dict[str, torch.Tensor], compute_unit: str) -> None:
+    if compute_unit != "vpu":
+        raise NotImplementedError(
+            f"compute_unit={compute_unit!r} is not ported; see ROADMAP.md "
+            f"{chaotic_ann.TODO_UNPORTED}")
+    if "lattice_meta" in params:
+        raise NotImplementedError(
+            f"lattice cores are not ported; see ROADMAP.md {_TODO_LATTICE}")
+
+
+def _weights(params):
+    return params["w1"], params["b1"], params["w2"], params["b2"]
+
+
+def chaotic_trajectory(params: Dict[str, torch.Tensor], x0: torch.Tensor,
+                       n_steps: int, *, activation: str = "relu",
+                       backend: str = "auto", s_block: int = 256,
+                       t_block: int = 128, unroll: int = 1,
+                       compute_unit: str = "vpu",
+                       config=None) -> torch.Tensor:
+    """Generate (n_steps, S, I) oscillator trajectories.
+
+    backend: 'auto' (the kernel wrapper) | 'ref' (the plain version).
+    s_block/t_block/unroll shaped the TPU schedule and change no value;
+    they are accepted for the JAX signature.  ``config`` (a
+    ``core.dse.Candidate``) overrides ``compute_unit``.
+    """
+    if config is not None:
+        compute_unit = config.compute_unit
+    _check_ported(params, compute_unit)
+    if backend == "ref":
+        return ref.chaotic_ann_ref(*_weights(params), x0, n_steps, activation)
+    if backend != "auto":
+        raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
+    return chaotic_ann.chaotic_ann_traj(*_weights(params), x0,
+                                        n_steps=n_steps, activation=activation)
+
+
+def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
+                 n_steps: int, word_offset=0, *, activation: str = "relu",
+                 backend: str = "auto", s_block: int = 256,
+                 t_block: int = 128, unroll: int = 1,
+                 compute_unit: str = "vpu",
+                 config=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused PRNG draw: (n_steps // 2, S) uint32 words + (S, I) final state.
+
+    Same backends and arguments as ``chaotic_trajectory``; ``word_offset``
+    is a scalar or (S,) word-row counter.
+    """
+    if config is not None:
+        compute_unit = config.compute_unit
+    _check_ported(params, compute_unit)
+    if backend == "ref":
+        return ref.chaotic_ann_bits_ref(*_weights(params), x0, n_steps,
+                                        word_offset, activation)
+    if backend != "auto":
+        raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
+    return chaotic_ann.chaotic_ann_bits(*_weights(params), x0, word_offset,
+                                        n_steps=n_steps, activation=activation)

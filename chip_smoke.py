@@ -10,7 +10,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. Hold each kernel against its plain PyTorch version on the card,
    bitwise (words, final state, trajectory), in f32 and bf16, on the
    committed chen (3-8-3) and hyperlorenz (4-16-4) weights, at a ragged
-   lane count and with per-lane word offsets that wrap past 2**32.
+   lane count and with per-lane word offsets that wrap past 2**32.  The
+   gang kernels K3 and K4 likewise, on the committed farm's cores (the
+   four 3-8-3 cores as a gang of 4; hyperlorenz's farm and registry
+   weights as a 4-16-4 gang of 2), padded and ragged: the words each
+   lane block or core asked for, and the final states.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -26,6 +30,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    gate recipe.  The 2**20 served bf16 words are tested and printed, not
    gated: the reference's bf16 lanes coalesce onto shared orbits, so
    served bf16 words repeat across lanes (ROADMAP.md queue 3).
+5. The farm path, per dtype: ``OscillatorFarm`` over the five committed
+   farm cores (bf16: ``from_generated``; f32: the same solutions at
+   ``dtype_bytes=4`` through ``add_core``), 128 clients x 128 lanes per
+   core.  Three flushes, the launch counters zeroed just before each and
+   read just after: F1 uniform (one stacked K4 launch, one K1 launch for
+   hyperlorenz), F2 skewed (chen's clients draw 64x the others: ragged or
+   split, never padded), F3 unequal pools (one more client on lorenz: the
+   lane-concat K3).  Each flush's words are held bitwise against a
+   ``gang=False`` farm, two chen clients against a standalone
+   ``PRNGService``, and F2 against a snapshot taken with its requests
+   pending, restored onto a fresh farm.  Then the gang kernels' times at
+   F1's and F2's shapes, their plain versions' times and their bounds,
+   and the ``gang=False`` cost of F1's 3-8-3 words (four K1 launches).
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -33,6 +50,7 @@ no CUDA card is visible.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -62,6 +80,22 @@ NIST_WORDS = 1 << 20
 # may lose before quarantine, words and lanes of the offline gate recipe
 NIST_ALPHA, NIST_ALPHA_HARD, NIST_MAX_CHANCE_FAILS = 0.01, 1e-6, 1
 GATE_WORDS, GATE_STREAMS = 30_000, 256
+
+FARM_DIR = ROOT / "results" / "generated_cores" / "farm"
+# the committed farm's gangs: its four 3-8-3 cores, and hyperlorenz's farm
+# and registry weights as a 4-16-4 pair
+GANGS = {"3-8": ("chen", "chua", "lorenz", "rossler"),
+         "4-16": ("hyperlorenz", "registry:hyperlorenz")}
+GANG_BLOCKS, GANG_S_BLOCK = 512, 128     # K3 check: 65,536 lanes
+STACK_LANES = 16_384 + 37                # K4 check: lanes per core
+# the farm solutions' schedule (t_block 256, unroll 8: row granularity 8)
+FARM_T_BLOCK, FARM_UNROLL = 256, 8
+# K3 demands: 0, not multiples of 8, above the launch's rows; K4: a zero
+K3_ROW_MAP = np.resize([0, 3, 300, 17, 128, 9, 256, 64], GANG_BLOCKS)
+K4_ROW_MAP = [0, 13, 300, 100]
+FARM_CLIENTS = 128
+FARM_WORDS = 16_384                      # per client: 128 word rows
+HOT_WORDS, COLD_WORDS = 65_536, 1_024    # F2: chen's clients, the others
 
 
 class SmokeFailure(Exception):
@@ -122,6 +156,102 @@ def max_abs_err(torch, a, b) -> float:
     return float(diff.max().item())
 
 
+def masked_err(torch, a, b, lane_rows) -> float:
+    """``max_abs_err`` over the words each lane asked for: row r of lane
+    l counts when r < lane_rows[l] (the rows past it are unwritten)."""
+    rows = torch.arange(a.shape[0], device=a.device)
+    mask = rows.reshape((-1,) + (1,) * (a.ndim - 1)) < lane_rows
+    ia = a.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ib = b.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return float(torch.where(mask, (ia - ib).abs(), 0).max().item())
+
+
+def gang_weights(torch, device, gang):
+    """The stacked (C, ...) weights of one of GANGS, on the card."""
+    from repro_torch.prng.stream import default_params
+    per_core = []
+    for name in GANGS[gang]:
+        if name.startswith("registry:"):
+            p = default_params(system=name.split(":")[1])
+        else:
+            with np.load(FARM_DIR / name / "weights.npz") as npz:
+                p = dict(npz)
+        per_core.append([np.asarray(p[k], np.float32)
+                         for k in ("w1", "b1", "w2", "b2")])
+    return [torch.as_tensor(np.stack(ws), device=device)
+            for ws in zip(*per_core)]
+
+
+def phase_gang_kernels(torch, device, errs) -> None:
+    """K3 and K4 against their plain versions on the card, bitwise."""
+    from repro_torch.kernels import chaotic_ann, ref
+
+    rng = np.random.default_rng(1)
+    n_rows = CHECK_STEPS // 2
+    for gang in sorted(GANGS):
+        w = gang_weights(torch, device, gang)
+        n_cores, i_dim = w[0].shape[0], w[0].shape[1]
+        n_lanes = GANG_BLOCKS * GANG_S_BLOCK
+        core_map = np.arange(GANG_BLOCKS) % n_cores
+        x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+        off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
+        off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)    # wrap mid-run
+        off = torch.as_tensor(off_np, device=device)
+        xs_np = rng.uniform(-0.9, 0.9, (n_cores, STACK_LANES, i_dim)
+                            ).astype(np.float32)
+        offs_np = rng.integers(0, 1 << 32, (n_cores, STACK_LANES),
+                               dtype=np.int64)
+        offs_np[:, :16] = (1 << 32) - 1 - 5 * np.arange(16)
+        offs = torch.as_tensor(offs_np, device=device)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+            xs = torch.as_tensor(xs_np, device=device).to(dtype)
+            for shape in ("padded", "ragged"):
+                row_map = K3_ROW_MAP if shape == "ragged" else None
+                rows = (chaotic_ann.gang_effective_rows(
+                    row_map, CHECK_STEPS, FARM_T_BLOCK, FARM_UNROLL)
+                    if row_map is not None
+                    else np.full(GANG_BLOCKS, n_rows, np.int32))
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, row_map, n_steps=CHECK_STEPS,
+                    s_block=GANG_S_BLOCK, t_block=FARM_T_BLOCK,
+                    unroll=FARM_UNROLL)
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0, core_map, CHECK_STEPS, off, rows)
+                lane_rows = torch.as_tensor(
+                    np.repeat(rows, GANG_S_BLOCK).astype(np.int64),
+                    device=device)
+                e3 = max(masked_err(torch, words_k, words_p, lane_rows),
+                         max_abs_err(torch, state_k, state_p))
+                srow_map = K4_ROW_MAP[:n_cores] if shape == "ragged" else None
+                srows = np.minimum(srow_map if srow_map is not None
+                                   else n_rows, n_rows)
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                    *w, xs, offs, srow_map, n_steps=CHECK_STEPS)
+                words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                    *w, xs, CHECK_STEPS, offs, srow_map)
+                core_rows = torch.as_tensor(
+                    np.broadcast_to(srows, (n_cores,)).astype(np.int64),
+                    device=device)[:, None]
+                e4 = max(masked_err(torch, words_k, words_p, core_rows),
+                         max_abs_err(torch, state_k, state_p))
+                torch.cuda.synchronize()
+                print(f"check gang {gang} {tag} {shape}: "
+                      f"chaotic_ann_gang_bits (C={n_cores}, {GANG_BLOCKS} "
+                      f"blocks x {GANG_S_BLOCK} lanes, rows "
+                      f"{sorted(set(rows.tolist()))}) max_abs_err={e3}; "
+                      f"chaotic_ann_gang_stacked (C={n_cores} x "
+                      f"{STACK_LANES} lanes, rows {srows.tolist()}) "
+                      f"max_abs_err={e4}")
+                check(e3 == 0.0, f"chaotic_ann_gang_bits != plain "
+                                 f"({gang}, {tag}, {shape})")
+                check(e4 == 0.0, f"chaotic_ann_gang_stacked != plain "
+                                 f"({gang}, {tag}, {shape})")
+                for name, e in (("chaotic_ann_gang_bits", e3),
+                                ("chaotic_ann_gang_stacked", e4)):
+                    errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
+
+
 def phase_kernels(torch, device, errs) -> None:
     """Each kernel against its plain version on the card, bitwise."""
     from repro_torch.core.ann import params_from_numpy
@@ -160,14 +290,17 @@ def phase_kernels(torch, device, errs) -> None:
                 errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
 
 
+KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
+           "chaotic_ann_gang_stacked")
+
+
 def read_launches(chaotic_ann) -> dict:
-    return {"chaotic_ann_bits": chaotic_ann.chaotic_ann_bits.launches,
-            "chaotic_ann_traj": chaotic_ann.chaotic_ann_traj.launches}
+    return {name: getattr(chaotic_ann, name).launches for name in KERNELS}
 
 
 def zero_launches(chaotic_ann) -> None:
-    chaotic_ann.chaotic_ann_bits.launches = 0
-    chaotic_ann.chaotic_ann_traj.launches = 0
+    for name in KERNELS:
+        getattr(chaotic_ann, name).launches = 0
 
 
 def phase_main_path(torch, device, dtype, tag, card):
@@ -318,6 +451,211 @@ def phase_main_path(torch, device, dtype, tag, card):
     return launches, t, served
 
 
+def make_farm(torch, device, tag, gang=True):
+    """The committed farm: bf16 through ``from_generated``; f32 as the same
+    solutions at dtype_bytes=4 through ``add_core``."""
+    from repro_torch.core.dse import Candidate
+    from repro_torch.serve.farm import OscillatorFarm
+    if tag == "bf16":
+        return OscillatorFarm.from_generated(FARM_DIR, gang=gang,
+                                             profile=True, device=device)
+    farm = OscillatorFarm(gang=gang, profile=True, device=device)
+    for name in sorted(p.name for p in FARM_DIR.iterdir()
+                       if (p / "solution.json").exists()):
+        sol = json.loads((FARM_DIR / name / "solution.json").read_text())
+        cand = dataclasses.replace(Candidate(**sol["candidate"]),
+                                   dtype_bytes=4)
+        with np.load(FARM_DIR / name / "weights.npz") as npz:
+            weights = dict(npz)
+        farm.add_core(name, weights, config=cand, dtype=torch.float32,
+                      activation=sol.get("activation", "relu"))
+    return farm
+
+
+def same_words(a, b) -> bool:
+    return set(a) == set(b) and all(
+        set(a[c]) == set(b[c]) and all(np.array_equal(a[c][k], b[c][k])
+                                       for k in a[c]) for c in a)
+
+
+def phase_farm(torch, device, dtype, tag, card):
+    """The farm path: three flushes, each held against a gang=False farm;
+    returns ({flush: launch counts}, timings)."""
+    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.serve.prng_service import PRNGService
+
+    farm = make_farm(torch, device, tag)
+    solo = make_farm(torch, device, tag, gang=False)
+    cores = farm.cores
+    clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
+    t0 = time.perf_counter()
+    for f in (farm, solo):
+        for k, core in enumerate(cores):
+            for i, name in enumerate(clients):
+                f.register(core, name, seed=1000 * k + i)
+    torch.cuda.synchronize()
+    t_register = (time.perf_counter() - t0) / 2
+    # a standalone service for two chen clients
+    chen = farm.services["chen"]
+    alone = PRNGService(chen.params, lanes_per_client=LANES_PER_CLIENT,
+                        config=chen.config, dtype=dtype, device=device)
+    for i, name in enumerate(clients[:2]):
+        alone.register(name, seed=1000 * cores.index("chen") + i)
+
+    hot = {c: HOT_WORDS if c == "chen" else COLD_WORDS for c in cores}
+    flushes = (("F1", {c: FARM_WORDS for c in cores}), ("F2", hot),
+               ("F3", {c: FARM_WORDS for c in cores}))
+    launches, outs, snap = {}, {}, None
+    for label, words in flushes:
+        if label == "F3":                  # unequal pools: one more client
+            for f in (farm, solo):
+                f.register("lorenz", f"c{FARM_CLIENTS}", seed=99)
+        for f in (farm, solo):
+            for core in cores:
+                for name in f.services[core].clients:
+                    f.request(core, name, words[core])
+        if label == "F2":                  # requests pending
+            snap = farm.snapshot()
+        n0, dec0 = farm.launches, farm.plan_decisions
+        prof0 = farm.profile_stats
+        zero_launches(chaotic_ann)
+        t0 = time.perf_counter()
+        out = farm.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = read_launches(chaotic_ann)
+        decisions = {k: v - dec0[k] for k, v in farm.plan_decisions.items()
+                     if v != dec0[k]}
+        prof = {k: (v - prof0[k]) * 1e3 for k, v in farm.profile_stats.items()
+                if k != "flushes"}
+        modes = sorted({p["mode"] for p in farm._sched._plans.values()})
+        n_words = sum(w.size for c in out.values() for w in c.values())
+        print(f"farm {tag} {label}: {n_words} words, wall {wall * 1e3:.1f} ms"
+              f" ({n_words / wall:.4g} words/s); profile ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in prof.items())
+              + f"; decisions {decisions}; plan layouts {modes}; farm "
+              f"launches {farm.launches - n0}; kernel launches "
+              f"{ {k: v for k, v in launches[label].items() if v} }; "
+              f"card {card}")
+        check(same_words(out, solo.flush()),
+              f"farm {tag} {label}: gang words differ from gang=False")
+        for name in clients[:2]:
+            alone.request(name, words["chen"])
+        mine = alone.flush()
+        check(all(np.array_equal(mine[n], out["chen"][n])
+                  for n in clients[:2]),
+              f"farm {tag} {label}: chen differs from a standalone service")
+        outs[label] = out
+        got = launches[label]
+        if label == "F1":
+            check(decisions == {"padded": 1} and modes == ["stacked"]
+                  and got["chaotic_ann_gang_stacked"] == 1
+                  and got["chaotic_ann_bits"] == 1
+                  and got["chaotic_ann_gang_bits"] == 0
+                  and farm.launches - n0 == 2,
+                  f"farm {tag} F1: expected one padded K4 launch and one K1"
+                  f" launch, got {decisions} {got}")
+        elif label == "F2":
+            check("padded" not in decisions and got["chaotic_ann_gang_bits"]
+                  + got["chaotic_ann_gang_stacked"] + got["chaotic_ann_bits"]
+                  > 0, f"farm {tag} F2: expected ragged or split, got "
+                       f"{decisions} {got}")
+        else:
+            check(decisions == {"padded": 1}
+                  and got["chaotic_ann_gang_bits"] == 1
+                  and got["chaotic_ann_gang_stacked"] == 0,
+                  f"farm {tag} F3: expected one padded K3 launch, got "
+                  f"{decisions} {got}")
+    fresh = make_farm(torch, device, tag)
+    fresh.restore(snap)
+    check(same_words(outs["F2"], fresh.flush()),
+          f"farm {tag}: F2 restored from a snapshot differs")
+    print(f"farm {tag}: {len(cores)} cores x {FARM_CLIENTS} clients x "
+          f"{LANES_PER_CLIENT} lanes; register {t_register:.3f} s per farm; "
+          f"every flush bitwise equal to the gang=False farm, chen to a "
+          f"standalone service, F2 to its snapshot restored")
+
+    # device times at F1's and F2's shapes (not counted as farm launches)
+    small = [c for c in cores if c != "hyperlorenz"]
+    svcs = [farm.services[c] for c in small]
+    w = [torch.stack([s.params[k] for s in svcs])
+         for k in ("w1", "b1", "w2", "b2")]
+    n_cores, i_dim, h_dim = w[0].shape
+    s_pool = FARM_CLIENTS * LANES_PER_CLIENT
+    x0s = torch.stack([s.pool_x[:s_pool] for s in svcs]).contiguous()
+    x0c = x0s.reshape(n_cores * s_pool, i_dim)
+    cfg = svcs[0].config
+    s_block = cfg.s_block
+    core_map = np.repeat(np.arange(n_cores), s_pool // s_block)
+    offs = torch.zeros((n_cores, s_pool), dtype=torch.int64, device=device)
+    offc = offs.reshape(-1)
+    item = x0s.element_size()
+    weight_bytes = n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
+    rows_f1 = FARM_WORDS // LANES_PER_CLIENT
+    demand = [(HOT_WORDS if c == "chen" else COLD_WORDS) // LANES_PER_CLIENT
+              for c in small]
+    rows_f2 = max(demand)
+    eff = chaotic_ann.gang_effective_rows(np.repeat(demand, s_pool // s_block),
+                                          2 * rows_f2, cfg.t_block, cfg.unroll)
+
+    def gang_bound(rows_per_lane_sum):
+        # each input read once (x0, offsets, weights, maps), each output
+        # written once (the words computed, the state)
+        n_bytes = (2 * n_cores * s_pool * i_dim * item + n_cores * s_pool * 4
+                   + weight_bytes + rows_per_lane_sum * 4)
+        return bound(rows_per_lane_sum * 2 * step_flops(i_dim, h_dim),
+                     n_bytes, tag)
+
+    t = {}
+    steps_f1, steps_f2 = 2 * rows_f1, 2 * rows_f2
+    t["k4_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+        *w, x0s, offs, n_steps=steps_f1), reps=10, warmup=2)
+    t["k4_f1_plain"] = cuda_ms(torch, lambda: ref.chaotic_ann_gang_stacked_ref(
+        *w, x0s, steps_f1, offs), reps=1, warmup=1)
+    t["k4_f1_bound"] = gang_bound(n_cores * s_pool * rows_f1)
+    t["k3_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0c, core_map, offc, n_steps=steps_f1, s_block=s_block,
+        t_block=cfg.t_block, unroll=cfg.unroll), reps=10, warmup=2)
+    t["k3_f1_bound"] = t["k4_f1_bound"]
+    t["k3_f2"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0c, core_map, offc, np.repeat(demand, s_pool // s_block),
+        n_steps=steps_f2, s_block=s_block, t_block=cfg.t_block,
+        unroll=cfg.unroll), reps=10, warmup=2)
+    t["k3_f2_plain"] = cuda_ms(torch, lambda: ref.chaotic_ann_gang_bits_ref(
+        *w, x0c, core_map, steps_f2, offc, eff), reps=1, warmup=1)
+    t["k3_f2_bound"] = gang_bound(int(eff.sum()) * s_block)
+    t["k4_f2"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+        *w, x0s, offs, demand, n_steps=steps_f2), reps=10, warmup=2)
+    t["k4_f2_bound"] = gang_bound(sum(demand) * s_pool)
+    k1 = [[s.params[k] for k in ("w1", "b1", "w2", "b2")] for s in svcs]
+
+    def solo_f1():
+        for c in range(n_cores):
+            chaotic_ann.chaotic_ann_bits(*k1[c], x0s[c], offs[c],
+                                         n_steps=steps_f1)
+
+    t["k1_x4_f1"] = cuda_ms(torch, solo_f1, reps=10, warmup=2)
+    # K1 alone over all F1 lanes (chen's weights): the yardstick K4's
+    # ratio to its bound is compared with, at the same lanes and rows
+    t["k1_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+        *k1[0], x0c, offc, n_steps=steps_f1), reps=10, warmup=2)
+    print(f"farm device times {tag} (3-8-3 gang of {n_cores} x {s_pool} "
+          f"lanes, s_block {s_block}): F1 ({rows_f1} rows each) "
+          f"chaotic_ann_gang_stacked {t['k4_f1']:.4f} ms (bound "
+          f"{t['k4_f1_bound'][0]:.4f} ms by {t['k4_f1_bound'][1]}; plain "
+          f"{t['k4_f1_plain']:.1f} ms), chaotic_ann_gang_bits "
+          f"{t['k3_f1']:.4f} ms, gang=False 4 x chaotic_ann_bits "
+          f"{t['k1_x4_f1']:.4f} ms, one chaotic_ann_bits over all "
+          f"{n_cores * s_pool} lanes {t['k1_f1']:.4f} ms; F2 (rows {demand}, effective "
+          f"{sorted(set(eff.tolist()))}) chaotic_ann_gang_bits "
+          f"{t['k3_f2']:.4f} ms (bound {t['k3_f2_bound'][0]:.4f} ms by "
+          f"{t['k3_f2_bound'][1]}; plain {t['k3_f2_plain']:.1f} ms), "
+          f"chaotic_ann_gang_stacked freeze {t['k4_f2']:.4f} ms (bound "
+          f"{t['k4_f2_bound'][0]:.4f} ms); card {card}")
+    path = {k: sum(launches[f][k] for f in launches) for k in KERNELS}
+    return path, t
+
+
 def nist3(words: np.ndarray):
     """p-values of the online-gate subset, and the tests under alpha."""
     from repro_torch.prng.nist import _to_bits, block_frequency, monobit, runs
@@ -379,9 +717,13 @@ def main() -> int:
 
     errs = {}
     phase_kernels(torch, device, errs)
+    phase_gang_kernels(torch, device, errs)
     rows, served = [], {}
     replaces = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
-                "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254"}
+                "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
+                "chaotic_ann_gang_bits": "src/repro/kernels/chaotic_ann.py:630",
+                "chaotic_ann_gang_stacked":
+                    "src/repro/kernels/chaotic_ann.py:894"}
     # the path that runs each kernel: the served path runs K1 only, the
     # unfused path K2 only
     paths = {"chaotic_ann_bits": "served", "chaotic_ann_traj": "unfused"}
@@ -409,6 +751,21 @@ def main() -> int:
                 "flush_wall_ms": t["flush_s"] * 1e3 if key == "bits" else None,
             })
     phase_nist(torch, device, served)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        path, t = phase_farm(torch, device, dtype, tag, card)
+        for name, key in (("chaotic_ann_gang_bits", "k3_f2"),
+                          ("chaotic_ann_gang_stacked", "k4_f1")):
+            check(path[name] > 0, f"{name} not launched on the {tag} farm path")
+            rows.append({
+                "name": f"{name}/{tag}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+                "replaces": replaces[name], "path": "farm",
+                "launches": path[name], "max_abs_err": errs[(name, tag)],
+                "ms": t[key], "plain_ms": t[f"{key}_plain"],
+                "bound_ms": t[f"{key}_bound"][0],
+                "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+                "shape": "F2 ragged" if key == "k3_f2" else "F1 padded",
+            })
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

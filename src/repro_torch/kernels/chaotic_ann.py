@@ -10,13 +10,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ops, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The ROADMAP.md item that ports what these kernels refuse.
 TODO_UNPORTED = ("queue 2, 'K1/K2: mxu unit, non-relu activations, "
@@ -33,6 +36,12 @@ def _lib() -> ctypes.CDLL:
     lib.chaotic_ann_traj_launch.argtypes = (
         [_c_int] * 4 + [_c_ptr] * 6 + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_traj_launch.restype = _c_int
+    lib.chaotic_ann_gang_bits_launch.argtypes = (
+        [_c_int] * 4 + [_c_ptr] * 10 + [_c_i64] * 3 + [_c_ptr])
+    lib.chaotic_ann_gang_bits_launch.restype = _c_int
+    lib.chaotic_ann_gang_stacked_launch.argtypes = (
+        [_c_int] * 4 + [_c_ptr] * 9 + [_c_i64] * 3 + [_c_ptr])
+    lib.chaotic_ann_gang_stacked_launch.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
     return lib
@@ -45,32 +54,52 @@ def _check_activation(activation: str) -> None:
             f"ROADMAP.md {TODO_UNPORTED} (backend='ref' runs any activation)")
 
 
-def _operands(w1, b1, w2, b2, x0) -> Tuple[list, int]:
-    """Validated kernel operands: weights cast to the state dtype."""
+def _int32_on_card(a: np.ndarray, device) -> torch.Tensor:
+    """A small host int array as int32 on the card, without blocking the
+    host: staged in pinned memory and copied on the current stream (a
+    copy from pageable memory would wait for the stream's queued work)."""
+    host = torch.from_numpy(np.ascontiguousarray(a, np.int32)).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def _check_steps(n_steps: int) -> None:
+    if n_steps < 2 or n_steps % 2:
+        raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
+
+
+def _operands(w1, b1, w2, b2, x0, lead: Tuple[int, ...] = (),
+              x_dims: Tuple[str, ...] = ("S", "I")) -> Tuple[list, int]:
+    """Validated kernel operands: weights cast to the state dtype.
+
+    ``lead`` is the weights' leading shape: () for one net, (C,) for the
+    C stacked nets of a gang launch.  ``x_dims`` names the state's dims:
+    (S, I), or (C, S, I) for the stacked gang.
+    """
     if x0.device.type != "cuda":
         raise ValueError(f"x0 must be a CUDA tensor, got {x0.device}")
     if x0.dtype not in _DTYPE_CODES:
         raise ValueError(f"state dtype must be float32 or bfloat16, "
                          f"got {x0.dtype}")
-    if x0.ndim != 2 or not x0.is_contiguous():
-        raise ValueError(f"x0 must be a contiguous (S, I) tensor, got shape "
-                         f"{tuple(x0.shape)} strides {x0.stride()}")
-    i_dim, h_dim = w1.shape
-    shapes = {"w1": (w1, (i_dim, h_dim)), "b1": (b1, (h_dim,)),
-              "w2": (w2, (h_dim, i_dim)), "b2": (b2, (i_dim,))}
+    if x0.ndim != len(x_dims) or not x0.is_contiguous():
+        raise ValueError(f"x0 must be a contiguous ({', '.join(x_dims)}) "
+                         f"tensor, got shape {tuple(x0.shape)} strides "
+                         f"{x0.stride()}")
+    i_dim, h_dim = w1.shape[-2:]
+    shapes = {"w1": (w1, lead + (i_dim, h_dim)), "b1": (b1, lead + (h_dim,)),
+              "w2": (w2, lead + (h_dim, i_dim)), "b2": (b2, lead + (i_dim,))}
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want or t.device != x0.device:
             raise ValueError(f"{name} must be {want} on {x0.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    if x0.shape[1] != i_dim:
-        raise ValueError(f"x0 has {x0.shape[1]} features, w1 expects {i_dim}")
+    if x0.shape[-1] != i_dim:
+        raise ValueError(f"x0 has {x0.shape[-1]} features, w1 expects {i_dim}")
     weights = [t.to(x0.dtype).contiguous() for t in (w1, b1, w2, b2)]
     return weights, _DTYPE_CODES[x0.dtype]
 
 
 def _raise_on(lib, code: int, kernel: str, w1) -> None:
     if code == -1:
-        raise ValueError(f"{kernel}: (I, H) = {tuple(w1.shape)} is not "
+        raise ValueError(f"{kernel}: (I, H) = {tuple(w1.shape[-2:])} is not "
                          f"compiled into {build.SOURCE} (CHAOTIC_ANN_SHAPES)")
     if code:
         raise RuntimeError(f"{kernel} launch failed: "
@@ -92,8 +121,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     device memory and only the words, offsets and final state move.
     """
     _check_activation(activation)
-    if n_steps < 2 or n_steps % 2:
-        raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
+    _check_steps(n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
                                         word_offset, activation)
@@ -107,7 +135,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_bits_launch(
-        x0.device.index, code, *w1.shape,
+        x0.device.index, code, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
@@ -142,7 +170,7 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         return traj
     lib = _lib()
     rc = lib.chaotic_ann_traj_launch(
-        x0.device.index, code, *w1.shape,
+        x0.device.index, code, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), traj.data_ptr(),
         n_lanes, n_steps, torch.cuda.current_stream(x0.device).cuda_stream)
     _raise_on(lib, rc, "chaotic_ann_traj", w1)
@@ -151,3 +179,191 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
 
 chaotic_ann_traj.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The gang contract (pure integer code, copied from the JAX package): which
+# rows a ragged lane-concat gang launch computes.  The farm advances each
+# member by exactly these rows, so the CUDA kernel, which has no time grid,
+# still computes them.
+# ---------------------------------------------------------------------------
+
+def _bits_blocks(n_steps: int, t_block: int, unroll: int):
+    """Largest legal (t_block, unroll) not exceeding the requested ones.
+
+    The fused kernel must run *exactly* n_steps (the final state is part of
+    the contract), so t_block has to divide n_steps; it must also be even
+    (2 samples -> 1 word) and unroll counts word rows, so it must divide
+    t_block // 2.
+    """
+    t_block = max(2, t_block - (t_block % 2))
+    tb = math.gcd(t_block, n_steps)
+    un = max(1, math.gcd(unroll, tb // 2))
+    return tb, un
+
+
+def gang_row_granularity(n_steps: int, t_block: int, unroll: int) -> int:
+    """Word-row granularity of ragged early-out in the lane-concat kernel:
+    a block's computed rows are its ``row_map`` entry rounded up to the
+    post-gcd unroll (the ``_bits_blocks`` collapse)."""
+    _, un = _bits_blocks(n_steps, t_block, unroll)
+    return un
+
+
+def gang_effective_rows(row_map, n_steps: int, t_block: int,
+                        unroll: int) -> np.ndarray:
+    """Word rows each lane block of a ragged gang launch actually computes
+    (and therefore the rows its member's state/counters advance by)."""
+    un = gang_row_granularity(n_steps, t_block, unroll)
+    r = np.asarray(row_map, np.int64)
+    return np.minimum(-(-r // un) * un, n_steps // 2).astype(np.int32)
+
+
+def _host_ints(a) -> np.ndarray:
+    """A host int64 copy of a list, numpy array or tensor of integers."""
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a, np.int64)
+
+
+def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
+                          w2: torch.Tensor, b2: torch.Tensor,
+                          x0: torch.Tensor, core_map, word_offset=0,
+                          row_map=None, *, n_steps: int, s_block: int = 256,
+                          t_block: int = 128, unroll: int = 1,
+                          activation: str = "relu",
+                          compute_unit: str = "vpu"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane-concat gang launch: C stacked nets (``w1`` (C, I, H), ``b1``
+    (C, H), ``w2`` (C, H, I), ``b2`` (C, I)), one launch.  ``x0`` (S, I)
+    is ``len(core_map)`` blocks of ``s_block`` lanes; block ``g`` runs net
+    ``core_map[g]``.  ``row_map`` (n_blocks,) is each block's demand in
+    word rows: block ``g`` computes ``gang_effective_rows(row_map, n_steps,
+    t_block, unroll)[g]`` rows (its demand rounded up to the granularity
+    the farm absorbs by) and its state advances by exactly that; later
+    rows are unwritten.  None = every block computes every row.  Returns
+    (n_steps // 2, S) uint32 words and the (S, I) state.
+
+    Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
+    (K3).  Bound on the H100: operations, as K1: 2 steps of
+    (4*I*H + H + I) separate ops per word, summed over the rows each block
+    really computes, against 4 bytes written per word.  Design: K1's
+    thread per lane; a 128-lane CTA lies inside one lane block (``s_block``
+    is a multiple of 128), reads its block's core and rows, and stages
+    that core's weights in shared memory.  The TPU's scalar-prefetched
+    maps become two small int32 arrays the CTA reads itself.
+    """
+    _check_activation(activation)
+    if compute_unit != "vpu":
+        raise NotImplementedError(
+            f"compute_unit={compute_unit!r}: the gang kernels are vpu only; "
+            f"see ROADMAP.md {TODO_UNPORTED}")
+    _check_steps(n_steps)
+    cmap = _host_ints(core_map)
+    n_blocks, n_lanes, n_rows = cmap.shape[0], x0.shape[0], n_steps // 2
+    if n_lanes != n_blocks * s_block:
+        raise ValueError(
+            f"pool of {n_lanes} lanes != {n_blocks} core-map blocks x "
+            f"s_block {s_block}; pad each member pool to an s_block multiple")
+    if row_map is not None and np.shape(row_map) != cmap.shape:
+        raise ValueError(f"row_map shape {np.shape(row_map)} != core_map "
+                         f"shape {cmap.shape}")
+    n_cores = w1.shape[0]
+    if n_blocks and (cmap.min() < 0 or cmap.max() >= n_cores):
+        raise ValueError(f"core_map values must lie in [0, {n_cores})")
+    rows = (gang_effective_rows(row_map, n_steps, t_block, unroll)
+            if row_map is not None else np.full(n_blocks, n_rows, np.int32))
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_gang_bits_ref(w1, b1, w2, b2, x0, cmap,
+                                             n_steps, word_offset, rows,
+                                             activation)
+    if s_block % _CTA_LANES:
+        raise ValueError(f"s_block {s_block} must be a multiple of "
+                         f"{_CTA_LANES}, the kernel's lanes per CTA")
+    weights, code = _operands(w1, b1, w2, b2, x0, lead=(n_cores,))
+    maps = _int32_on_card(np.stack([cmap, rows]), x0.device)
+    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_gang_bits_launch(
+        x0.device.index, code, *w1.shape[-2:],
+        *(t.data_ptr() for t in weights), x0.data_ptr(), maps[0].data_ptr(),
+        maps[1].data_ptr(), offsets.data_ptr(), words.data_ptr(),
+        state.data_ptr(), n_lanes, s_block, n_rows,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on(lib, rc, "chaotic_ann_gang_bits", w1)
+    chaotic_ann_gang_bits.launches += 1
+    return words, state
+
+
+chaotic_ann_gang_bits.launches = 0
+
+
+def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor, b2: torch.Tensor,
+                             x0: torch.Tensor, word_offset=0, row_map=None,
+                             *, n_steps: int, activation: str = "relu",
+                             compute_unit: str = "vpu"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked gang launch for C equal pools: stacked nets as in
+    ``chaotic_ann_gang_bits``, ``x0`` (C, S, I), ``word_offset`` a scalar
+    or (C, S).  ``row_map`` (C,) freezes core ``c`` after exactly
+    ``min(row_map[c], n_steps // 2)`` rows, with no rounding; later rows
+    are unwritten.  Returns (n_steps // 2, C, S) uint32 words and the
+    (C, S, I) state.
+
+    Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_pallas``
+    (K4).  Bound on the H100: operations, as K1, summed over the rows each
+    core really computes.  Design: a 2-D grid, ``blockIdx.y`` the core,
+    whose weights the CTA stages in shared memory; each thread runs one
+    lane of that core.  The TPU's sublane stacking (one vreg sweep
+    advancing all C cores) has no counterpart: C cores are C times the
+    threads.  A frozen core's threads stop at its rows.
+    """
+    if compute_unit != "vpu":
+        raise ValueError("stacked gang launches support compute_unit='vpu' "
+                         "only (the stacked step is the vpu order)")
+    _check_activation(activation)
+    _check_steps(n_steps)
+    n_cores, n_rows = w1.shape[0], n_steps // 2
+    if x0.ndim != 3 or x0.shape[0] != n_cores:
+        raise ValueError(f"x0 must be ({n_cores}, S, I), one pool per "
+                         f"core, got {tuple(x0.shape)}")
+    n_lanes = x0.shape[1]
+    if row_map is not None and np.shape(row_map) != (n_cores,):
+        raise ValueError(f"row_map must have shape ({n_cores},), got "
+                         f"{np.shape(row_map)}")
+    rows = (np.minimum(_host_ints(row_map), n_rows) if row_map is not None
+            else np.full(n_cores, n_rows, np.int64))
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_gang_stacked_ref(w1, b1, w2, b2, x0, n_steps,
+                                                word_offset, rows,
+                                                activation)
+    if n_cores > 65535:
+        raise ValueError(f"{n_cores} cores exceed the grid's y extent")
+    weights, code = _operands(w1, b1, w2, b2, x0, lead=(n_cores,),
+                              x_dims=("C", "S", "I"))
+    rows_d = _int32_on_card(rows, x0.device)
+    offsets = ops.to_uint32(ops.word_offsets(
+        word_offset, (n_cores, n_lanes), x0.device))
+    words = torch.empty((n_rows, n_cores, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0 or n_cores == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_gang_stacked_launch(
+        x0.device.index, code, *w1.shape[-2:],
+        *(t.data_ptr() for t in weights), x0.data_ptr(), rows_d.data_ptr(),
+        offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_cores,
+        n_lanes, n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on(lib, rc, "chaotic_ann_gang_stacked", w1)
+    chaotic_ann_gang_stacked.launches += 1
+    return words, state
+
+
+chaotic_ann_gang_stacked.launches = 0

@@ -45,15 +45,17 @@ def from_uint32(words: torch.Tensor) -> torch.Tensor:
     return words.view(torch.int32).to(torch.int64) & _M32
 
 
-def word_offsets(word_offset, n_lanes: int, device) -> torch.Tensor:
-    """A scalar or (S,) word-row offset -> an (S,) int64 tensor mod 2**32."""
+def word_offsets(word_offset, shape, device) -> torch.Tensor:
+    """A scalar or per-lane word-row offset -> an int64 tensor of
+    ``shape`` (a lane count, or a tuple such as (C, S)) mod 2**32."""
     if isinstance(word_offset, torch.Tensor):
         off = (from_uint32(word_offset) if word_offset.dtype == torch.uint32
                else word_offset.to(torch.int64))
         off = off.to(device)
     else:
         off = torch.as_tensor(np.asarray(word_offset, np.int64), device=device)
-    return torch.broadcast_to(off & _M32, (n_lanes,))
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return torch.broadcast_to(off & _M32, shape)
 
 
 def _fold_low16(traj: torch.Tensor) -> torch.Tensor:
@@ -177,3 +179,86 @@ def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_bits(*_weights(params), x0, word_offset,
                                         n_steps=n_steps, activation=activation)
+
+
+def _stacked_weights(params):
+    """The stacked (leading core axis) weights of a gang's params."""
+    w = _weights(params)
+    if w[0].ndim != 3:
+        raise ValueError(f"gang params need a leading core axis: w1 (C, I, "
+                         f"H), got w1 of shape {tuple(w[0].shape)}")
+    return w
+
+
+def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
+                      n_steps: int, word_offset=0, *, core_map,
+                      row_map=None, activation: str = "relu",
+                      backend: str = "auto", s_block: int = 256,
+                      t_block: int = 128, unroll: int = 1,
+                      compute_unit: str = "vpu",
+                      config=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gang-scheduled fused PRNG draw: C stacked networks, ONE launch.
+
+    ``params`` carries a leading core axis (w1 (C, I, H), b1 (C, H),
+    w2 (C, H, I), b2 (C, I)); ``x0`` is the concatenated (S, I) stream
+    pool with each ``s_block``-lane block homogeneous in core, and
+    ``core_map[g]`` names the weight slab of block ``g``.  Per lane the
+    result is bit-identical to a per-core ``chaotic_bits`` launch with
+    that lane's network.
+
+    ``row_map`` (optional, same shape as ``core_map``) makes the launch
+    demand-shaped: block ``g`` computes only
+    ``chaotic_ann.gang_effective_rows(row_map, n_steps, t_block,
+    unroll)[g]`` word rows and its state advances by exactly that many;
+    later word rows are garbage that callers slice away.  ``config`` (a
+    ``core.dse.Candidate``) overrides s_block/t_block/unroll/compute_unit.
+    The JAX signature's ``mesh``/``partitioner`` are not ported
+    (ROADMAP.md queue 1, item 11).
+    """
+    if config is not None:
+        s_block, t_block = config.s_block, config.t_block
+        unroll, compute_unit = config.unroll, config.compute_unit
+    _check_ported(params, compute_unit)
+    w = _stacked_weights(params)
+    if backend == "ref":
+        rows = (chaotic_ann.gang_effective_rows(row_map, n_steps, t_block,
+                                                unroll)
+                if row_map is not None else None)
+        return ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps,
+                                             word_offset, rows, activation)
+    if backend != "auto":
+        raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
+    return chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, word_offset, row_map, n_steps=n_steps,
+        s_block=s_block, t_block=t_block, unroll=unroll,
+        activation=activation, compute_unit=compute_unit)
+
+
+def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
+                              x0: torch.Tensor, n_steps: int, word_offset=0,
+                              *, row_map=None, activation: str = "relu",
+                              backend: str = "auto", s_block: int = 256,
+                              t_block: int = 128, unroll: int = 1,
+                              compute_unit: str = "vpu",
+                              config=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked gang draw for C EQUAL-size pools: ``x0`` (C, S, I), one pool
+    per core, ``word_offset`` a scalar or (C, S).  vpu groups only.
+
+    ``row_map`` (optional, (C,)) freezes core ``c``'s state after exactly
+    ``row_map[c]`` word rows; its words past them are garbage.  Returns
+    words (n_steps // 2, C, S) and final state (C, S, I).  s_block,
+    t_block and unroll change nothing here; they are accepted for the JAX
+    signature, without its ``mesh``.
+    """
+    if config is not None:
+        compute_unit = config.compute_unit
+    _check_ported(params, compute_unit)
+    w = _stacked_weights(params)
+    if backend == "ref":
+        return ref.chaotic_ann_gang_stacked_ref(*w, x0, n_steps, word_offset,
+                                                row_map, activation)
+    if backend != "auto":
+        raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
+    return chaotic_ann.chaotic_ann_gang_stacked(
+        *w, x0, word_offset, row_map, n_steps=n_steps, activation=activation,
+        compute_unit=compute_unit)

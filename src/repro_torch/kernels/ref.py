@@ -27,20 +27,23 @@ def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
     ``h`` accumulates ``w1[i] * x[:, i]`` over ``i`` from zeros, then
     ``phi(h + b1)``; ``y`` accumulates ``w2[j] * h[:, j]`` over ``j`` from
-    zeros, then ``+ b2``.  Weights are cast to ``dtype`` once, here.
+    zeros, then ``+ b2``.  Weights are cast to ``dtype`` once, here.  They
+    are one net's (``w1`` (I, H)) or one net per lane (``w1`` (S, I, H),
+    ``b1`` (S, H), ...): every lane then runs exactly the ops it would run
+    alone.
     """
     phi = ACTIVATIONS[activation]
     w1, b1, w2, b2 = (t.to(dtype) for t in (w1, b1, w2, b2))
-    i_dim, h_dim = w1.shape
+    i_dim, h_dim = w1.shape[-2:]
 
     def step(x: torch.Tensor) -> torch.Tensor:
         h = torch.zeros((x.shape[0], h_dim), dtype=dtype, device=x.device)
         for i in range(i_dim):
-            h = h + w1[i][None, :] * x[:, i:i + 1]
+            h = h + w1[..., i, :] * x[:, i:i + 1]
         h = phi(h + b1)
         y = torch.zeros_like(x)
         for j in range(h_dim):
-            y = y + w2[j][None, :] * h[:, j:j + 1]
+            y = y + w2[..., j, :] * h[:, j:j + 1]
         return y + b2
 
     return step
@@ -73,3 +76,102 @@ def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
     traj = chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation)
     return ops.pack_words(traj, word_offset), traj[-1].clone()
+
+
+def _gang_scan(w1, b1, w2, b2, x0: torch.Tensor, lane_core: torch.Tensor,
+               lane_rows: torch.Tensor, n_steps: int, offsets: torch.Tensor,
+               activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain gang scan over (N, I) lanes: lane ``l`` runs net
+    ``lane_core[l]`` of the stacked weights for ``lane_rows[l]`` word rows
+    and then holds its state.  Every lane steps the whole launch (the
+    words past its rows are computed and zeroed), vectorised over lanes,
+    never looped over blocks or cores.  ``offsets`` are (N,) int64.
+
+    Returns (n_steps // 2, N) uint32 words, zero past each lane's rows,
+    and the (N, I) state after each lane's own rows.
+    """
+    if n_steps < 2 or n_steps % 2:
+        raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
+    step = make_step(w1[lane_core], b1[lane_core], w2[lane_core],
+                     b2[lane_core], dtype=x0.dtype, activation=activation)
+    n_rows = n_steps // 2
+    ragged = bool((lane_rows < n_rows).any())
+    traj = torch.empty((n_steps,) + tuple(x0.shape), dtype=x0.dtype,
+                       device=x0.device)
+    x = x0
+    for r in range(n_rows):
+        x1 = step(x)
+        x2 = step(x1)
+        traj[2 * r], traj[2 * r + 1] = x1, x2
+        x = torch.where((r < lane_rows)[:, None], x2, x) if ragged else x2
+    words = ops._packed(traj, offsets)
+    if ragged:
+        rows = torch.arange(n_rows, device=x0.device)[:, None]
+        words = torch.where(rows < lane_rows[None, :], words, 0)
+    return ops.to_uint32(words), x
+
+
+def _rows(row_map, n: int, n_steps: int, device) -> torch.Tensor:
+    """(n,) int64 rows: ``row_map`` clamped to n_steps // 2, or all rows."""
+    full = torch.full((n,), n_steps // 2, dtype=torch.int64, device=device)
+    if row_map is None:
+        return full
+    return torch.minimum(
+        torch.as_tensor(row_map, dtype=torch.int64, device=device), full)
+
+
+def chaotic_ann_gang_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
+                              w2: torch.Tensor, b2: torch.Tensor,
+                              x0: torch.Tensor, core_map, n_steps: int,
+                              word_offset=0, row_map=None,
+                              activation: str = "relu"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K3, the lane-concat gang: stacked weights ``w1`` (C, I, H),
+    ``b1`` (C, H), ``w2`` (C, H, I), ``b2`` (C, I); ``x0`` (S, I) split
+    into ``len(core_map)`` equal lane blocks, block ``g`` running net
+    ``core_map[g]``.
+
+    ``row_map`` (n_blocks,) is the word rows each block computes,
+    *exactly* (values past ``n_steps // 2`` are clamped): the kernel's
+    contract.  The public wrapper ``chaotic_ann.chaotic_ann_gang_bits``
+    turns demands into these rows first (``gang_effective_rows``).
+    None = every block computes every row.  Returns (n_steps // 2, S)
+    uint32 words, zero past a block's rows, and the (S, I) state.
+    """
+    n_blocks, n_lanes = len(core_map), x0.shape[0]
+    if n_blocks == 0 or n_lanes % n_blocks:
+        raise ValueError(f"{n_lanes} lanes do not split into "
+                         f"{n_blocks} equal lane blocks")
+    s_block = n_lanes // n_blocks
+    dev = x0.device
+    cmap = torch.as_tensor(core_map, dtype=torch.int64, device=dev)
+    rows = _rows(row_map, n_blocks, n_steps, dev)
+    return _gang_scan(w1, b1, w2, b2, x0, cmap.repeat_interleave(s_block),
+                      rows.repeat_interleave(s_block), n_steps,
+                      ops.word_offsets(word_offset, n_lanes, dev),
+                      activation)
+
+
+def chaotic_ann_gang_stacked_ref(w1: torch.Tensor, b1: torch.Tensor,
+                                 w2: torch.Tensor, b2: torch.Tensor,
+                                 x0: torch.Tensor, n_steps: int,
+                                 word_offset=0, row_map=None,
+                                 activation: str = "relu"
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4, C equal pools: stacked weights as in K3, ``x0`` (C, S, I),
+    ``word_offset`` a scalar or (C, S).  ``row_map`` (C,) freezes core
+    ``c`` after exactly ``min(row_map[c], n_steps // 2)`` rows.  Returns
+    (n_steps // 2, C, S) uint32 words, zero past a core's rows, and the
+    (C, S, I) state.
+    """
+    n_cores, n_lanes, i_dim = x0.shape
+    dev = x0.device
+    rows = _rows(row_map, n_cores, n_steps, dev)
+    cores = torch.arange(n_cores, device=dev)
+    off = ops.word_offsets(word_offset, (n_cores, n_lanes), dev)
+    words, state = _gang_scan(
+        w1, b1, w2, b2, x0.reshape(n_cores * n_lanes, i_dim),
+        cores.repeat_interleave(n_lanes), rows.repeat_interleave(n_lanes),
+        n_steps, off.reshape(-1), activation)
+    return (words.reshape(n_steps // 2, n_cores, n_lanes),
+            state.reshape(n_cores, n_lanes, i_dim))

@@ -5,6 +5,8 @@ installed; there, skip ``tests/conftest.py`` (it imports JAX):
 
     PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,13 @@ from repro_torch.kernels import chaotic_ann, ops, ref
 from repro_torch.prng.stream import default_params
 
 pytestmark = pytest.mark.gpu
+
+FARM = (pathlib.Path(__file__).resolve().parents[1] / "results"
+        / "generated_cores" / "farm")
+# the committed farm's gangs: the four 3-8-3 cores, and hyperlorenz's farm
+# and registry weights as a 4-16-4 pair
+GANGS = {"3-8": ("chen", "chua", "lorenz", "rossler"),
+         "4-16": ("hyperlorenz", "registry:hyperlorenz")}
 
 
 def _need_card():
@@ -85,3 +94,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
             torch.zeros(3, 5, device="cuda"), torch.zeros(5, device="cuda"),
             torch.zeros(5, 3, device="cuda"), torch.zeros(3, device="cuda"),
             x0, n_steps=4)
+
+
+def _gang_weights(gang):
+    per_core = []
+    for name in GANGS[gang]:
+        if name.startswith("registry:"):
+            p = default_params(system=name.split(":")[1])
+        else:
+            with np.load(FARM / name / "weights.npz") as npz:
+                p = dict(npz)
+        per_core.append([np.asarray(p[k], np.float32)
+                         for k in ("w1", "b1", "w2", "b2")])
+    return [torch.from_numpy(np.stack(ws)).cuda() for ws in zip(*per_core)]
+
+
+def _assert_bitwise(a, b):
+    if a.dtype == torch.uint32:
+        assert torch.equal(ops.from_uint32(a), ops.from_uint32(b))
+    else:
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["padded", "ragged"])
+@pytest.mark.parametrize("gang", sorted(GANGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gang_kernels_bitwise_vs_plain_on_card(gang, dtype, ragged):
+    """K3 and K4 against their plain versions: the words each block or
+    core asked for, and the final states."""
+    _need_card()
+    w = _gang_weights(gang)
+    n_cores, i_dim = w[0].shape[0], w[0].shape[1]
+    rng = np.random.default_rng(22)
+    n_steps, s_block, n_blocks = 64, 256, 6
+    # K3: demands of 0, not a multiple of the granularity (unroll 8), and
+    # above the launch's 32 rows
+    core_map = np.arange(n_blocks) % n_cores
+    row_map = np.array([0, 3, 32, 17, 40, 9]) if ragged else None
+    x0 = torch.from_numpy(rng.uniform(-0.9, 0.9, (n_blocks * s_block, i_dim))
+                          .astype(np.float32)).to("cuda", dtype)
+    off = torch.from_numpy(rng.integers(0, 1 << 32, n_blocks * s_block))
+    off[:4] = torch.tensor([0xFFFFFFFF, 0xFFFFFFF0, 0xFFFFFFC0, 0])
+    off = off.cuda()
+    n0 = chaotic_ann.chaotic_ann_gang_bits.launches
+    words, state = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, off, row_map, n_steps=n_steps, s_block=s_block,
+        t_block=256, unroll=8)
+    assert chaotic_ann.chaotic_ann_gang_bits.launches == n0 + 1
+    rows = (chaotic_ann.gang_effective_rows(row_map, n_steps, 256, 8)
+            if ragged else np.full(n_blocks, n_steps // 2))
+    rw, rs = ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps, off,
+                                           rows)
+    torch.cuda.synchronize()
+    for g, r in enumerate(rows):
+        lanes = slice(g * s_block, (g + 1) * s_block)
+        _assert_bitwise(words[:r, lanes], rw[:r, lanes])
+    _assert_bitwise(state, rs)
+    # K4: a ragged lane count per core, and a zero demand
+    n_lanes = 300 + 37
+    xs = torch.from_numpy(rng.uniform(-0.9, 0.9, (n_cores, n_lanes, i_dim))
+                          .astype(np.float32)).to("cuda", dtype)
+    offs = torch.from_numpy(rng.integers(0, 1 << 32, (n_cores, n_lanes)))
+    offs = offs.cuda()
+    srows = ([0, 13, 40, 32][:n_cores] if ragged else None)
+    n0 = chaotic_ann.chaotic_ann_gang_stacked.launches
+    words, state = chaotic_ann.chaotic_ann_gang_stacked(
+        *w, xs, offs, srows, n_steps=n_steps)
+    assert chaotic_ann.chaotic_ann_gang_stacked.launches == n0 + 1
+    rw, rs = ref.chaotic_ann_gang_stacked_ref(*w, xs, n_steps, offs, srows)
+    torch.cuda.synchronize()
+    for c in range(n_cores):
+        r = n_steps // 2 if srows is None else min(srows[c], n_steps // 2)
+        _assert_bitwise(words[:r, c], rw[:r, c])
+    _assert_bitwise(state, rs)
+
+
+def test_gang_ops_on_card_never_reach_the_plain_version(monkeypatch):
+    _need_card()
+    w = _gang_weights("3-8")
+    params = dict(zip(("w1", "b1", "w2", "b2"), w))
+    x0 = torch.rand(4 * 128, 3, device="cuda") - 0.5
+    kw = dict(core_map=[0, 3, 1, 2], row_map=[1, 9, 0, 4], s_block=128,
+              t_block=16, unroll=4)
+    want = ops.chaotic_bits_gang(params, x0, 24, 7, backend="ref", **kw)
+    xs = x0.reshape(4, 128, 3)
+    want_s = ops.chaotic_bits_gang_stacked(params, xs, 24, 5,
+                                           row_map=[3, 12, 0, 5],
+                                           backend="ref")
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "chaotic_ann_gang_bits_ref", forbidden)
+    monkeypatch.setattr(ref, "chaotic_ann_gang_stacked_ref", forbidden)
+    got = ops.chaotic_bits_gang(params, x0, 24, 7, **kw)
+    got_s = ops.chaotic_bits_gang_stacked(params, xs, 24, 5,
+                                          row_map=[3, 12, 0, 5])
+    torch.cuda.synchronize()
+    rows = chaotic_ann.gang_effective_rows(kw["row_map"], 24, 16, 4)
+    for g, r in enumerate(rows):
+        lanes = slice(g * 128, (g + 1) * 128)
+        _assert_bitwise(got[0][:r, lanes], want[0][:r, lanes])
+    _assert_bitwise(got[1], want[1])
+    for c, r in enumerate([3, 12, 0, 5]):
+        _assert_bitwise(got_s[0][:r, c], want_s[0][:r, c])
+    _assert_bitwise(got_s[1], want_s[1])
+
+
+def test_gang_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    w = _gang_weights("3-8")
+    x0 = torch.zeros(256, 3, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1, 2, 3], n_steps=4,
+                                          s_block=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        chaotic_ann.chaotic_ann_gang_stacked(
+            *w, torch.zeros(4, 3, 64, device="cuda").transpose(1, 2),
+            n_steps=4)
+    with pytest.raises(ValueError, match=r"b1 must be \(4, 8\)"):
+        chaotic_ann.chaotic_ann_gang_bits(w[0], w[1][:, :5], *w[2:], x0,
+                                          [0, 1], n_steps=4, s_block=128)

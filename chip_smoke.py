@@ -10,9 +10,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. Hold each kernel against its plain PyTorch version on the card,
    bitwise (words, final state, trajectory), in f32 and bf16, on the
    committed chen (3-8-3) and hyperlorenz (4-16-4) weights, at a ragged
-   lane count and with per-lane word offsets that wrap past 2**32.  The
-   gang kernels K3 and K4 likewise, on the committed farm's cores (the
-   four 3-8-3 cores as a gang of 4; hyperlorenz's farm and registry
+   lane count and with per-lane word offsets that wrap past 2**32; the
+   lattice forms of K1 and K2 likewise against the plain dense loop at
+   chen@ring32, chen@grid32 and chen@ring8 (8,192 + 37 lanes, 64 steps).
+   The gang kernels K3 and K4 likewise, on the committed farm's cores
+   (the four 3-8-3 cores as a gang of 4; hyperlorenz's farm and registry
    weights as a 4-16-4 gang of 2), padded and ragged: the words each
    lane block or core asked for, and the final states.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
@@ -20,10 +22,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    words per flush (33.5 M words a flush).  Then the unfused path
    (``ops.chaotic_trajectory`` + ``ops.pack_words``) on the same first
    flush.  Each path has the launch counters zeroed just before it and
-   read just after; the served words are checked against a standalone
-   ``ChaoticPRNG`` drawn in other chunks, a snapshot/restore
-   continuation, and the unfused path.  Then the kernel times (CUDA
-   events), the plain versions' times, and the bounds.
+   read just after, and must have launched its one kernel and no other;
+   the served words are checked against a standalone ``ChaoticPRNG``
+   drawn in other chunks, a snapshot/restore continuation, and the
+   unfused path.  Then the kernel times (CUDA events), the plain
+   versions' times, and the bounds; K1 and K2 are held bitwise against
+   their plain versions at the flush's own shape (65,536 lanes, from the
+   pool's state before the first flush).
 4. NIST monobit / runs / block frequency on 2**20 served words per dtype,
    under the JAX package's policy (``repro/prng/quality.py``): f32 words
    must pass outright; a bf16 core must not be quarantined by the offline
@@ -43,6 +48,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    pending, restored onto a fresh farm.  Then the gang kernels' times at
    F1's and F2's shapes, their plain versions' times and their bounds,
    and the ``gang=False`` cost of F1's 3-8-3 words (four K1 launches).
+6. The lattice path, per dtype: phase 3 on chen@ring32 (32 chen nodes on
+   a ring, I = 96, vpu; derived from chen's committed weights), 512
+   clients x 128 lanes, 16,384 words per client per flush (128 word
+   rows), on an explicit vpu config, through the lattice forms of K1
+   (served) and K2 (unfused), held against the plain dense loop at that
+   shape too.
+   NIST monobit / runs / block frequency on 2**20 served lattice words,
+   printed and not gated (the JAX package makes no lattice quality
+   claim).
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -69,9 +83,17 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_FLOPS = {"f32": 67e12, "bf16": 133.8e12}
 PEAK_HBM_BYTES = 3.35e12
 
-SYSTEMS = ("chen", "hyperlorenz")
 CHECK_LANES = 65_536 + 37      # ragged: not a multiple of the block size
 CHECK_STEPS = 512
+LATTICE_CHECK_LANES = 8_192 + 37
+LATTICE_CHECK_STEPS = 64
+# kernel-vs-plain checks: (system, lanes, steps); the plain lattice loop
+# is dense over I = 96, H = 256, so its checks are smaller
+CHECKS = (("chen", CHECK_LANES, CHECK_STEPS),
+          ("hyperlorenz", CHECK_LANES, CHECK_STEPS),
+          ("chen@ring32", LATTICE_CHECK_LANES, LATTICE_CHECK_STEPS),
+          ("chen@grid32", LATTICE_CHECK_LANES, LATTICE_CHECK_STEPS),
+          ("chen@ring8", LATTICE_CHECK_LANES, LATTICE_CHECK_STEPS))
 N_CLIENTS = 512
 LANES_PER_CLIENT = 128
 WORDS_PER_CLIENT = 65_536
@@ -96,6 +118,9 @@ K4_ROW_MAP = [0, 13, 300, 100]
 FARM_CLIENTS = 128
 FARM_WORDS = 16_384                      # per client: 128 word rows
 HOT_WORDS, COLD_WORDS = 65_536, 1_024    # F2: chen's clients, the others
+# the served lattice
+LATTICE = "chen@ring32"
+LATTICE_WORDS = 16_384                   # per client: 128 word rows
 
 
 class SmokeFailure(Exception):
@@ -130,6 +155,19 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(torch, fn):
+    """``fn()``'s result and its device time in ms: one call, by CUDA
+    events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(flops: float, n_bytes: float, tag: str):
     ops_ms = flops / PEAK_FLOPS[tag] * 1e3
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
@@ -140,6 +178,17 @@ def step_flops(i_dim: int, h_dim: int) -> int:
     """Separate ops of one step, each in the state dtype: I*H mul+add,
     H bias, H*I mul+add, I bias."""
     return 4 * i_dim * h_dim + h_dim + i_dim
+
+
+def lattice_step_flops(lattice, h_dim: int) -> int:
+    """Ops of one lattice step (``h_dim`` the lattice-expanded hidden
+    width), block-sparse work only: each node's base step, plus the
+    coupling's ops per state component (ring: neighbour sum 1, deg*x,
+    difference, scale, add into y; torus: 3 sums)."""
+    n_nodes, base_dim, topology, _ = lattice
+    per_component = 5 if topology == "ring" else 7
+    return (n_nodes * step_flops(base_dim, h_dim // n_nodes)
+            + per_component * n_nodes * base_dim)
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -252,46 +301,69 @@ def phase_gang_kernels(torch, device, errs) -> None:
                     errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
 
 
+def kernel_names(lattice):
+    """The (K1, K2) wrappers whose counters a core's launches move: the
+    scalar kernels, or the lattice forms for a lattice core (``lattice``
+    its descriptor, or any true value)."""
+    if not lattice:
+        return "chaotic_ann_bits", "chaotic_ann_traj"
+    return "chaotic_ann_lattice_bits", "chaotic_ann_lattice_traj"
+
+
 def phase_kernels(torch, device, errs) -> None:
-    """Each kernel against its plain version on the card, bitwise."""
-    from repro_torch.core.ann import params_from_numpy
+    """K1 and K2, scalar and lattice forms, against their plain versions
+    on the card, bitwise."""
+    from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
     from repro_torch.kernels import chaotic_ann, ref
     from repro_torch.prng.stream import default_params
 
     rng = np.random.default_rng(0)
-    for system in SYSTEMS:
+    for system, n_lanes, n_steps in CHECKS:
         p = params_from_numpy(default_params(system=system), device=device)
         w = (p["w1"], p["b1"], p["w2"], p["b2"])
+        lattice = (lattice_meta_tuple(p["lattice_meta"])
+                   if "lattice_meta" in p else None)
+        bits_name, traj_name = kernel_names(lattice)
         i_dim = p["w1"].shape[0]
-        x0_np = rng.uniform(-0.9, 0.9, (CHECK_LANES, i_dim)).astype(np.float32)
-        off_np = rng.integers(0, 1 << 32, CHECK_LANES, dtype=np.int64)
+        x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+        off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
         off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)    # wrap mid-run
         off = torch.as_tensor(off_np, device=device)
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             x0 = torch.as_tensor(x0_np, device=device).to(dtype)
             words_k, state_k = chaotic_ann.chaotic_ann_bits(
-                *w, x0, off, n_steps=CHECK_STEPS)
+                *w, x0, off, n_steps=n_steps, lattice=lattice)
             words_p, state_p = ref.chaotic_ann_bits_ref(
-                *w, x0, CHECK_STEPS, off)
-            traj_k = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=CHECK_STEPS)
-            traj_p = ref.chaotic_ann_ref(*w, x0, CHECK_STEPS)
+                *w, x0, n_steps, off, lattice=lattice)
+            traj_k = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=n_steps,
+                                                  lattice=lattice)
+            traj_p = ref.chaotic_ann_ref(*w, x0, n_steps, lattice=lattice)
             torch.cuda.synchronize()
             e_bits = max(max_abs_err(torch, words_k, words_p),
                          max_abs_err(torch, state_k, state_p))
             e_traj = max_abs_err(torch, traj_k, traj_p)
-            print(f"check {system} {tag} S={CHECK_LANES} steps={CHECK_STEPS}:"
-                  f" chaotic_ann_bits max_abs_err={e_bits}"
-                  f" chaotic_ann_traj max_abs_err={e_traj}"
+            print(f"check {system} {tag} S={n_lanes} steps={n_steps}:"
+                  f" {bits_name} max_abs_err={e_bits}"
+                  f" {traj_name} max_abs_err={e_traj}"
                   f" max|x|={traj_p.float().abs().max().item():.6g}")
-            check(e_bits == 0.0, f"chaotic_ann_bits != plain ({system}, {tag})")
-            check(e_traj == 0.0, f"chaotic_ann_traj != plain ({system}, {tag})")
-            for name, e in (("chaotic_ann_bits", e_bits),
-                            ("chaotic_ann_traj", e_traj)):
+            check(e_bits == 0.0, f"{bits_name} != plain ({system}, {tag})")
+            check(e_traj == 0.0, f"{traj_name} != plain ({system}, {tag})")
+            for name, e in ((bits_name, e_bits), (traj_name, e_traj)):
                 errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
 
 
+# the TPU kernel each wrapper replaces (its lattice form too)
+REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
+            "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
+            "chaotic_ann_gang_bits": "src/repro/kernels/chaotic_ann.py:630",
+            "chaotic_ann_gang_stacked": "src/repro/kernels/chaotic_ann.py:894"}
+# each served system's (served path, unfused path): the served path runs
+# K1 only, the unfused path K2 only
+PATHS = {"chen": ("served", "unfused"),
+         LATTICE: ("lattice-served", "lattice-unfused")}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
-           "chaotic_ann_gang_stacked")
+           "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
+           "chaotic_ann_lattice_traj")
 
 
 def read_launches(chaotic_ann) -> dict:
@@ -303,28 +375,45 @@ def zero_launches(chaotic_ann) -> None:
         getattr(chaotic_ann, name).launches = 0
 
 
-def phase_main_path(torch, device, dtype, tag, card):
-    """The served path at full width, then the unfused path; returns
-    ({path: launch counts}, timings, served words for the NIST phase)."""
+def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
+                 errs):
+    """One served path at full width, then its unfused path: ``PRNGService``
+    on ``system`` (the scalar chen, or the chen@ring32 lattice on an
+    explicit vpu config), 512 clients x 128 lanes, register and three
+    flushes of ``n_words`` words a client; then K1 and K2 against their
+    plain versions at the flush's own shape, bitwise.  Returns ({path:
+    launch counts}, timings, served words for the NIST phase)."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.core.dse import default_config
     from repro_torch.kernels import chaotic_ann, ops, ref
-    from repro_torch.prng.stream import ChaoticPRNG, _round_rows, default_params
+    from repro_torch.prng.stream import (ChaoticPRNG, _round_rows,
+                                         trained_oscillator)
     from repro_torch.serve.prng_service import PRNGService
 
-    params_np = default_params(system="chen")
-    L, n_words = LANES_PER_CLIENT, WORDS_PER_CLIENT
+    params_np = trained_oscillator(system)   # a lattice derives from chen's
+    L = LANES_PER_CLIENT
     names = [f"client{i:03d}" for i in range(N_CLIENTS)]
+    served_path, unfused_path = PATHS[system]
+    lattice = (lattice_meta_tuple(params_np["lattice_meta"])
+               if "lattice_meta" in params_np else None)
+    config = None if lattice is None else default_config(
+        *params_np["w1"].shape, dtype, n_nodes=lattice[0])
 
     def make_service():
         return PRNGService(params_np, lanes_per_client=L, dtype=dtype,
-                           device=device)
+                           config=config, device=device)
 
     zero_launches(chaotic_ann)
     t0 = time.perf_counter()
     svc = make_service()
     for i, name in enumerate(names):
-        svc.register(name, seed=1000 + i)
+        svc.register(name, seed=seed0 + i)
     torch.cuda.synchronize()
     t_register = time.perf_counter() - t0
+    bits_name, traj_name = kernel_names(lattice)
+    check(svc.config.compute_unit == "vpu"
+          and svc.config.n_nodes == (1 if lattice is None else lattice[0]),
+          f"{system} {tag}: config {svc.config}")
 
     x_before = svc.pool_x.clone()            # every client at word row 0
     for name in names:
@@ -333,8 +422,9 @@ def phase_main_path(torch, device, dtype, tag, card):
     out1 = svc.flush()
     torch.cuda.synchronize()
     t_flush1 = time.perf_counter() - t0
-    check(svc.launches == 1, f"{tag}: one flush must be one launch")
-    check(all(out1[n].size == n_words for n in names), f"{tag}: flush sizes")
+    check(svc.launches == 1, f"{system} {tag}: one flush must be one launch")
+    check(all(out1[n].size == n_words for n in names),
+          f"{system} {tag}: flush sizes")
 
     snap = svc.snapshot()
     for name in names:
@@ -356,12 +446,15 @@ def phase_main_path(torch, device, dtype, tag, card):
     svc.absorb(words, new_x, n_rows)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {"served": read_launches(chaotic_ann)}
-    check(launches["served"]["chaotic_ann_bits"] == N_CLIENTS + 3,
-          f"{tag}: served path must launch once per burn-in and per flush, "
-          f"got {launches['served']}")
+    launches = {served_path: read_launches(chaotic_ann)}
+    got = launches[served_path]
+    check(got[bits_name] == N_CLIENTS + 3 and sum(got.values()) == got[bits_name],
+          f"{system} {tag}: the served path must launch {bits_name} once per "
+          f"burn-in and per flush, and nothing else; got {got}")
     split = {"plan_ms": (t1 - t0) * 1e3, "launch_and_copy_ms": (t2 - t1) * 1e3,
              "absorb_ms": (t3 - t2) * 1e3}
+    pool_mb = svc.pool_x.numel() * svc.pool_x.element_size() / 1e6
+    slab_mb = words.nbytes / 1e6
 
     # snapshot/restore continues every stream bit-exactly
     svc2 = make_service()
@@ -370,13 +463,13 @@ def phase_main_path(torch, device, dtype, tag, card):
         svc2.request(name, n_words)
     out2r = svc2.flush()
     check(all(np.array_equal(out2[n], out2r[n]) for n in names),
-          f"{tag}: snapshot/restore continuation differs")
+          f"{system} {tag}: snapshot/restore continuation differs")
 
     # a standalone engine, drawn in other chunks, gives the same words
     eng = ChaoticPRNG(params_np, n_streams=L, config=svc.config, dtype=dtype,
                       device=device)
     for i in (0, 1, N_CLIENTS - 1):
-        state = eng.init(seed=1000 + i)
+        state = eng.init(seed=seed0 + i)
         parts = []
         first, second = n_words // 65, n_words // 2 + 7     # odd chunks
         for n in (first, second, 2 * n_words - first - second):
@@ -384,7 +477,8 @@ def phase_main_path(torch, device, dtype, tag, card):
             parts.append(w)
         check(np.array_equal(np.concatenate(parts),
                              np.concatenate([out1[names[i]], out2[names[i]]])),
-              f"{tag}: chunked standalone stream differs for {names[i]}")
+              f"{system} {tag}: chunked standalone stream differs for "
+              f"{names[i]}")
 
     # the unfused path (trajectory kernel + packing) gives the same words
     n_steps = 2 * (n_words // L)
@@ -392,16 +486,22 @@ def phase_main_path(torch, device, dtype, tag, card):
     traj = ops.chaotic_trajectory(svc.params, x_before, n_steps,
                                   config=svc.config)
     slab = ops.pack_words(traj, 0).cpu().numpy()
-    launches["unfused"] = read_launches(chaotic_ann)
+    launches[unfused_path] = read_launches(chaotic_ann)
     del traj
+    got = launches[unfused_path]
+    check(got[traj_name] == 1 and sum(got.values()) == 1,
+          f"{system} {tag}: the unfused path must launch {traj_name} once, "
+          f"got {got}")
     check(all(np.array_equal(slab[:, i * L:(i + 1) * L].reshape(-1), out1[n])
               for i, n in enumerate(names)),
-          f"{tag}: unfused pipeline differs from the fused service")
+          f"{system} {tag}: unfused pipeline differs from the fused service")
     # every lane shares the row counter here, so lanes whose oscillators
     # have merged emit equal words: distinct words per row count them
     distinct = [len(np.unique(slab[r])) for r in (0, len(slab) - 1)]
-    print(f"main path {tag}: {N_CLIENTS} clients x {L} lanes, "
-          f"{N_CLIENTS * n_words} words per flush; launches {launches}; "
+    print(f"{served_path} path {tag}: {system}, {N_CLIENTS} clients x {L} "
+          f"lanes, {N_CLIENTS * n_words} words per flush ({n_rows} rows); "
+          f"pool {pool_mb:.1f} MB, word slab {slab_mb:.1f} MB; launches "
+          f"{ {p: {k: v for k, v in c.items() if v} for p, c in launches.items()} }; "
           f"register {t_register:.3f} s; flush wall {t_flush1 * 1e3:.1f} ms "
           f"then {t_flush2 * 1e3:.1f} ms ({N_CLIENTS * n_words / t_flush2:.4g}"
           f" words/s); third flush split "
@@ -409,46 +509,94 @@ def phase_main_path(torch, device, dtype, tag, card):
           + f"; distinct words of {x_before.shape[0]} lanes in row 0 "
           f"{distinct[0]}, in row {len(slab) - 1} {distinct[1]}; card {card}")
 
-    # device times at the flush shape (not counted as main-path launches)
+    # device times at the flush shape (not counted as path launches)
     w = [svc.params[k] for k in ("w1", "b1", "w2", "b2")]
     x, s_pool = x_before, x_before.shape[0]
     off = torch.zeros(s_pool, dtype=torch.int64, device=device)
     i_dim, h_dim = w[0].shape
     item = x.element_size()
     n_out = n_steps // 2 * s_pool
+    ops_step = (step_flops(i_dim, h_dim) if lattice is None
+                else lattice_step_flops(lattice, h_dim))
     t = {
         "bits_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
-            *w, x, off, n_steps=n_steps), reps=10, warmup=2),
+            *w, x, off, n_steps=n_steps, lattice=lattice), reps=5, warmup=2),
         "traj_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_traj(
-            *w, x, n_steps=n_steps), reps=5, warmup=1),
+            *w, x, n_steps=n_steps, lattice=lattice), reps=3, warmup=1),
         "unfused_ms": cuda_ms(torch, lambda: ops.pack_words(
-            chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps), off),
-            reps=3, warmup=1),
-        "bits_plain_ms": cuda_ms(torch, lambda: ref.chaotic_ann_bits_ref(
-            *w, x, n_steps, off), reps=1, warmup=1),
-        "traj_plain_ms": cuda_ms(torch, lambda: ref.chaotic_ann_ref(
-            *w, x, n_steps), reps=1, warmup=1),
+            chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps,
+                                         lattice=lattice), off),
+            reps=2, warmup=1),
     }
+    # the plain versions repeat the kernels' arithmetic op by op (the
+    # lattice's densely): one timed call each, held bitwise against the
+    # kernel at this shape
+    (words_p, state_p), t["bits_plain_ms"] = timed_once(
+        torch, lambda: ref.chaotic_ann_bits_ref(*w, x, n_steps, off,
+                                                lattice=lattice))
+    words_k, state_k = chaotic_ann.chaotic_ann_bits(
+        *w, x, off, n_steps=n_steps, lattice=lattice)
+    e_bits = max(max_abs_err(torch, words_k, words_p),
+                 max_abs_err(torch, state_k, state_p))
+    del words_p, state_p, words_k, state_k
+    traj_p, t["traj_plain_ms"] = timed_once(
+        torch, lambda: ref.chaotic_ann_ref(*w, x, n_steps, lattice=lattice))
+    traj_k = chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps,
+                                          lattice=lattice)
+    e_traj = max_abs_err(torch, traj_k, traj_p)
+    del traj_p, traj_k
+    print(f"check {system} {tag} S={s_pool} steps={n_steps} (the flush's "
+          f"shape): {bits_name} max_abs_err={e_bits} {traj_name} "
+          f"max_abs_err={e_traj}")
+    check(e_bits == 0.0, f"{bits_name} != plain ({system}, {tag}, flush shape)")
+    check(e_traj == 0.0, f"{traj_name} != plain ({system}, {tag}, flush shape)")
+    for name, e in ((bits_name, e_bits), (traj_name, e_traj)):
+        errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
     weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim) * item
     t["bits_bound"] = bound(
-        n_out * 2 * step_flops(i_dim, h_dim),
+        n_out * 2 * ops_step,
         2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes + n_out * 4, tag)
     t["traj_bound"] = bound(
-        n_steps * s_pool * step_flops(i_dim, h_dim),
+        n_steps * s_pool * ops_step,
         s_pool * i_dim * item + weight_bytes + n_steps * s_pool * i_dim * item,
         tag)
     t["flush_s"] = t_flush2
-    print(f"device times {tag} (S={s_pool}, n_steps={n_steps}): "
-          f"chaotic_ann_bits {t['bits_ms']:.4f} ms "
+    print(f"device times {system} {tag} (S={s_pool}, n_steps={n_steps}, "
+          f"{ops_step} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
           f"({n_out / t['bits_ms'] * 1e3:.4g} words/s, bound "
           f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}); "
           f"plain {t['bits_plain_ms']:.1f} ms; "
           f"unfused traj+pack {t['unfused_ms']:.3f} ms; "
-          f"chaotic_ann_traj {t['traj_ms']:.4f} ms (bound "
+          f"{traj_name} {t['traj_ms']:.4f} ms (bound "
           f"{t['traj_bound'][0]:.4f} ms by {t['traj_bound'][1]}); "
           f"plain {t['traj_plain_ms']:.1f} ms; card {card}")
     served = np.concatenate([out1[n] for n in names[:NIST_WORDS // n_words]])
     return launches, t, served
+
+
+def kernel_rows(system, tag, launches, t, errs):
+    """The ``kernels`` line's rows of one served path's K1 and K2."""
+    lattice = "@" in system
+    rows = []
+    for name, key, path in zip(kernel_names(lattice), ("bits", "traj"),
+                               PATHS[system]):
+        row = {
+            "name": f"{name}/{tag}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+            "replaces": REPLACES[f"chaotic_ann_{key}"], "path": path,
+            "launches": launches[path][name],
+            "max_abs_err": errs[(name, tag)],
+            "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+            "bound_ms": t[f"{key}_bound"][0],
+            "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+            "unfused_ms": t["unfused_ms"] if key == "bits" else None,
+            "flush_wall_ms": t["flush_s"] * 1e3 if key == "bits" else None,
+        }
+        if lattice:
+            row["form"] = (f"{system} vpu lattice (K5, "
+                           f"src/repro/kernels/chaotic_ann.py:61)")
+        rows.append(row)
+    return rows
 
 
 def make_farm(torch, device, tag, gang=True):
@@ -719,37 +867,11 @@ def main() -> int:
     phase_kernels(torch, device, errs)
     phase_gang_kernels(torch, device, errs)
     rows, served = [], {}
-    replaces = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
-                "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
-                "chaotic_ann_gang_bits": "src/repro/kernels/chaotic_ann.py:630",
-                "chaotic_ann_gang_stacked":
-                    "src/repro/kernels/chaotic_ann.py:894"}
-    # the path that runs each kernel: the served path runs K1 only, the
-    # unfused path K2 only
-    paths = {"chaotic_ann_bits": "served", "chaotic_ann_traj": "unfused"}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        launches, t, served[tag] = phase_main_path(torch, device, dtype, tag,
-                                                   card)
-        for name, key in (("chaotic_ann_bits", "bits"),
-                          ("chaotic_ann_traj", "traj")):
-            path = paths[name]
-            other = next(p for p in launches if p != path)
-            check(launches[path][name] > 0,
-                  f"{name} not launched on the {tag} {path} path")
-            check(launches[other][name] == 0,
-                  f"{name} launched on the {tag} {other} path")
-            rows.append({
-                "name": f"{name}/{tag}", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
-                "replaces": replaces[name], "path": path,
-                "launches": launches[path][name],
-                "max_abs_err": errs[(name, tag)],
-                "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
-                "bound_ms": t[f"{key}_bound"][0],
-                "bound_by": t[f"{key}_bound"][1], "library_ms": None,
-                "unfused_ms": t["unfused_ms"] if key == "bits" else None,
-                "flush_wall_ms": t["flush_s"] * 1e3 if key == "bits" else None,
-            })
+        launches, t, served[tag] = phase_served(
+            torch, device, dtype, tag, card, "chen", WORDS_PER_CLIENT, 1000,
+            errs)
+        rows += kernel_rows("chen", tag, launches, t, errs)
     phase_nist(torch, device, served)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         path, t = phase_farm(torch, device, dtype, tag, card)
@@ -759,13 +881,22 @@ def main() -> int:
             rows.append({
                 "name": f"{name}/{tag}", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
-                "replaces": replaces[name], "path": "farm",
+                "replaces": REPLACES[name], "path": "farm",
                 "launches": path[name], "max_abs_err": errs[(name, tag)],
                 "ms": t[key], "plain_ms": t[f"{key}_plain"],
                 "bound_ms": t[f"{key}_bound"][0],
                 "bound_by": t[f"{key}_bound"][1], "library_ms": None,
                 "shape": "F2 ragged" if key == "k3_f2" else "F1 padded",
             })
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        launches, t, words = phase_served(
+            torch, device, dtype, tag, card, LATTICE, LATTICE_WORDS, 2000,
+            errs)
+        rows += kernel_rows(LATTICE, tag, launches, t, errs)
+        p, failed = nist3(words)
+        print(f"nist {LATTICE} {tag} on {words.size} served words: "
+              + ", ".join(f"{k} p={v:.4g}" for k, v in p.items())
+              + f"; under alpha {NIST_ALPHA}: {failed} (not gated)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

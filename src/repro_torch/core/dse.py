@@ -68,11 +68,32 @@ DEFAULT_CONFIG = Candidate(i_dim=3, h_dim=8, p=0, compute_unit="vpu",
                            dtype_bytes=4, unroll=8, t_block=256)
 
 
-def default_config(i_dim: int, h_dim: int, dtype: torch.dtype) -> Candidate:
-    """``DEFAULT_CONFIG`` at a net's dims and the state dtype."""
+def default_config(i_dim: int, h_dim: int, dtype: torch.dtype,
+                   n_nodes: int = 1) -> Candidate:
+    """``DEFAULT_CONFIG`` at a net's dims and the state dtype; for a
+    lattice core (``n_nodes > 1``, ``i_dim``/``h_dim`` its
+    lattice-expanded dims) the vpu config with ``n_nodes`` set."""
     return dataclasses.replace(DEFAULT_CONFIG, i_dim=int(i_dim),
                                h_dim=int(h_dim),
-                               dtype_bytes=dtype.itemsize)
+                               dtype_bytes=dtype.itemsize,
+                               n_nodes=int(n_nodes))
+
+
+def resolve_config(config, params, dtype: torch.dtype) -> Candidate:
+    """The kernel config of a service or engine: ``config`` when given,
+    else ``default_config`` at the net's dims.  A lattice core must name
+    its config: JAX ``select_config`` searches the vpu and mxu units for
+    it, and may pick mxu (at chen@ring32 it does), a word stream of its
+    own that the port has no search and no kernel for."""
+    if config is not None:
+        return config
+    if "lattice_meta" in params:
+        raise ValueError(
+            "a lattice core needs an explicit config=, e.g. "
+            "default_config(i_dim, h_dim, dtype, n_nodes=...) for the vpu "
+            "stream: the JAX package picks its config by a search that may "
+            "choose the mxu unit, whose stream differs")
+    return default_config(params["w1"].shape[0], params["w1"].shape[1], dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,9 @@ outputs with ``torch.empty`` and launches on the current stream without
 synchronising.  A tensor on the CPU takes the kernel's plain version in
 ``ref`` instead, and only because it lies on the CPU; a CUDA tensor
 launches the kernel or raises.  ``<wrapper>.launches`` counts launches.
+The lattice forms of K1 and K2 (``lattice=`` on ``chaotic_ann_bits`` /
+``chaotic_ann_traj``) are kernels of their own, with their own wrappers
+and counters (``chaotic_ann_lattice_bits`` / ``chaotic_ann_lattice_traj``).
 """
 from __future__ import annotations
 
@@ -16,14 +19,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.chaotic import _TOPOLOGY_CODES   # LATTICE_SHAPES' codes
 from repro_torch.kernels import build, ops, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# The ROADMAP.md item that ports what these kernels refuse.
-TODO_UNPORTED = ("queue 2, 'K1/K2: mxu unit, non-relu activations, "
-                 "lattice forms'")
+# The ROADMAP.md items that port what these kernels refuse.
+TODO_UNPORTED = "queue 2, 'K1/K2: mxu unit, with K5's mxu coupling'"
+TODO_NON_RELU = "queue 2, 'K1-K4: non-relu activations'"
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,6 +46,14 @@ def _lib() -> ctypes.CDLL:
     lib.chaotic_ann_gang_stacked_launch.argtypes = (
         [_c_int] * 4 + [_c_ptr] * 9 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_gang_stacked_launch.restype = _c_int
+    lib.chaotic_ann_lattice_bits_launch.argtypes = (
+        [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 8
+        + [_c_i64, _c_i64, _c_ptr])
+    lib.chaotic_ann_lattice_bits_launch.restype = _c_int
+    lib.chaotic_ann_lattice_traj_launch.argtypes = (
+        [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 6
+        + [_c_i64, _c_i64, _c_ptr])
+    lib.chaotic_ann_lattice_traj_launch.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
     return lib
@@ -51,7 +63,7 @@ def _check_activation(activation: str) -> None:
     if activation != "relu":
         raise NotImplementedError(
             f"activation {activation!r}: the kernels are relu only; see "
-            f"ROADMAP.md {TODO_UNPORTED} (backend='ref' runs any activation)")
+            f"ROADMAP.md {TODO_NON_RELU} (backend='ref' runs any activation)")
 
 
 def _int32_on_card(a: np.ndarray, device) -> torch.Tensor:
@@ -108,10 +120,12 @@ def _raise_on(lib, code: int, kernel: str, w1) -> None:
 
 def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor, x0: torch.Tensor, word_offset=0, *,
-                     n_steps: int, activation: str = "relu"
+                     n_steps: int, activation: str = "relu", lattice=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused oscillator + bit extraction: (n_steps // 2, S) uint32 words
-    and the (S, I) final state.
+    and the (S, I) final state.  ``lattice`` (the static descriptor
+    ``(n_nodes, base_dim, topology, strength)``) takes the lattice form,
+    ``chaotic_ann_lattice_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
     Bound on the H100: operations.  Each word costs 2 steps of
@@ -120,6 +134,10 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     registers for the whole launch, so the trajectory never reaches
     device memory and only the words, offsets and final state move.
     """
+    if lattice is not None:
+        return chaotic_ann_lattice_bits(w1, b1, w2, b2, x0, word_offset,
+                                        n_steps=n_steps, lattice=lattice,
+                                        activation=activation)
     _check_activation(activation)
     _check_steps(n_steps)
     if x0.device.type == "cpu":
@@ -149,8 +167,9 @@ chaotic_ann_bits.launches = 0
 
 def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor, x0: torch.Tensor, *, n_steps: int,
-                     activation: str = "relu") -> torch.Tensor:
+                     activation: str = "relu", lattice=None) -> torch.Tensor:
     """The (n_steps, S, I) float trajectory after x0, in x0's dtype.
+    ``lattice`` takes the lattice form, ``chaotic_ann_lattice_traj``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2).
     Bound on the H100: bytes.  A step costs (4*I*H + H + I) ops per
@@ -159,6 +178,10 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     design as ``chaotic_ann_bits``; each thread writes its I values per
     step, so a warp writes one contiguous run per step.
     """
+    if lattice is not None:
+        return chaotic_ann_lattice_traj(w1, b1, w2, b2, x0, n_steps=n_steps,
+                                        lattice=lattice,
+                                        activation=activation)
     _check_activation(activation)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation)
@@ -179,6 +202,123 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
 
 chaotic_ann_traj.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the vpu lattice forms of K1 and K2.
+# ---------------------------------------------------------------------------
+
+def _lattice_operands(w1, b1, w2, b2, x0, lattice):
+    """Validated operands of a lattice launch: the weights cast to the
+    state dtype, the dtype code, the shape codes (base I, base H, n_nodes,
+    topology) and the coupling strength as a value of the state dtype."""
+    ref.check_lattice(lattice, w1.shape[-2])
+    weights, code = _operands(w1, b1, w2, b2, x0)
+    n_nodes, base_dim, topology, strength = lattice
+    if w1.shape[-1] % n_nodes:
+        raise ValueError(f"H = {w1.shape[-1]} does not split into "
+                         f"{n_nodes} node blocks")
+    eps = torch.tensor(strength, dtype=torch.float32).to(x0.dtype).item()
+    shape = (base_dim, w1.shape[-1] // n_nodes, n_nodes,
+             _TOPOLOGY_CODES[topology])
+    return weights, code, shape, eps
+
+
+def _raise_on_lattice(lib, code: int, kernel: str, shape) -> None:
+    if code == -1:
+        raise ValueError(f"{kernel}: lattice (base I, base H, n_nodes, "
+                         f"topology) = {shape} is not compiled into "
+                         f"{build.SOURCE} (LATTICE_SHAPES)")
+    _raise_on(lib, code, kernel, None)
+
+
+def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor, b2: torch.Tensor,
+                             x0: torch.Tensor, word_offset=0, *,
+                             n_steps: int, lattice,
+                             activation: str = "relu"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's lattice form: (n_steps // 2, S) uint32 words and the (S, I)
+    final state of a block-coupled lattice core (lattice-expanded
+    block-diagonal weights, ``lattice`` its static descriptor).  The
+    kernel reads only the diagonal node blocks; ``params_from_numpy``
+    checks that the rest is zero where lattice weights enter the port.
+
+    Replaces the vpu lattice form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1 with K5's
+    ``_lattice_delta``).  Bound on the H100: operations.  A word costs 2
+    steps of n_nodes x (4*D*HB + HB + D) block-sparse ops plus the
+    coupling's 5 (ring) or 7 (torus) ops per component (7,808 ops at
+    chen@ring32)
+    against 4 bytes written.  Design: one thread per (lane, node), the
+    node's weight blocks and state in registers; neighbours' state comes
+    by warp shuffles and the lane's fold by an XOR shuffle reduction, so
+    nothing but words, offsets and the final state touches device memory.
+    """
+    _check_activation(activation)
+    _check_steps(n_steps)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
+                                        word_offset, activation, lattice)
+    weights, code, shape, eps = _lattice_operands(w1, b1, w2, b2, x0,
+                                                  lattice)
+    n_lanes, n_rows = x0.shape[0], n_steps // 2
+    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_lattice_bits_launch(
+        x0.device.index, code, *shape, eps,
+        *(t.data_ptr() for t in weights), x0.data_ptr(), offsets.data_ptr(),
+        words.data_ptr(), state.data_ptr(), n_lanes, n_rows,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_bits", shape)
+    chaotic_ann_lattice_bits.launches += 1
+    return words, state
+
+
+chaotic_ann_lattice_bits.launches = 0
+
+
+def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor, b2: torch.Tensor,
+                             x0: torch.Tensor, *, n_steps: int, lattice,
+                             activation: str = "relu") -> torch.Tensor:
+    """K2's lattice form: the (n_steps, S, I) trajectory of a lattice core.
+
+    Replaces the vpu lattice form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2 with K5).
+    Bound on the H100: bytes.  A step at chen@ring32 is 3,904 ops against
+    384 f32 or 192 bf16 bytes written, 10 or 20 ops per byte, below the
+    card's 20 (f32) or 40 (bf16) ops per byte of bandwidth.  Same design as
+    ``chaotic_ann_lattice_bits``; the 32 threads of a chen@ring32 lane
+    write its 96 values of a step as one contiguous run.
+    """
+    _check_activation(activation)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation,
+                                   lattice)
+    weights, code, shape, eps = _lattice_operands(w1, b1, w2, b2, x0,
+                                                  lattice)
+    n_lanes = x0.shape[0]
+    traj = torch.empty((n_steps,) + tuple(x0.shape), dtype=x0.dtype,
+                       device=x0.device)
+    if n_lanes == 0 or n_steps == 0:
+        return traj
+    lib = _lib()
+    rc = lib.chaotic_ann_lattice_traj_launch(
+        x0.device.index, code, *shape, eps,
+        *(t.data_ptr() for t in weights), x0.data_ptr(), traj.data_ptr(),
+        n_lanes, n_steps, torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_traj", shape)
+    chaotic_ann_lattice_traj.launches += 1
+    return traj
+
+
+chaotic_ann_lattice_traj.launches = 0
 
 
 # ---------------------------------------------------------------------------

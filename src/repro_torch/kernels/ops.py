@@ -23,7 +23,9 @@ from repro_torch.kernels import chaotic_ann, ref
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9          # Weyl increment (2^32 / phi)
-_TODO_LATTICE = "queue 1, item 'Lattices' (and queue 2, 'K5')"
+# The ROADMAP.md item that ports the gang lattice forms.
+TODO_LATTICE_GANG = ("queue 2, 'K3/K4: lattice forms, and a farm of "
+                     "lattice cores'")
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -120,14 +122,37 @@ def uniform_from_trajectory(traj: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def _check_ported(params: Dict[str, torch.Tensor], compute_unit: str) -> None:
+def _lattice_args(params: Dict[str, torch.Tensor], compute_unit: str):
+    """The static lattice descriptor of a params dict, or None for a
+    scalar core.  A lattice core carries its ``lattice_meta`` array next
+    to its lattice-expanded ``w1/b1/w2/b2``; the vpu kernels rebuild the
+    coupling from it, and the dense ``coupling`` operand is for the mxu
+    unit, which is not ported.
+    """
+    if "lattice_meta" not in params:
+        return None
+    if compute_unit != "vpu":
+        raise NotImplementedError(
+            f"lattice cores on compute_unit={compute_unit!r} are not "
+            f"ported; see ROADMAP.md {chaotic_ann.TODO_UNPORTED}")
+    from repro_torch.core.ann import lattice_meta_tuple
+    return lattice_meta_tuple(params["lattice_meta"])
+
+
+def _check_ported(params: Dict[str, torch.Tensor], compute_unit: str,
+                  gang: bool = False):
+    """Raise for the forms not ported; else the lattice descriptor of a
+    lattice core (None for a scalar one)."""
+    if gang and "lattice_meta" in params:
+        raise NotImplementedError(
+            f"lattice cores in a gang launch are not ported; see "
+            f"ROADMAP.md {TODO_LATTICE_GANG}")
+    lattice = _lattice_args(params, compute_unit)
     if compute_unit != "vpu":
         raise NotImplementedError(
             f"compute_unit={compute_unit!r} is not ported; see ROADMAP.md "
             f"{chaotic_ann.TODO_UNPORTED}")
-    if "lattice_meta" in params:
-        raise NotImplementedError(
-            f"lattice cores are not ported; see ROADMAP.md {_TODO_LATTICE}")
+    return lattice
 
 
 def _weights(params):
@@ -149,13 +174,15 @@ def chaotic_trajectory(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     """
     if config is not None:
         compute_unit = config.compute_unit
-    _check_ported(params, compute_unit)
+    lattice = _check_ported(params, compute_unit)
     if backend == "ref":
-        return ref.chaotic_ann_ref(*_weights(params), x0, n_steps, activation)
+        return ref.chaotic_ann_ref(*_weights(params), x0, n_steps, activation,
+                                   lattice)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_traj(*_weights(params), x0,
-                                        n_steps=n_steps, activation=activation)
+                                        n_steps=n_steps, activation=activation,
+                                        lattice=lattice)
 
 
 def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
@@ -171,14 +198,15 @@ def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     """
     if config is not None:
         compute_unit = config.compute_unit
-    _check_ported(params, compute_unit)
+    lattice = _check_ported(params, compute_unit)
     if backend == "ref":
         return ref.chaotic_ann_bits_ref(*_weights(params), x0, n_steps,
-                                        word_offset, activation)
+                                        word_offset, activation, lattice)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_bits(*_weights(params), x0, word_offset,
-                                        n_steps=n_steps, activation=activation)
+                                        n_steps=n_steps, activation=activation,
+                                        lattice=lattice)
 
 
 def _stacked_weights(params):
@@ -218,7 +246,7 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     if config is not None:
         s_block, t_block = config.s_block, config.t_block
         unroll, compute_unit = config.unroll, config.compute_unit
-    _check_ported(params, compute_unit)
+    _check_ported(params, compute_unit, gang=True)
     w = _stacked_weights(params)
     if backend == "ref":
         rows = (chaotic_ann.gang_effective_rows(row_map, n_steps, t_block,
@@ -252,7 +280,7 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
     """
     if config is not None:
         compute_unit = config.compute_unit
-    _check_ported(params, compute_unit)
+    _check_ported(params, compute_unit, gang=True)
     w = _stacked_weights(params)
     if backend == "ref":
         return ref.chaotic_ann_gang_stacked_ref(*w, x0, n_steps, word_offset,

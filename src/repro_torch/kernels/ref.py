@@ -13,15 +13,55 @@ from typing import Callable, Tuple
 
 import torch
 
+from repro_torch.core.chaotic import _TOPOLOGY_CODES, _grid_shape
 from repro_torch.kernels import ops
 
 ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
                "sigmoid": torch.sigmoid}
 
 
+def check_lattice(lattice, i_dim: int) -> None:
+    """The static descriptor ``(n_nodes, base_dim, topology, strength)``
+    against the state dim."""
+    n_nodes, base_dim, topology, _ = lattice
+    if n_nodes * base_dim != i_dim:
+        raise ValueError(f"lattice {n_nodes}x{base_dim} != i_dim {i_dim}")
+    if topology not in _TOPOLOGY_CODES:
+        raise ValueError(f"unknown lattice topology {topology!r}")
+
+
+def lattice_delta(x: torch.Tensor, lattice) -> torch.Tensor:
+    """Plain ``_lattice_delta``: the diffusive coupling increment
+    ``(sum_neighbours x - deg * x) * strength`` of (S, I) states, node n
+    holding components ``n*base_dim ... (n+1)*base_dim - 1``.
+
+    The JAX expression tree, op for op in the state dtype: a ring adds
+    ``prev + nxt``; a P x Q torus adds ``(prev_row + nxt_row) + (prev_col
+    + nxt_col)``; then ``(acc - deg * x) * eps`` with ``eps`` the strength
+    in the state dtype.  A ring of 2 adds its one neighbour twice, a ring
+    of 1 adds x itself twice, as the wrapped rolls do.
+    """
+    n_nodes, base_dim, topology, strength = lattice
+    s_lanes = x.shape[0]
+    if topology == "ring":
+        nodes = x.reshape(s_lanes, n_nodes, base_dim)
+        acc = torch.roll(nodes, 1, dims=1) + torch.roll(nodes, -1, dims=1)
+        deg = 2
+    else:
+        pp, qq = _grid_shape(n_nodes)
+        nodes = x.reshape(s_lanes, pp, qq, base_dim)
+        acc = ((torch.roll(nodes, 1, dims=1) + torch.roll(nodes, -1, dims=1))
+               + (torch.roll(nodes, 1, dims=2)
+                  + torch.roll(nodes, -1, dims=2)))
+        deg = 4
+    eps = torch.tensor(strength, dtype=torch.float32,
+                       device=x.device).to(x.dtype)
+    return (acc.reshape(x.shape) - deg * x) * eps
+
+
 def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, *, dtype: torch.dtype,
-              activation: str = "relu"
+              activation: str = "relu", lattice=None
               ) -> Callable[[torch.Tensor], torch.Tensor]:
     """One oscillator step on (S, I) states, in the vpu order.
 
@@ -30,11 +70,15 @@ def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     zeros, then ``+ b2``.  Weights are cast to ``dtype`` once, here.  They
     are one net's (``w1`` (I, H)) or one net per lane (``w1`` (S, I, H),
     ``b1`` (S, H), ...): every lane then runs exactly the ops it would run
-    alone.
+    alone.  ``lattice`` (the static descriptor) adds the coupling of the
+    step's input, ``y + lattice_delta(x)``, after ``+ b2``; the loops stay
+    dense over the lattice-expanded weights.
     """
     phi = ACTIVATIONS[activation]
     w1, b1, w2, b2 = (t.to(dtype) for t in (w1, b1, w2, b2))
     i_dim, h_dim = w1.shape[-2:]
+    if lattice is not None:
+        check_lattice(lattice, i_dim)
 
     def step(x: torch.Tensor) -> torch.Tensor:
         h = torch.zeros((x.shape[0], h_dim), dtype=dtype, device=x.device)
@@ -44,16 +88,21 @@ def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         y = torch.zeros_like(x)
         for j in range(h_dim):
             y = y + w2[..., j, :] * h[:, j:j + 1]
-        return y + b2
+        y = y + b2
+        if lattice is not None:
+            y = y + lattice_delta(x, lattice)
+        return y
 
     return step
 
 
 def chaotic_ann_ref(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                     b2: torch.Tensor, x0: torch.Tensor, n_steps: int,
-                    activation: str = "relu") -> torch.Tensor:
-    """Plain K2: the (n_steps, S, I) trajectory after x0, in x0's dtype."""
-    step = make_step(w1, b1, w2, b2, dtype=x0.dtype, activation=activation)
+                    activation: str = "relu", lattice=None) -> torch.Tensor:
+    """Plain K2: the (n_steps, S, I) trajectory after x0, in x0's dtype
+    (with ``lattice``: the lattice form of K2)."""
+    step = make_step(w1, b1, w2, b2, dtype=x0.dtype, activation=activation,
+                     lattice=lattice)
     traj = torch.empty((n_steps,) + tuple(x0.shape), dtype=x0.dtype,
                        device=x0.device)
     x = x0
@@ -66,7 +115,7 @@ def chaotic_ann_ref(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor,
                          x0: torch.Tensor, n_steps: int, word_offset=0,
-                         activation: str = "relu"
+                         activation: str = "relu", lattice=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K1: the step scan, then ``ops.pack_words``.
 
@@ -74,7 +123,7 @@ def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
     """
     if n_steps < 2 or n_steps % 2:
         raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
-    traj = chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation)
+    traj = chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation, lattice)
     return ops.pack_words(traj, word_offset), traj[-1].clone()
 
 

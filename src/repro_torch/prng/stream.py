@@ -9,7 +9,8 @@ not depend on how draws are chunked, and ``fork()`` is counter-based.
 ``ChaoticStream`` is the stateful convenience wrapper over the engine.
 
 The weight registry is read-only here: ``trained_oscillator`` reads the
-committed ``results/weights/<system>.npz`` and never trains.
+committed ``results/weights/<system>.npz`` and never trains; a lattice
+name (``chen@ring32``) derives its bundle from the base system's file.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.ann import params_from_numpy
-from repro_torch.core.dse import default_config
+from repro_torch.core.ann import expand_lattice_params, params_from_numpy
+from repro_torch.core.chaotic import (DEFAULT_LATTICE_COUPLING,
+                                      parse_lattice_name)
+from repro_torch.core.dse import resolve_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -131,8 +134,7 @@ class ChaoticPRNG:
         self.backend = backend
         self.dim = self.params["w1"].shape[0]
         self.dtype = dtype
-        self.config = config if config is not None else default_config(
-            self.dim, self.params["w1"].shape[1], dtype)
+        self.config = resolve_config(config, self.params, dtype)
 
     def init(self, seed: int = 0, path: Tuple[int, ...] = ()) -> StreamState:
         """Seed + burn in a fresh stream (rows start counting at 0 after)."""
@@ -261,12 +263,23 @@ def trained_oscillator(system: str = "chen", seed: int = 0
     Reads ``<weights_dir>/<system>.npz``.  The JAX package's stamp
     (``recipe_fingerprint``, a hash over its training recipe and jax
     version) is kept as metadata under that key, not recomputed.  The port
-    never trains: a missing file, another seed, or a lattice name raises.
+    never trains: a missing file or another seed raises.
+
+    A lattice name ``<base>@<ring|grid><n>`` derives its bundle from the
+    base system's, as the JAX registry does: block-diagonal weights,
+    ``coupling`` and ``lattice_meta`` (``core.ann.expand_lattice_params``
+    at ``DEFAULT_LATTICE_COUPLING``), ``scale``/``offset`` tiled per node.
+    It is never written to disk.
     """
     if "@" in system:
-        raise NotImplementedError(
-            f"lattice system {system!r} is not ported; see ROADMAP.md "
-            f"queue 1, item 'Lattices'")
+        base_name, topology, n_nodes = parse_lattice_name(system)
+        base = trained_oscillator(base_name, seed)
+        return dict(
+            expand_lattice_params(base, n_nodes=n_nodes,
+                                  coupling=DEFAULT_LATTICE_COUPLING,
+                                  topology=topology),
+            scale=np.tile(base["scale"], n_nodes),
+            offset=np.tile(base["offset"], n_nodes))
     if seed != 0:
         raise ValueError(f"only seed 0 is committed to the registry, got "
                          f"{seed}; the port does not train")
@@ -286,6 +299,8 @@ def trained_oscillator(system: str = "chen", seed: int = 0
 
 def default_params(seed: int = 0, system: str = "chen"
                    ) -> Dict[str, np.ndarray]:
-    """The oscillator weights ``w1, b1, w2, b2`` of a registered system."""
+    """The oscillator weights ``w1, b1, w2, b2`` of a registered system,
+    with ``coupling`` and ``lattice_meta`` for a lattice."""
     bundle = trained_oscillator(system, seed)
-    return {k: bundle[k] for k in ("w1", "b1", "w2", "b2")}
+    keys = ("w1", "b1", "w2", "b2", "coupling", "lattice_meta")
+    return {k: bundle[k] for k in keys if k in bundle}

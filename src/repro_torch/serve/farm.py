@@ -17,8 +17,10 @@ emission is defined in absolute word-row space, so per-client words are
 bit-identical to the per-core path.
 
 Not ported here: ``attach_monitor`` and the serving tier's health hooks
-(ROADMAP.md queue 1, item 9), fault injection (same item), and the mesh
-arguments and topology keys (item 11).
+(ROADMAP.md queue 1, item 9), fault injection (same item), the mesh
+arguments and topology keys (item 11), and lattice cores (queue 2, the
+lattice forms of K3/K4): ``add_core`` refuses a lattice core, which
+``PRNGService`` serves on its own.
 """
 from __future__ import annotations
 
@@ -48,9 +50,9 @@ def _compat_key(svc: PRNGService) -> Tuple:
     Two cores may share a stacked-weight launch iff every static property
     of the kernel instantiation matches: network shape (i_dim, h_dim),
     state dtype, activation, backend and the full kernel config (s_block,
-    t_block, unroll, compute_unit).  Lattice cores never reach a launch in
-    the port (``ops`` refuses them) and there is one device, so the JAX
-    key's lattice and topology entries are left out.
+    t_block, unroll, compute_unit).  The farm refuses lattice cores and
+    there is one device, so the JAX key's lattice and topology entries are
+    left out.
     """
     c = svc.config
     return (svc.dim, int(svc.params["w1"].shape[1]), str(svc.dtype),
@@ -432,6 +434,10 @@ class OscillatorFarm:
 
     def _service(self, params, *, config, dtype, activation,
                  lanes_per_client, burn_in, backend) -> PRNGService:
+        if "lattice_meta" in params:
+            raise NotImplementedError(
+                f"lattice cores in a farm are not ported; see ROADMAP.md "
+                f"{ops.TODO_LATTICE_GANG}")
         return PRNGService(params, lanes_per_client=lanes_per_client,
                            burn_in=burn_in, activation=activation,
                            backend=backend, config=config,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ann import params_from_numpy
-from repro_torch.core.dse import default_config
+from repro_torch.core.dse import resolve_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.prng.stream import (_lineage_counter, _round_rows,
@@ -56,8 +56,7 @@ class PRNGService:
         self.activation = activation
         self.backend = backend
         self.dtype = dtype
-        self.config = config if config is not None else default_config(
-            self.dim, self.params["w1"].shape[1], dtype)
+        self.config = resolve_config(config, self.params, dtype)
         self.clients: Dict[str, _Client] = {}
         self.pool_x: Optional[torch.Tensor] = None    # (n_clients * L, I)
         self.launches = 0                             # batched pool launches

@@ -216,3 +216,77 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match=r"b1 must be \(4, 8\)"):
         chaotic_ann.chaotic_ann_gang_bits(w[0], w[1][:, :5], *w[2:], x0,
                                           [0, 1], n_steps=4, s_block=128)
+
+
+LATTICES = ("chen@ring8", "chen@grid8", "chen@ring32", "chen@grid32")
+
+
+def _lattice_inputs(system, n_lanes, dtype, seed):
+    from repro_torch.core.ann import lattice_meta_tuple
+    rng = np.random.default_rng(seed)
+    p = default_params(system=system)
+    lattice = lattice_meta_tuple(p["lattice_meta"])
+    w = [torch.from_numpy(p[k]).cuda() for k in ("w1", "b1", "w2", "b2")]
+    x0 = rng.uniform(-0.9, 0.9, (n_lanes, p["w1"].shape[0])).astype(np.float32)
+    off = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
+    off[:4] = [0xFFFFFFFF, 0xFFFFFFF0, 0xFFFFFFC0, 0]
+    return (w, lattice, torch.from_numpy(x0).to("cuda", dtype),
+            torch.from_numpy(off).to("cuda"))
+
+
+@pytest.mark.parametrize("system", LATTICES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lattice_kernels_bitwise_vs_plain_on_card(system, dtype):
+    """Lattice K1 and K2 against the plain dense versions: words, final
+    state and trajectory, at a ragged lane count (not a whole CTA)."""
+    _need_card()
+    w, lattice, x0, off = _lattice_inputs(system, 100 + 3, dtype, seed=23)
+    n0 = (chaotic_ann.chaotic_ann_lattice_bits.launches,
+          chaotic_ann.chaotic_ann_lattice_traj.launches)
+    words, state = chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=32,
+                                                lattice=lattice)
+    traj = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=32, lattice=lattice)
+    assert (chaotic_ann.chaotic_ann_lattice_bits.launches,
+            chaotic_ann.chaotic_ann_lattice_traj.launches) == (n0[0] + 1,
+                                                               n0[1] + 1)
+    rw, rs = ref.chaotic_ann_bits_ref(*w, x0, 32, off, lattice=lattice)
+    torch.cuda.synchronize()
+    _assert_bitwise(words, rw)
+    _assert_bitwise(state, rs)
+    _assert_bitwise(traj, ref.chaotic_ann_ref(*w, x0, 32, lattice=lattice))
+
+
+def test_lattice_ops_on_card_never_reach_the_plain_version(monkeypatch):
+    _need_card()
+    p = params_from_numpy(default_params(system="chen@ring8"), device="cuda")
+    x0 = torch.rand(2 * 128, 24, device="cuda") - 0.5
+    want_w, want_s = ops.chaotic_bits(p, x0, 8, 3, backend="ref")
+    want_t = ops.chaotic_trajectory(p, x0, 4, backend="ref")
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "chaotic_ann_bits_ref", forbidden)
+    monkeypatch.setattr(ref, "chaotic_ann_ref", forbidden)
+    words, state = ops.chaotic_bits(p, x0, 8, 3)
+    traj = ops.chaotic_trajectory(p, x0, 4)
+    torch.cuda.synchronize()
+    _assert_bitwise(words, want_w)
+    _assert_bitwise(state, want_s)
+    _assert_bitwise(traj, want_t)
+
+
+def test_lattice_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    w, lattice, x0, off = _lattice_inputs("chen@ring8", 64, torch.float32, 4)
+    bad = dict(default_params(system="chen@ring8"))
+    bad["w1"] = bad["w1"].copy()
+    bad["w1"][0, -1] = 0.5               # an off-block weight
+    with pytest.raises(ValueError, match="block-diagonal"):
+        params_from_numpy(bad, device="cuda")
+    with pytest.raises(ValueError, match="LATTICE_SHAPES"):
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
+                                     lattice=(4, 6, "ring", 0.05))
+    with pytest.raises(ValueError, match="i_dim"):
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
+                                     lattice=(4, 3, "ring", 0.05))

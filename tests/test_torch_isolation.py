@@ -21,6 +21,15 @@ def _module_names():
         yield ".".join(parts)
 
 
+def test_scan_covers_every_port_module():
+    """The scans below glob the package, so a new module (the numpy-only
+    lattice copy ``core/chaotic.py`` among them) is covered as it lands."""
+    mods = set(_module_names())
+    assert {"repro_torch.core.chaotic", "repro_torch.core.ann",
+            "repro_torch.kernels.chaotic_ann"} <= mods
+    assert PORT / "core" / "chaotic.py" in PORT_FILES
+
+
 def test_port_imports_with_jax_blocked():
     """A subprocess where ``import jax`` fails imports every module of the
     port and chip_smoke.py, and finds no ``repro`` module loaded."""

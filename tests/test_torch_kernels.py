@@ -187,9 +187,11 @@ def test_oscillator_module_is_one_plain_step():
 
 def test_params_numpy_round_trip():
     bundle = {k: np.asarray(v) for k, v in default_params(system="hyperlorenz").items()}
-    bundle["lattice_meta"] = np.asarray([2, 3, 0], np.int32)
+    # a non-float array keeps its type (a lattice's meta:
+    # tests/test_torch_lattice.py)
+    bundle["index"] = np.asarray([2, 3, 0], np.int32)
     t = params_from_numpy(bundle, device="cpu")
-    assert t["w1"].dtype == torch.float32 and t["lattice_meta"].dtype == torch.int32
+    assert t["w1"].dtype == torch.float32 and t["index"].dtype == torch.int32
     back = params_to_numpy(t)
     for k, v in bundle.items():
         np.testing.assert_array_equal(back[k], v)

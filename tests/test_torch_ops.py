@@ -92,9 +92,11 @@ def test_ops_route_and_refuse_unported_forms():
                        ops.chaotic_trajectory(p, x0, 5, backend="ref"))
     with pytest.raises(NotImplementedError, match="mxu unit"):
         ops.chaotic_bits(p, x0, 8, compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="Lattices"):
-        ops.chaotic_trajectory(dict(p, lattice_meta=torch.tensor([2, 3])),
-                               x0, 4)
+    # a vpu lattice is routed (tests/test_torch_lattice.py); an mxu one is not
+    with pytest.raises(NotImplementedError, match="mxu coupling"):
+        ops.chaotic_trajectory(
+            dict(p, lattice_meta=torch.tensor([1, 3, 0, 0.05])), x0, 4,
+            compute_unit="mxu")
     with pytest.raises(ValueError):
         ops.chaotic_bits(p, x0, 8, backend="pallas")
     # any activation on the plain version, relu only on the kernels

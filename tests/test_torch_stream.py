@@ -136,8 +136,10 @@ def test_registry_is_read_only_and_keeps_the_stamp(tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
     with pytest.raises(ValueError):
         stream.trained_oscillator("chen", seed=1)
-    with pytest.raises(NotImplementedError, match="Lattices"):
+    # a lattice derives from its base system's file, never trains
+    with pytest.raises(FileNotFoundError, match="does not train"):
         stream.trained_oscillator("chen@ring8")
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_engine_defaults_to_the_card():

@@ -12,7 +12,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    committed chen (3-8-3) and hyperlorenz (4-16-4) weights, at a ragged
    lane count and with per-lane word offsets that wrap past 2**32; the
    lattice forms of K1 and K2 likewise against the plain dense loop at
-   chen@ring32, chen@grid32 and chen@ring8 (8,192 + 37 lanes, 64 steps).
+   chen@ring32, chen@grid32 and chen@ring8 (8,192 + 37 lanes, 64 steps);
+   the mxu forms of K1 and K2 (scalar cores and the lattices, with the
+   coupling dot) likewise against the plain f32 FMA chains, on all five.
    The gang kernels K3 and K4 likewise, on the committed farm's cores
    (the four 3-8-3 cores as a gang of 4; hyperlorenz's farm and registry
    weights as a 4-16-4 gang of 2), padded and ragged: the words each
@@ -57,6 +59,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    NIST monobit / runs / block frequency on 2**20 served lattice words,
    printed and not gated (the JAX package makes no lattice quality
    claim).
+7. The mxu path, per dtype: phase 6 with no config, the JAX package's
+   default stream of chen@ring32 (its ``select_config`` picks the mxu
+   unit), 4,096 words per client per flush (32 word rows), through the
+   mxu forms of K1 (served) and K2 (unfused), held bitwise against one
+   plain run at that flush's shape; NIST printed, not gated.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -67,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -118,9 +126,11 @@ K4_ROW_MAP = [0, 13, 300, 100]
 FARM_CLIENTS = 128
 FARM_WORDS = 16_384                      # per client: 128 word rows
 HOT_WORDS, COLD_WORDS = 65_536, 1_024    # F2: chen's clients, the others
-# the served lattice
+# the served lattice: on an explicit vpu config, and with no config (the
+# JAX package's default stream, mxu)
 LATTICE = "chen@ring32"
 LATTICE_WORDS = 16_384                   # per client: 128 word rows
+MXU_WORDS = 4_096                        # per client: 32 word rows
 
 
 class SmokeFailure(Exception):
@@ -138,6 +148,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def register_report(log: str) -> str:
+    """The most registers any kernel uses, and nvcc's ``-Xptxas -v`` lines
+    that report a nonzero spill."""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [line.strip() for line in log.splitlines()
+              if re.search(r"\b[1-9]\d* bytes spill", line)]
+    return (f"{len(regs)} kernels, at most {max(regs, default=0)} registers; "
+            f"spills: {'; '.join(spills) or 'none'}")
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -189,6 +209,30 @@ def lattice_step_flops(lattice, h_dim: int) -> int:
     per_component = 5 if topology == "ring" else 7
     return (n_nodes * step_flops(base_dim, h_dim // n_nodes)
             + per_component * n_nodes * base_dim)
+
+
+def mxu_step_flops(i_dim: int, h_dim: int, lattice) -> int:
+    """Ops of one mxu step: the nonzero terms of its dense dots, 2 a fused
+    multiply-add, plus the bias adds and, for a lattice, the coupling add.
+    Scalar: every term of the two dots (4*I*H + H + I).  Lattice: each
+    node's blocks and the coupling's 3 (ring) or 5 (torus) terms a
+    component (a torus side of 2 repeats a neighbour: one term fewer)."""
+    if lattice is None:
+        return step_flops(i_dim, h_dim)
+    n_nodes, base_dim, topology, _ = lattice
+    from repro_torch.core.chaotic import lattice_coupling_matrix
+    terms = int((lattice_coupling_matrix(n_nodes, base_dim, 1.0, topology)
+                 != 0).sum())
+    return (n_nodes * step_flops(base_dim, h_dim // n_nodes) + 2 * terms
+            + i_dim)
+
+
+def mxu_dense_flops(i_dim: int, h_dim: int, lattice) -> int:
+    """Ops of one mxu step counted over the dense dots, zero terms too:
+    2 per fused multiply-add of (I x H), (H x I) and, for a lattice, the
+    (I x I) coupling, plus the bias and coupling adds."""
+    fmas = 2 * i_dim * h_dim + (i_dim * i_dim if lattice else 0)
+    return 2 * fmas + h_dim + i_dim + (i_dim if lattice else 0)
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -301,20 +345,24 @@ def phase_gang_kernels(torch, device, errs) -> None:
                     errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
 
 
-def kernel_names(lattice):
+def kernel_names(lattice, unit="vpu"):
     """The (K1, K2) wrappers whose counters a core's launches move: the
-    scalar kernels, or the lattice forms for a lattice core (``lattice``
-    its descriptor, or any true value)."""
+    mxu forms on the mxu unit; on the vpu the scalar kernels, or the
+    lattice forms for a lattice core (``lattice`` its descriptor, or any
+    true value)."""
+    if unit == "mxu":
+        return "chaotic_ann_mxu_bits", "chaotic_ann_mxu_traj"
     if not lattice:
         return "chaotic_ann_bits", "chaotic_ann_traj"
     return "chaotic_ann_lattice_bits", "chaotic_ann_lattice_traj"
 
 
 def phase_kernels(torch, device, errs) -> None:
-    """K1 and K2, scalar and lattice forms, against their plain versions
-    on the card, bitwise."""
+    """K1 and K2, scalar, lattice and mxu forms, against their plain
+    versions on the card, bitwise; each plain K1 is one plain scan packed
+    by ``ops.pack_words``, the scan K2 is held against."""
     from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
-    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.kernels import chaotic_ann, ops, ref
     from repro_torch.prng.stream import default_params
 
     rng = np.random.default_rng(0)
@@ -323,33 +371,39 @@ def phase_kernels(torch, device, errs) -> None:
         w = (p["w1"], p["b1"], p["w2"], p["b2"])
         lattice = (lattice_meta_tuple(p["lattice_meta"])
                    if "lattice_meta" in p else None)
-        bits_name, traj_name = kernel_names(lattice)
         i_dim = p["w1"].shape[0]
         x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
         off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
         off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)    # wrap mid-run
         off = torch.as_tensor(off_np, device=device)
-        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            x0 = torch.as_tensor(x0_np, device=device).to(dtype)
-            words_k, state_k = chaotic_ann.chaotic_ann_bits(
-                *w, x0, off, n_steps=n_steps, lattice=lattice)
-            words_p, state_p = ref.chaotic_ann_bits_ref(
-                *w, x0, n_steps, off, lattice=lattice)
-            traj_k = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=n_steps,
-                                                  lattice=lattice)
-            traj_p = ref.chaotic_ann_ref(*w, x0, n_steps, lattice=lattice)
-            torch.cuda.synchronize()
-            e_bits = max(max_abs_err(torch, words_k, words_p),
-                         max_abs_err(torch, state_k, state_p))
-            e_traj = max_abs_err(torch, traj_k, traj_p)
-            print(f"check {system} {tag} S={n_lanes} steps={n_steps}:"
-                  f" {bits_name} max_abs_err={e_bits}"
-                  f" {traj_name} max_abs_err={e_traj}"
-                  f" max|x|={traj_p.float().abs().max().item():.6g}")
-            check(e_bits == 0.0, f"{bits_name} != plain ({system}, {tag})")
-            check(e_traj == 0.0, f"{traj_name} != plain ({system}, {tag})")
-            for name, e in ((bits_name, e_bits), (traj_name, e_traj)):
-                errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
+        for unit in ("vpu", "mxu"):
+            bits_name, traj_name = kernel_names(lattice, unit)
+            kw = dict(lattice=lattice, compute_unit=unit, coupling=(
+                p["coupling"] if unit == "mxu" and lattice else None))
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+                words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                    *w, x0, off, n_steps=n_steps, **kw)
+                traj_k = chaotic_ann.chaotic_ann_traj(*w, x0,
+                                                      n_steps=n_steps, **kw)
+                traj_p = ref.chaotic_ann_ref(*w, x0, n_steps, **kw)
+                words_p = ops.pack_words(traj_p, off)
+                torch.cuda.synchronize()
+                e_bits = max(max_abs_err(torch, words_k, words_p),
+                             max_abs_err(torch, state_k, traj_p[-1]))
+                e_traj = max_abs_err(torch, traj_k, traj_p)
+                print(f"check {system} {unit} {tag} S={n_lanes} "
+                      f"steps={n_steps}: {bits_name} max_abs_err={e_bits}"
+                      f" {traj_name} max_abs_err={e_traj}"
+                      f" max|x|={traj_p.float().abs().max().item():.6g}")
+                check(e_bits == 0.0,
+                      f"{bits_name} != plain ({system}, {unit}, {tag})")
+                check(e_traj == 0.0,
+                      f"{traj_name} != plain ({system}, {unit}, {tag})")
+                for name, e in ((bits_name, e_bits), (traj_name, e_traj)):
+                    errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
+                del traj_k, traj_p
 
 
 # the TPU kernel each wrapper replaces (its lattice form too)
@@ -357,13 +411,15 @@ REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
             "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
             "chaotic_ann_gang_bits": "src/repro/kernels/chaotic_ann.py:630",
             "chaotic_ann_gang_stacked": "src/repro/kernels/chaotic_ann.py:894"}
-# each served system's (served path, unfused path): the served path runs
-# K1 only, the unfused path K2 only
-PATHS = {"chen": ("served", "unfused"),
-         LATTICE: ("lattice-served", "lattice-unfused")}
+# each served (system, unit)'s (served path, unfused path): the served
+# path runs K1 only, the unfused path K2 only
+PATHS = {("chen", "vpu"): ("served", "unfused"),
+         (LATTICE, "vpu"): ("lattice-served", "lattice-unfused"),
+         (LATTICE, "mxu"): ("mxu-served", "mxu-unfused")}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
            "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
-           "chaotic_ann_lattice_traj")
+           "chaotic_ann_lattice_traj", "chaotic_ann_mxu_bits",
+           "chaotic_ann_mxu_traj")
 
 
 def read_launches(chaotic_ann) -> dict:
@@ -376,13 +432,14 @@ def zero_launches(chaotic_ann) -> None:
 
 
 def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
-                 errs):
+                 errs, unit="vpu"):
     """One served path at full width, then its unfused path: ``PRNGService``
-    on ``system`` (the scalar chen, or the chen@ring32 lattice on an
-    explicit vpu config), 512 clients x 128 lanes, register and three
-    flushes of ``n_words`` words a client; then K1 and K2 against their
-    plain versions at the flush's own shape, bitwise.  Returns ({path:
-    launch counts}, timings, served words for the NIST phase)."""
+    on ``system`` (the scalar chen; the chen@ring32 lattice on an explicit
+    vpu config, or with ``unit="mxu"`` on no config, the JAX package's
+    default stream), 512 clients x 128 lanes, register and three flushes
+    of ``n_words`` words a client; then K1 and K2 against one plain run at
+    the flush's own shape, bitwise.  Returns ({path: launch counts},
+    timings, served words for the NIST phase)."""
     from repro_torch.core.ann import lattice_meta_tuple
     from repro_torch.core.dse import default_config
     from repro_torch.kernels import chaotic_ann, ops, ref
@@ -393,10 +450,10 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
     params_np = trained_oscillator(system)   # a lattice derives from chen's
     L = LANES_PER_CLIENT
     names = [f"client{i:03d}" for i in range(N_CLIENTS)]
-    served_path, unfused_path = PATHS[system]
+    served_path, unfused_path = PATHS[(system, unit)]
     lattice = (lattice_meta_tuple(params_np["lattice_meta"])
                if "lattice_meta" in params_np else None)
-    config = None if lattice is None else default_config(
+    config = None if lattice is None or unit == "mxu" else default_config(
         *params_np["w1"].shape, dtype, n_nodes=lattice[0])
 
     def make_service():
@@ -410,8 +467,10 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
         svc.register(name, seed=seed0 + i)
     torch.cuda.synchronize()
     t_register = time.perf_counter() - t0
-    bits_name, traj_name = kernel_names(lattice)
-    check(svc.config.compute_unit == "vpu"
+    bits_name, traj_name = kernel_names(lattice, unit)
+    print(f"{served_path} {tag}: config {'given' if config else 'resolved'}"
+          f" {svc.config}")
+    check(svc.config.compute_unit == unit
           and svc.config.n_nodes == (1 if lattice is None else lattice[0]),
           f"{system} {tag}: config {svc.config}")
 
@@ -511,75 +570,88 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
 
     # device times at the flush shape (not counted as path launches)
     w = [svc.params[k] for k in ("w1", "b1", "w2", "b2")]
+    kw = dict(lattice=lattice, compute_unit=unit, coupling=(
+        svc.params["coupling"] if unit == "mxu" and lattice else None))
     x, s_pool = x_before, x_before.shape[0]
     off = torch.zeros(s_pool, dtype=torch.int64, device=device)
     i_dim, h_dim = w[0].shape
     item = x.element_size()
     n_out = n_steps // 2 * s_pool
-    ops_step = (step_flops(i_dim, h_dim) if lattice is None
-                else lattice_step_flops(lattice, h_dim))
+    if unit == "mxu":     # the chains accumulate in f32, in both dtypes
+        ops_step, rate = mxu_step_flops(i_dim, h_dim, lattice), "f32"
+    else:
+        ops_step, rate = (step_flops(i_dim, h_dim) if lattice is None
+                          else lattice_step_flops(lattice, h_dim)), tag
     t = {
         "bits_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
-            *w, x, off, n_steps=n_steps, lattice=lattice), reps=5, warmup=2),
+            *w, x, off, n_steps=n_steps, **kw), reps=5, warmup=2),
         "traj_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_traj(
-            *w, x, n_steps=n_steps, lattice=lattice), reps=3, warmup=1),
+            *w, x, n_steps=n_steps, **kw), reps=3, warmup=1),
         "unfused_ms": cuda_ms(torch, lambda: ops.pack_words(
-            chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps,
-                                         lattice=lattice), off),
+            chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps, **kw), off),
             reps=2, warmup=1),
     }
-    # the plain versions repeat the kernels' arithmetic op by op (the
-    # lattice's densely): one timed call each, held bitwise against the
-    # kernel at this shape
-    (words_p, state_p), t["bits_plain_ms"] = timed_once(
-        torch, lambda: ref.chaotic_ann_bits_ref(*w, x, n_steps, off,
-                                                lattice=lattice))
-    words_k, state_k = chaotic_ann.chaotic_ann_bits(
-        *w, x, off, n_steps=n_steps, lattice=lattice)
-    e_bits = max(max_abs_err(torch, words_k, words_p),
-                 max_abs_err(torch, state_k, state_p))
-    del words_p, state_p, words_k, state_k
+    # one plain run (the kernels' arithmetic op by op, the lattice's
+    # densely), timed, held bitwise against K2; plain K1 is that run
+    # packed by ``ops.pack_words`` (its time: the run's plus the packing's)
     traj_p, t["traj_plain_ms"] = timed_once(
-        torch, lambda: ref.chaotic_ann_ref(*w, x, n_steps, lattice=lattice))
-    traj_k = chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps,
-                                          lattice=lattice)
+        torch, lambda: ref.chaotic_ann_ref(*w, x, n_steps, **kw))
+    words_p, pack_ms = timed_once(torch, lambda: ops.pack_words(traj_p, off))
+    t["bits_plain_ms"] = t["traj_plain_ms"] + pack_ms
+    words_k, state_k = chaotic_ann.chaotic_ann_bits(*w, x, off,
+                                                    n_steps=n_steps, **kw)
+    e_bits = max(max_abs_err(torch, words_k, words_p),
+                 max_abs_err(torch, state_k, traj_p[-1]))
+    del words_p, words_k, state_k
+    traj_k = chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps, **kw)
     e_traj = max_abs_err(torch, traj_k, traj_p)
     del traj_p, traj_k
-    print(f"check {system} {tag} S={s_pool} steps={n_steps} (the flush's "
-          f"shape): {bits_name} max_abs_err={e_bits} {traj_name} "
+    print(f"check {system} {unit} {tag} S={s_pool} steps={n_steps} (the "
+          f"flush's shape): {bits_name} max_abs_err={e_bits} {traj_name} "
           f"max_abs_err={e_traj}")
     check(e_bits == 0.0, f"{bits_name} != plain ({system}, {tag}, flush shape)")
     check(e_traj == 0.0, f"{traj_name} != plain ({system}, {tag}, flush shape)")
     for name, e in ((bits_name, e_bits), (traj_name, e_traj)):
         errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
     weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim) * item
+    if kw["coupling"] is not None:
+        weight_bytes += i_dim * i_dim * item
     t["bits_bound"] = bound(
         n_out * 2 * ops_step,
-        2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes + n_out * 4, tag)
+        2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes + n_out * 4, rate)
     t["traj_bound"] = bound(
         n_steps * s_pool * ops_step,
         s_pool * i_dim * item + weight_bytes + n_steps * s_pool * i_dim * item,
-        tag)
+        rate)
     t["flush_s"] = t_flush2
-    print(f"device times {system} {tag} (S={s_pool}, n_steps={n_steps}, "
-          f"{ops_step} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
+    dense = ""
+    if unit == "mxu":     # a count of the dense work, not a bound
+        dense_ms = (n_out * 2 * mxu_dense_flops(i_dim, h_dim, lattice)
+                    / PEAK_FLOPS["f32"] * 1e3)
+        dense = (f"; the dense dots' work, zero terms too, is {dense_ms:.4f}"
+                 f" ms at the f32 rate: not a bound, the kernel skips "
+                 f"those terms")
+    print(f"device times {system} {unit} {tag} (S={s_pool}, n_steps={n_steps},"
+          f" {ops_step} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
           f"({n_out / t['bits_ms'] * 1e3:.4g} words/s, bound "
-          f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}); "
+          f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}{dense}); "
           f"plain {t['bits_plain_ms']:.1f} ms; "
           f"unfused traj+pack {t['unfused_ms']:.3f} ms; "
           f"{traj_name} {t['traj_ms']:.4f} ms (bound "
           f"{t['traj_bound'][0]:.4f} ms by {t['traj_bound'][1]}); "
-          f"plain {t['traj_plain_ms']:.1f} ms; card {card}")
+          f"plain {t['traj_plain_ms']:.1f} ms; device busy "
+          f"{t['bits_ms'] / (t_flush2 * 1e3):.2%} of the 2nd flush's wall; "
+          f"card {card}")
     served = np.concatenate([out1[n] for n in names[:NIST_WORDS // n_words]])
     return launches, t, served
 
 
-def kernel_rows(system, tag, launches, t, errs):
+def kernel_rows(system, unit, tag, launches, t, errs):
     """The ``kernels`` line's rows of one served path's K1 and K2."""
     lattice = "@" in system
     rows = []
-    for name, key, path in zip(kernel_names(lattice), ("bits", "traj"),
-                               PATHS[system]):
+    for name, key, path in zip(kernel_names(lattice, unit), ("bits", "traj"),
+                               PATHS[(system, unit)]):
         row = {
             "name": f"{name}/{tag}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
@@ -592,7 +664,11 @@ def kernel_rows(system, tag, launches, t, errs):
             "unfused_ms": t["unfused_ms"] if key == "bits" else None,
             "flush_wall_ms": t["flush_s"] * 1e3 if key == "bits" else None,
         }
-        if lattice:
+        if unit == "mxu":
+            row["form"] = (f"{system} mxu unit (the dot form, "
+                           f"src/repro/kernels/chaotic_ann.py:154-161, with "
+                           f"K5's coupling dot :148-152)")
+        elif lattice:
             row["form"] = (f"{system} vpu lattice (K5, "
                            f"src/repro/kernels/chaotic_ann.py:61)")
         rows.append(row)
@@ -857,22 +933,33 @@ def main() -> int:
     log = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({build.SOURCE} {'compiled' if log else 'reused'})")
-    for line in log.splitlines():
-        if "registers" in line or "error" in line.lower():
-            print(f"  {line.strip()}")
+    if log:
+        print(f"ptxas: {register_report(log)}")
     neg0 = torch.relu(torch.tensor([-0.0], device=device))
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
 
     errs = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(what):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {what}: {now - t_phase:.1f} s")
+        t_phase = now
+
     phase_kernels(torch, device, errs)
+    phase_done("kernel checks")
     phase_gang_kernels(torch, device, errs)
+    phase_done("gang kernel checks")
     rows, served = [], {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         launches, t, served[tag] = phase_served(
             torch, device, dtype, tag, card, "chen", WORDS_PER_CLIENT, 1000,
             errs)
-        rows += kernel_rows("chen", tag, launches, t, errs)
+        rows += kernel_rows("chen", "vpu", tag, launches, t, errs)
+    phase_done("served path")
     phase_nist(torch, device, served)
+    phase_done("nist")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         path, t = phase_farm(torch, device, dtype, tag, card)
         for name, key in (("chaotic_ann_gang_bits", "k3_f2"),
@@ -888,15 +975,27 @@ def main() -> int:
                 "bound_by": t[f"{key}_bound"][1], "library_ms": None,
                 "shape": "F2 ragged" if key == "k3_f2" else "F1 padded",
             })
+    phase_done("farm path")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         launches, t, words = phase_served(
             torch, device, dtype, tag, card, LATTICE, LATTICE_WORDS, 2000,
             errs)
-        rows += kernel_rows(LATTICE, tag, launches, t, errs)
+        rows += kernel_rows(LATTICE, "vpu", tag, launches, t, errs)
         p, failed = nist3(words)
         print(f"nist {LATTICE} {tag} on {words.size} served words: "
               + ", ".join(f"{k} p={v:.4g}" for k, v in p.items())
               + f"; under alpha {NIST_ALPHA}: {failed} (not gated)")
+    phase_done("lattice path")
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        launches, t, words = phase_served(
+            torch, device, dtype, tag, card, LATTICE, MXU_WORDS, 3000, errs,
+            unit="mxu")
+        rows += kernel_rows(LATTICE, "mxu", tag, launches, t, errs)
+        p, failed = nist3(words)
+        print(f"nist {LATTICE} mxu {tag} on {words.size} served words: "
+              + ", ".join(f"{k} p={v:.4g}" for k, v in p.items())
+              + f"; under alpha {NIST_ALPHA}: {failed} (not gated)")
+    phase_done("mxu path")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

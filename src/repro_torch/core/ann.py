@@ -87,6 +87,25 @@ def check_block_diagonal(w1: torch.Tensor, w2: torch.Tensor,
             "the lattice kernels read only the diagonal node blocks")
 
 
+def check_coupling_support(coupling: torch.Tensor, lattice) -> None:
+    """Raise unless the dense (I, I) ``coupling`` is zero off the support
+    of its lattice's operator (row ``n*d + k`` at columns ``m*d + k`` for
+    ``m`` = n and n's ring or torus neighbours), the only entries the mxu
+    lattice kernels read."""
+    n_nodes, base_dim, topology, _ = lattice
+    support = torch.as_tensor(
+        lattice_coupling_matrix(n_nodes, base_dim, 1.0, topology) != 0,
+        device=coupling.device)
+    if tuple(coupling.shape) != tuple(support.shape):
+        raise ValueError(f"coupling {tuple(coupling.shape)} does not fit "
+                         f"the lattice's {tuple(support.shape)}")
+    if bool(((coupling != 0) & ~support).any()):
+        raise ValueError(
+            "the coupling operand must be zero off its ring/torus support "
+            "(lattice_coupling_matrix): the mxu lattice kernels read only "
+            "that support")
+
+
 def params_from_numpy(bundle: Mapping[str, np.ndarray], *, device,
                       dtype: torch.dtype = torch.float32
                       ) -> Dict[str, torch.Tensor]:
@@ -96,8 +115,9 @@ def params_from_numpy(bundle: Mapping[str, np.ndarray], *, device,
     ``device``; other arrays keep their type.  Tensors are taken as they
     are, moved and cast alike.  A lattice core's ``lattice_meta`` stays a
     float32 numpy array, as in the JAX bundle (``lattice_meta_tuple``
-    decodes it), and its weights must be block-diagonal.  Keys that are
-    not arrays (a registry stamp) are dropped.
+    decodes it), its weights must be block-diagonal and its ``coupling``
+    zero off the operator's support.  Keys that are not arrays (a registry
+    stamp) are dropped.
     """
     out = {}
     for key, value in bundle.items():
@@ -110,8 +130,10 @@ def params_from_numpy(bundle: Mapping[str, np.ndarray], *, device,
                             else np.array(value), device=device)
         out[key] = t.to(dtype) if t.is_floating_point() else t
     if "lattice_meta" in out:
-        check_block_diagonal(out["w1"], out["w2"],
-                             lattice_meta_tuple(out["lattice_meta"])[0])
+        lattice = lattice_meta_tuple(out["lattice_meta"])
+        check_block_diagonal(out["w1"], out["w2"], lattice[0])
+        if "coupling" in out:
+            check_coupling_support(out["coupling"], lattice)
     return out
 
 

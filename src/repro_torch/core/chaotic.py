@@ -33,7 +33,7 @@ def lattice_coupling_matrix(n_nodes: int, base_dim: int, strength: float,
     """The dense (I, I) form of the block-sparse diffusive coupling:
     ``strength * (A - deg*I) (x) I_d`` for the ring/torus adjacency ``A``,
     as float32.  The vpu kernels never build it; the mxu coupling dot
-    (not ported yet) takes it as an operand.
+    takes it as an operand.
     """
     if topology not in _TOPOLOGY_CODES:
         raise ValueError(f"unknown lattice topology {topology!r}; "

@@ -1,16 +1,27 @@
-"""Kernel configuration record and the gang launch-cost model (port of
-``repro/core/dse.py``: ``Candidate`` and ``GangCostModel``).
+"""Kernel configuration record, the JAX package's config selection, and
+the gang launch-cost model (port of ``repro/core/dse.py``).
 
-The design-space exploration itself (``measure_candidate``, the Eq. 8/9
-fits, ``select_config``) and ``GangCostModel.fit`` wait for a Hopper model:
-ROADMAP.md queue 1, item 6.  ``GangCostModel`` keeps the JAX launch
-arithmetic; only its per-step input is a Hopper accounting, and no TPU v5e
-constant is carried over.
+``select_config`` and what it reaches (``measure_candidate``,
+``vmem_bytes``, the Eq. 8 fit ``LatencyModel``, ``enumerate_candidates``,
+``_objective_score``) are copied from the JAX package's min_latency
+selection with the TPU v5e constants they read, renamed ``V5E_*``.  They
+are not a model of this card: they are the JAX package's definition of a
+core's *default stream*.  Its ``compute_unit`` (and the dtype) decides
+the words, and its ``t_block`` how many rows a draw launches, so a port
+that chose otherwise would serve other words, or buffer another overdraw,
+than the JAX service.  A Hopper tuner (ROADMAP.md queue 1, item 6) may
+reshape launches but must keep the selected ``compute_unit``.
+
+``GangCostModel`` keeps the JAX launch arithmetic with a Hopper step
+model (the ``CLOCK_HZ``/``PEAK_FLOPS`` inputs below); its ``fit`` waits
+for measured launches (queue 1, item 6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import functools
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,39 +72,250 @@ class Candidate:
         return {2: "bfloat16", 4: "float32"}[self.dtype_bytes]
 
 
-# What JAX ``select_config`` returns for every registered scalar system
-# (chen, lorenz, rossler, chua at 3-8-3, hyperlorenz at 4-16-4) at one
-# client's 128 lanes, in f32 and bf16: vpu, p=0, unroll 8, t_block 256.
-DEFAULT_CONFIG = Candidate(i_dim=3, h_dim=8, p=0, compute_unit="vpu",
-                           dtype_bytes=4, unroll=8, t_block=256)
+# ---------------------------------------------------------------------------
+# The JAX package's config selection, copied (it defines the default
+# stream).  TPU v5e model constants of ``repro/core/dse.py``, read only by
+# the selection below; no number here describes this card.
+# ---------------------------------------------------------------------------
+V5E_CLOCK_HZ = 940e6
+V5E_PEAK_BF16_FLOPS = 197e12
+V5E_MXU_MACS_PER_CYCLE_BF16 = V5E_PEAK_BF16_FLOPS / 2 / V5E_CLOCK_HZ
+V5E_MXU_MACS_PER_CYCLE_F32 = V5E_MXU_MACS_PER_CYCLE_BF16 / 4
+V5E_VPU_FMA_VREGS_PER_CYCLE = 4
+V5E_HBM_BYTES_PER_CYCLE = 819e9 / V5E_CLOCK_HZ
+V5E_VMEM_BYTES = 128 * 2 ** 20
+V5E_VMEM_USABLE = int(V5E_VMEM_BYTES * 0.75)
+V5E_GRID_STEP_OVERHEAD_CYCLES = 500.0
+V5E_LOOP_ITER_OVERHEAD_CYCLES = 8.0
+
+
+def _overhead_share(c: Candidate) -> float:
+    """Per-step control-overhead share of a candidate's (t_block, unroll):
+    part of the cycle oracle below and the tie-break of ``select_config``
+    (the Eq. 8 estimator is blind to these two knobs)."""
+    return (V5E_GRID_STEP_OVERHEAD_CYCLES / c.t_block
+            + V5E_LOOP_ITER_OVERHEAD_CYCLES / c.unroll)
+
+
+def measure_candidate(c: Candidate) -> Dict[str, float]:
+    """Microarchitectural cycle/byte accounting for one oscillator step of a
+    full stream block, plus the VMEM working set.  Deterministic; this plays
+    the role of the paper's post-synthesis Vivado report."""
+    vregs = lambda rows, cols: (_pad(rows, SUBLANES) // SUBLANES) * (_pad(cols, LANES) // LANES)
+
+    if c.compute_unit == "vpu":
+        # h accumulate: i_dim FMAs over (h_pad, s_block); activation: 1 pass;
+        # y accumulate: h_dim FMAs over (i_pad, s_block); bias adds: 2 passes.
+        fma_vregs = (
+            c.i_dim * vregs(c.h_pad, c.s_block)
+            + vregs(c.h_pad, c.s_block)
+            + c.h_dim * vregs(c.i_pad, c.s_block)
+            + vregs(c.h_pad, c.s_block) + vregs(c.i_pad, c.s_block)
+        )
+        if c.n_nodes > 1:
+            # Block-sparse diffusive coupling: the kernel applies it as
+            # wrapped rolls + boundary selects + the scaled accumulate
+            # over the (i_pad, s_block) state — ~10 elementwise passes
+            # for a ring (grid pays ~2x; model the ring floor), NOT an
+            # n_nodes^2 matmul.
+            fma_vregs += 10 * vregs(c.i_pad, c.s_block)
+        compute_cycles = fma_vregs / V5E_VPU_FMA_VREGS_PER_CYCLE
+    else:
+        macs_per_cycle = (V5E_MXU_MACS_PER_CYCLE_BF16 if c.dtype_bytes == 2
+                          else V5E_MXU_MACS_PER_CYCLE_F32)
+        # Both matmuls pad contraction + one free dim to 128 on the MXU.
+        macs = (_pad(c.i_pad, 128) * _pad(c.h_pad, 128) * c.s_block
+                + _pad(c.h_pad, 128) * _pad(c.i_pad, 128) * c.s_block)
+        extra_vpu = 0.0
+        if c.n_nodes > 1:
+            # The coupling operator is one more genuinely MXU-shaped
+            # contraction: (i_pad x i_pad) @ (i_pad x s_block).  The
+            # operator is block-sparse (nearest-neighbour blocks only),
+            # but the block-sparse route already did its work upstream —
+            # the lattice state is n_nodes x base_dim, not n_nodes^2, so
+            # a single 128-padded pass covers it.
+            macs += _pad(c.i_pad, 128) * _pad(c.i_pad, 128) * c.s_block
+            extra_vpu = vregs(c.i_pad, c.s_block)   # the += into y
+        # activation + biases still run on the VPU
+        vpu_cycles = (vregs(c.h_pad, c.s_block) * 2 + vregs(c.i_pad, c.s_block)
+                      + extra_vpu) / V5E_VPU_FMA_VREGS_PER_CYCLE
+        compute_cycles = macs / macs_per_cycle + vpu_cycles
+
+    # HBM traffic per step: the trajectory write-out (state never leaves VMEM).
+    hbm_bytes_per_step = c.i_pad * c.s_block * c.dtype_bytes
+    memory_cycles = hbm_bytes_per_step / V5E_HBM_BYTES_PER_CYCLE
+
+    # Per-step share of control overheads (shared with the DSE tie-break).
+    overhead = _overhead_share(c)
+
+    cycles_per_step = max(compute_cycles, memory_cycles) + overhead
+    # Paper-comparable "iteration latency": cycles for one oscillator update
+    # of ONE stream (the FPGA implements exactly one oscillator).
+    per_stream_cycles = cycles_per_step / c.s_block
+
+    vmem = vmem_bytes(c)
+    return {
+        "cycles_per_step": cycles_per_step,
+        "per_stream_latency_cycles": per_stream_cycles,
+        "compute_cycles": compute_cycles,
+        "memory_cycles": memory_cycles,
+        "overhead_cycles": overhead,
+        "vmem_bytes": float(vmem),
+        "samples_per_sec": c.s_block / cycles_per_step * V5E_CLOCK_HZ,
+        "fits_vmem": float(vmem <= V5E_VMEM_USABLE),
+    }
+
+
+def vmem_bytes(c: Candidate) -> int:
+    """Closed-form VMEM working set of the kernel instance (the cost)."""
+    d = c.dtype_bytes
+    weights = (c.i_pad * c.h_pad + c.h_pad + c.h_pad * c.i_pad + c.i_pad) * d
+    if c.n_nodes > 1 and c.compute_unit == "mxu":
+        weights += c.i_pad * c.i_pad * d     # resident coupling operator
+    state = c.i_pad * c.s_block * d          # scratch carry
+    hidden = c.h_pad * c.s_block * d * c.unroll   # live h per unrolled step
+    x0_blk = c.i_pad * c.s_block * d
+    out_blk = 2 * c.t_block * c.i_pad * c.s_block * d   # double-buffered
+    return weights + state + hidden + x0_blk + out_blk
+
+
+@dataclasses.dataclass
+class LatencyModel:
+    """Latency = (I·H) · (b3·P³ + b2·P² + b1·P + b0)   (paper Eq. 8).
+
+    Separate coefficient tables per (compute_unit, dtype) — the paper keeps
+    separate tables for DSP vs no-DSP."""
+
+    coeffs: Dict[Tuple[str, int], np.ndarray] = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def fit(p_levels: Sequence[int] = range(0, 6),
+            sizes: Sequence[Tuple[int, int]] = ((3, 4), (3, 8), (3, 16), (4, 8), (4, 16)),
+            units: Sequence[str] = ("vpu", "mxu"),
+            dtypes: Sequence[int] = (4, 2)) -> "LatencyModel":
+        """Paper §III-B.2: measure a range of solutions, normalize latency by
+        I·H, average per P, then fit a degree-3 polynomial in P."""
+        model = LatencyModel()
+        for unit, dt in itertools.product(units, dtypes):
+            norm_by_p = []
+            for p in p_levels:
+                vals = []
+                for (i, h) in sizes:
+                    m = measure_candidate(Candidate(i_dim=i, h_dim=h, p=p,
+                                                    compute_unit=unit, dtype_bytes=dt))
+                    vals.append(m["per_stream_latency_cycles"] / (i * h))
+                norm_by_p.append(np.mean(vals))
+            model.coeffs[(unit, dt)] = np.polyfit(np.asarray(list(p_levels), dtype=np.float64),
+                                                  np.asarray(norm_by_p), deg=3)
+        return model
+
+    def predict(self, i_dim: int, h_dim: int, p: int,
+                compute_unit: str = "vpu", dtype_bytes: int = 4) -> float:
+        b = self.coeffs[(compute_unit, dtype_bytes)]
+        return float((i_dim * h_dim) * np.polyval(b, float(p)))
+
+
+def enumerate_candidates(i_dim: int, h_dim: int,
+                         p_levels: Sequence[int] = range(0, 6),
+                         units: Sequence[str] = ("vpu", "mxu"),
+                         dtypes: Sequence[int] = (4, 2),
+                         unrolls: Sequence[int] = (1, 2, 4, 8),
+                         t_blocks: Sequence[int] = (32, 64, 128, 256),
+                         n_nodes: int = 1) -> List[Candidate]:
+    out = []
+    for p, u, d, un, tb in itertools.product(p_levels, units, dtypes, unrolls, t_blocks):
+        c = Candidate(i_dim=i_dim, h_dim=h_dim, p=p, compute_unit=u,
+                      dtype_bytes=d, unroll=un, t_block=tb, n_nodes=n_nodes)
+        if vmem_bytes(c) <= V5E_VMEM_USABLE:
+            out.append(c)
+    return out
+
+
+def _objective_score(c: Candidate, i_dim: int, h_dim: int,
+                     lm: LatencyModel) -> Tuple[float, float]:
+    """The min_latency selection key: (latency estimate, overhead share).
+
+    Lattice candidates (``n_nodes > 1``) score on the extended cycle
+    model directly: the Eq. 8 estimator was fitted on scalar-core sizes
+    (I<=8, H<=32) and normalizes per I*H, so extrapolating it to lattice
+    dims would erase the block-sparse compute-unit tradeoff the lattice
+    arms of ``measure_candidate`` encode.
+    """
+    if c.n_nodes > 1:
+        primary = measure_candidate(c)["per_stream_latency_cycles"]
+    else:
+        primary = lm.predict(i_dim, h_dim, c.p, c.compute_unit, c.dtype_bytes)
+    return (primary, _overhead_share(c))
+
+
+_DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _fitted_latency_model() -> LatencyModel:
+    """The Eq. 8 estimator, fitted once per process (~ms; pure numpy)."""
+    return LatencyModel.fit()
+
+
+@functools.lru_cache(maxsize=None)
+def select_config(i_dim: int, h_dim: int, s_total: Optional[int] = None,
+                  dtype: torch.dtype = torch.float32,
+                  unit: Optional[str] = None, n_nodes: int = 1) -> Candidate:
+    """Pick (s_block, t_block, unroll, compute_unit) for a kernel launch,
+    as the JAX package's ``select_config`` does with its default
+    min_latency objective: score the enumerated design space with the
+    fitted Eq. 8 estimator, breaking ties with the analytic per-step
+    overhead the estimator normalizes away.
+
+    Args:
+      s_total: number of streams the caller will actually launch; candidates
+        whose stream block exceeds the padded stream count are dropped (they
+        would only compute padding lanes).
+      dtype: the state dtype, ``torch.float32`` or ``torch.bfloat16``.
+      unit: restrict to 'vpu' or 'mxu'; None searches both.
+    """
+    dt = _DTYPE_BYTES.get(dtype)
+    if dt is None:
+        raise ValueError(f"unknown dtype {dtype!r}")
+    units = (unit,) if unit else ("vpu", "mxu")
+    cands = enumerate_candidates(i_dim, h_dim, units=units, dtypes=(dt,),
+                                 n_nodes=n_nodes)
+    if s_total is not None:
+        # p=0 (s_block=128) always fits the cap, so this never empties cands.
+        s_cap = max(LANES, _pad(s_total, LANES))
+        cands = [c for c in cands if c.s_block <= s_cap]
+    if not cands:
+        raise ValueError(f"no feasible candidate for I={i_dim} H={h_dim}")
+    lm = _fitted_latency_model()
+    return min(cands, key=lambda c: _objective_score(c, i_dim, h_dim, lm))
 
 
 def default_config(i_dim: int, h_dim: int, dtype: torch.dtype,
                    n_nodes: int = 1) -> Candidate:
-    """``DEFAULT_CONFIG`` at a net's dims and the state dtype; for a
-    lattice core (``n_nodes > 1``, ``i_dim``/``h_dim`` its
-    lattice-expanded dims) the vpu config with ``n_nodes`` set."""
-    return dataclasses.replace(DEFAULT_CONFIG, i_dim=int(i_dim),
-                               h_dim=int(h_dim),
-                               dtype_bytes=dtype.itemsize,
-                               n_nodes=int(n_nodes))
+    """The vpu config the JAX package selects for one client's 128 lanes
+    (vpu, p=0, unroll 8, t_block 256 at every committed system and
+    lattice), for callers that name the vpu stream; for a lattice core
+    ``i_dim``/``h_dim`` are its lattice-expanded dims."""
+    return select_config(int(i_dim), int(h_dim), s_total=LANES, dtype=dtype,
+                         unit="vpu", n_nodes=int(n_nodes))
 
 
-def resolve_config(config, params, dtype: torch.dtype) -> Candidate:
+def resolve_config(config, params, dtype: torch.dtype,
+                   s_total: Optional[int] = None) -> Candidate:
     """The kernel config of a service or engine: ``config`` when given,
-    else ``default_config`` at the net's dims.  A lattice core must name
-    its config: JAX ``select_config`` searches the vpu and mxu units for
-    it, and may pick mxu (at chen@ring32 it does), a word stream of its
-    own that the port has no search and no kernel for."""
+    else what the JAX package picks for the same core: ``select_config``
+    at the net's dims, ``dtype``, the lattice's node count and the
+    caller's ``s_total`` (the engine passes its ``n_streams``, the service
+    its ``lanes_per_client``, as the JAX callers do)."""
     if config is not None:
         return config
+    n_nodes = 1
     if "lattice_meta" in params:
-        raise ValueError(
-            "a lattice core needs an explicit config=, e.g. "
-            "default_config(i_dim, h_dim, dtype, n_nodes=...) for the vpu "
-            "stream: the JAX package picks its config by a search that may "
-            "choose the mxu unit, whose stream differs")
-    return default_config(params["w1"].shape[0], params["w1"].shape[1], dtype)
+        from repro_torch.core.ann import lattice_meta_tuple
+        n_nodes = lattice_meta_tuple(params["lattice_meta"])[0]
+    i_dim, h_dim = params["w1"].shape[-2:]
+    return select_config(int(i_dim), int(h_dim), s_total=s_total,
+                         dtype=dtype, n_nodes=n_nodes)
 
 
 # ---------------------------------------------------------------------------

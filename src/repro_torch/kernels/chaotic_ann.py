@@ -7,7 +7,9 @@ synchronising.  A tensor on the CPU takes the kernel's plain version in
 launches the kernel or raises.  ``<wrapper>.launches`` counts launches.
 The lattice forms of K1 and K2 (``lattice=`` on ``chaotic_ann_bits`` /
 ``chaotic_ann_traj``) are kernels of their own, with their own wrappers
-and counters (``chaotic_ann_lattice_bits`` / ``chaotic_ann_lattice_traj``).
+and counters (``chaotic_ann_lattice_bits`` / ``chaotic_ann_lattice_traj``),
+and so is the mxu unit of K1 and K2, scalar and lattice cores alike
+(``compute_unit="mxu"``: ``chaotic_ann_mxu_bits`` / ``chaotic_ann_mxu_traj``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The ROADMAP.md items that port what these kernels refuse.
-TODO_UNPORTED = "queue 2, 'K1/K2: mxu unit, with K5's mxu coupling'"
+TODO_GANG_MXU = "queue 2, item 2 (K3's mxu form)"
 TODO_NON_RELU = "queue 2, 'K1-K4: non-relu activations'"
 
 
@@ -54,6 +56,12 @@ def _lib() -> ctypes.CDLL:
         [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 6
         + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_lattice_traj_launch.restype = _c_int
+    for name, n_ptr in (("chaotic_ann_mxu_bits_launch", 9),
+                        ("chaotic_ann_mxu_traj_launch", 7)):
+        fn = getattr(lib, name)
+        fn.argtypes = [_c_int] * 6 + [_c_ptr] * n_ptr + [_c_i64, _c_i64,
+                                                         _c_ptr]
+        fn.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
     return lib
@@ -118,14 +126,22 @@ def _raise_on(lib, code: int, kernel: str, w1) -> None:
                            f"{lib.chaotic_ann_error_string(code).decode()}")
 
 
+def _check_unit(compute_unit: str) -> None:
+    if compute_unit not in ("vpu", "mxu"):
+        raise ValueError(f"compute_unit must be 'vpu' or 'mxu', got "
+                         f"{compute_unit!r}")
+
+
 def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor, x0: torch.Tensor, word_offset=0, *,
-                     n_steps: int, activation: str = "relu", lattice=None
+                     n_steps: int, activation: str = "relu", lattice=None,
+                     compute_unit: str = "vpu", coupling=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused oscillator + bit extraction: (n_steps // 2, S) uint32 words
     and the (S, I) final state.  ``lattice`` (the static descriptor
     ``(n_nodes, base_dim, topology, strength)``) takes the lattice form,
-    ``chaotic_ann_lattice_bits``.
+    ``chaotic_ann_lattice_bits``; ``compute_unit="mxu"`` the mxu unit,
+    ``chaotic_ann_mxu_bits`` (a lattice with its dense ``coupling``).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
     Bound on the H100: operations.  Each word costs 2 steps of
@@ -134,6 +150,11 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     registers for the whole launch, so the trajectory never reaches
     device memory and only the words, offsets and final state move.
     """
+    _check_unit(compute_unit)
+    if compute_unit == "mxu":
+        return chaotic_ann_mxu_bits(w1, b1, w2, b2, x0, word_offset,
+                                    n_steps=n_steps, lattice=lattice,
+                                    coupling=coupling, activation=activation)
     if lattice is not None:
         return chaotic_ann_lattice_bits(w1, b1, w2, b2, x0, word_offset,
                                         n_steps=n_steps, lattice=lattice,
@@ -167,9 +188,12 @@ chaotic_ann_bits.launches = 0
 
 def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor, x0: torch.Tensor, *, n_steps: int,
-                     activation: str = "relu", lattice=None) -> torch.Tensor:
+                     activation: str = "relu", lattice=None,
+                     compute_unit: str = "vpu", coupling=None
+                     ) -> torch.Tensor:
     """The (n_steps, S, I) float trajectory after x0, in x0's dtype.
-    ``lattice`` takes the lattice form, ``chaotic_ann_lattice_traj``.
+    ``lattice`` takes the lattice form, ``chaotic_ann_lattice_traj``;
+    ``compute_unit="mxu"`` the mxu unit, ``chaotic_ann_mxu_traj``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2).
     Bound on the H100: bytes.  A step costs (4*I*H + H + I) ops per
@@ -178,6 +202,11 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     design as ``chaotic_ann_bits``; each thread writes its I values per
     step, so a warp writes one contiguous run per step.
     """
+    _check_unit(compute_unit)
+    if compute_unit == "mxu":
+        return chaotic_ann_mxu_traj(w1, b1, w2, b2, x0, n_steps=n_steps,
+                                    lattice=lattice, coupling=coupling,
+                                    activation=activation)
     if lattice is not None:
         return chaotic_ann_lattice_traj(w1, b1, w2, b2, x0, n_steps=n_steps,
                                         lattice=lattice,
@@ -322,6 +351,138 @@ chaotic_ann_lattice_traj.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The mxu unit of K1 and K2, with K5's mxu coupling for a lattice core.
+# ---------------------------------------------------------------------------
+
+def _mxu_operands(w1, b1, w2, b2, x0, lattice, coupling):
+    """Validated operands of an mxu launch: the weights cast to the state
+    dtype, the coupling operand likewise (None for a scalar core), the
+    dtype code and the shape codes (node I, node H, n_nodes, topology); a
+    scalar core is one node."""
+    weights, code = _operands(w1, b1, w2, b2, x0)
+    i_dim, h_dim = w1.shape[-2:]
+    if lattice is None:
+        return weights, None, code, (i_dim, h_dim, 1, 0)
+    ref.check_lattice(lattice, i_dim)
+    n_nodes, base_dim, topology, _ = lattice
+    if h_dim % n_nodes:
+        raise ValueError(f"H = {h_dim} does not split into {n_nodes} node "
+                         f"blocks")
+    if coupling is None or tuple(coupling.shape) != (i_dim, i_dim) \
+            or coupling.device != x0.device:
+        raise ValueError(f"an mxu lattice launch needs the dense ({i_dim}, "
+                         f"{i_dim}) coupling operand on {x0.device}")
+    return (weights, coupling.to(x0.dtype).contiguous(), code,
+            (base_dim, h_dim // n_nodes, n_nodes, _TOPOLOGY_CODES[topology]))
+
+
+def _raise_on_mxu(lib, code: int, kernel: str, shape) -> None:
+    if code == -1:
+        raise ValueError(f"{kernel}: mxu shape (node I, node H, n_nodes, "
+                         f"topology) = {shape} is not compiled into "
+                         f"{build.SOURCE} (MXU_SHAPES)")
+    _raise_on(lib, code, kernel, None)
+
+
+def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         x0: torch.Tensor, word_offset=0, *, n_steps: int,
+                         lattice=None, coupling=None,
+                         activation: str = "relu"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on the mxu unit: (n_steps // 2, S) uint32 words and the (S, I)
+    final state of a scalar core, or of a lattice core (``lattice`` its
+    descriptor, ``coupling`` its dense (I, I) operand; block-diagonal
+    weights, a coupling zero off its ring or torus support, as
+    ``params_from_numpy`` checks).
+
+    Replaces the mxu form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1, with
+    K5's coupling dot for a lattice).  Each dot is a forward chain of f32
+    FMAs, the order the JAX package's mxu stream has, so this is a word
+    stream of its own, bitwise the JAX one.  Bound on the H100:
+    operations, at the f32 rate in both dtypes (the chains accumulate in
+    f32): per word 2 steps of n_nodes x (2*D*HB) FMAs of 2 ops, the
+    coupling's 3 (ring) or 5 (torus) FMAs per component, and the bias and
+    coupling adds (107 ops a step for 3-8-3, 4,096 at chen@ring32: the
+    nonzero terms of the dense dots, which have 58,368 FMAs), against 4
+    bytes written.
+    Design: the lattice kernels' thread per (lane, node), the node's
+    weight blocks in registers (a scalar core is one node), the chains
+    over the node's nonzero terms in the dense order.
+    """
+    _check_activation(activation)
+    _check_steps(n_steps)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
+                                        word_offset, activation, lattice,
+                                        "mxu", coupling)
+    weights, cpl, code, shape = _mxu_operands(w1, b1, w2, b2, x0, lattice,
+                                              coupling)
+    n_lanes, n_rows = x0.shape[0], n_steps // 2
+    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_mxu_bits_launch(
+        x0.device.index, code, *shape, *(t.data_ptr() for t in weights),
+        None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
+        offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_lanes,
+        n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_mxu(lib, rc, "chaotic_ann_mxu_bits", shape)
+    chaotic_ann_mxu_bits.launches += 1
+    return words, state
+
+
+chaotic_ann_mxu_bits.launches = 0
+
+
+def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         x0: torch.Tensor, *, n_steps: int, lattice=None,
+                         coupling=None, activation: str = "relu"
+                         ) -> torch.Tensor:
+    """K2 on the mxu unit: the (n_steps, S, I) trajectory of a scalar or
+    lattice core, with the operands of ``chaotic_ann_mxu_bits``.
+
+    Replaces the mxu form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2, with K5's
+    coupling dot).  Bound on the H100: at chen@ring32 bytes in f32 (4,096
+    ops a step against 384 bytes written, 10.7 ops a byte, under the
+    card's 20 f32 ops a byte) and operations in bf16 (192 bytes, 21.3);
+    operations for 3-8-3 (107 ops against 12 or 6 bytes).  Same design as
+    ``chaotic_ann_mxu_bits``; the threads of a lane write its values of a
+    step as one contiguous run.
+    """
+    _check_activation(activation)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation,
+                                   lattice, "mxu", coupling)
+    weights, cpl, code, shape = _mxu_operands(w1, b1, w2, b2, x0, lattice,
+                                              coupling)
+    n_lanes = x0.shape[0]
+    traj = torch.empty((n_steps,) + tuple(x0.shape), dtype=x0.dtype,
+                       device=x0.device)
+    if n_lanes == 0 or n_steps == 0:
+        return traj
+    lib = _lib()
+    rc = lib.chaotic_ann_mxu_traj_launch(
+        x0.device.index, code, *shape, *(t.data_ptr() for t in weights),
+        None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
+        traj.data_ptr(), n_lanes, n_steps,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_mxu(lib, rc, "chaotic_ann_mxu_traj", shape)
+    chaotic_ann_mxu_traj.launches += 1
+    return traj
+
+
+chaotic_ann_mxu_traj.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The gang contract (pure integer code, copied from the JAX package): which
 # rows a ragged lane-concat gang launch computes.  The farm advances each
 # member by exactly these rows, so the CUDA kernel, which has no time grid,
@@ -397,7 +558,7 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     if compute_unit != "vpu":
         raise NotImplementedError(
             f"compute_unit={compute_unit!r}: the gang kernels are vpu only; "
-            f"see ROADMAP.md {TODO_UNPORTED}")
+            f"see ROADMAP.md {TODO_GANG_MXU}")
     _check_steps(n_steps)
     cmap = _host_ints(core_map)
     n_blocks, n_lanes, n_rows = cmap.shape[0], x0.shape[0], n_steps // 2

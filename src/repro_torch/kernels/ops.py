@@ -123,36 +123,29 @@ def uniform_from_trajectory(traj: torch.Tensor) -> torch.Tensor:
 
 
 def _lattice_args(params: Dict[str, torch.Tensor], compute_unit: str):
-    """The static lattice descriptor of a params dict, or None for a
-    scalar core.  A lattice core carries its ``lattice_meta`` array next
-    to its lattice-expanded ``w1/b1/w2/b2``; the vpu kernels rebuild the
-    coupling from it, and the dense ``coupling`` operand is for the mxu
-    unit, which is not ported.
-    """
+    """``(lattice, coupling)`` of a params dict, as JAX ``ops._lattice_args``
+    returns them: the static descriptor of a lattice core (None for a
+    scalar one), and its dense ``coupling`` operand on the mxu unit only
+    (the vpu kernels rebuild the coupling from the descriptor)."""
     if "lattice_meta" not in params:
-        return None
-    if compute_unit != "vpu":
-        raise NotImplementedError(
-            f"lattice cores on compute_unit={compute_unit!r} are not "
-            f"ported; see ROADMAP.md {chaotic_ann.TODO_UNPORTED}")
+        return None, None
     from repro_torch.core.ann import lattice_meta_tuple
-    return lattice_meta_tuple(params["lattice_meta"])
+    lattice = lattice_meta_tuple(params["lattice_meta"])
+    return lattice, params.get("coupling") if compute_unit == "mxu" else None
 
 
 def _check_ported(params: Dict[str, torch.Tensor], compute_unit: str,
                   gang: bool = False):
-    """Raise for the forms not ported; else the lattice descriptor of a
-    lattice core (None for a scalar one)."""
+    """Raise for the forms not ported; else ``(lattice, coupling)``."""
     if gang and "lattice_meta" in params:
         raise NotImplementedError(
             f"lattice cores in a gang launch are not ported; see "
             f"ROADMAP.md {TODO_LATTICE_GANG}")
-    lattice = _lattice_args(params, compute_unit)
-    if compute_unit != "vpu":
+    if gang and compute_unit != "vpu":
         raise NotImplementedError(
-            f"compute_unit={compute_unit!r} is not ported; see ROADMAP.md "
-            f"{chaotic_ann.TODO_UNPORTED}")
-    return lattice
+            f"compute_unit={compute_unit!r} in a gang launch is not ported; "
+            f"see ROADMAP.md {chaotic_ann.TODO_GANG_MXU}")
+    return _lattice_args(params, compute_unit)
 
 
 def _weights(params):
@@ -174,15 +167,17 @@ def chaotic_trajectory(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     """
     if config is not None:
         compute_unit = config.compute_unit
-    lattice = _check_ported(params, compute_unit)
+    lattice, cpl = _check_ported(params, compute_unit)
     if backend == "ref":
         return ref.chaotic_ann_ref(*_weights(params), x0, n_steps, activation,
-                                   lattice)
+                                   lattice, compute_unit, cpl)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_traj(*_weights(params), x0,
                                         n_steps=n_steps, activation=activation,
-                                        lattice=lattice)
+                                        lattice=lattice,
+                                        compute_unit=compute_unit,
+                                        coupling=cpl)
 
 
 def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
@@ -198,15 +193,18 @@ def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     """
     if config is not None:
         compute_unit = config.compute_unit
-    lattice = _check_ported(params, compute_unit)
+    lattice, cpl = _check_ported(params, compute_unit)
     if backend == "ref":
         return ref.chaotic_ann_bits_ref(*_weights(params), x0, n_steps,
-                                        word_offset, activation, lattice)
+                                        word_offset, activation, lattice,
+                                        compute_unit, cpl)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_bits(*_weights(params), x0, word_offset,
                                         n_steps=n_steps, activation=activation,
-                                        lattice=lattice)
+                                        lattice=lattice,
+                                        compute_unit=compute_unit,
+                                        coupling=cpl)
 
 
 def _stacked_weights(params):

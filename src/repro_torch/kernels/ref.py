@@ -1,14 +1,22 @@
 """Plain PyTorch versions of the oscillator kernels.
 
 Unlike ``repro/kernels/ref.py`` (an ``x @ w`` formulation), these scan the
-*kernel's* step: the vpu order of ``repro/kernels/chaotic_ann.py``
-(``_make_step``, the broadcast multiply-adds), with every multiply and add
-a separate op in the state dtype.  So bf16 rounds after every op, as the
-Pallas kernel does, and the CUDA kernels of ``chaotic_ann.cu`` can be held
-to these versions bitwise.
+*kernel's* step of ``repro/kernels/chaotic_ann.py::_make_step``, for each
+compute unit:
+
+* vpu: the broadcast multiply-adds, every multiply and add a separate op
+  in the state dtype, so bf16 rounds after every op, as the Pallas kernel
+  does;
+* mxu: each ``jnp.dot(..., preferred_element_type=f32)`` is a forward
+  chain of f32 fused multiply-adds from +0 (``fma_f32``), rounded to the
+  state dtype once, then the bias and coupling adds in the state dtype.
+
+So the CUDA kernels of ``chaotic_ann.cu`` can be held to these versions
+bitwise.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -59,13 +67,60 @@ def lattice_delta(x: torch.Tensor, lattice) -> torch.Tensor:
     return (acc.reshape(x.shape) - deg * x) * eps
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (a correctly rounded fused
+    multiply-add of float32 values), elementwise with broadcasting.
+
+    The product of two float32 values is exact in float64, but the f64 sum
+    rounds, and rounding that again to float32 is wrong when the f64 sum
+    lands on a float32 midpoint (a false tie).  So the sum is rounded to
+    odd: an inexact f64 sum ``s`` (TwoSum error ``e != 0``) whose last bit
+    is even moves to its odd neighbour on ``e``'s side.  With 53 >= 24 + 2
+    bits, rounding that to float32 gives the float32 rounding of the exact
+    value.  Inputs may be float32 or already float64 copies of float32
+    values.
+    """
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b                                   # exact
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)               # s + e == p + c exactly
+    keep = (e == 0) | ((s.view(torch.int64) & 1) == 1) | torch.isinf(s)
+    s = torch.where(keep, s, torch.nextafter(s, e * math.inf))
+    return s.float()
+
+
+def mxu_dot(x: torch.Tensor, w: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``jnp.dot`` with f32 accumulation as the mxu unit computes it: for
+    (S, K) ``x`` and (K, N) ``w``, each output is the forward chain
+    ``acc = fma(x[k], w[k, n], acc)`` over k = 0 .. K-1 from +0 in f32,
+    rounded to ``dtype`` at the end.  A bf16 product is exact in f32, so
+    there a separate multiply and add is that fused op.  Dense over K:
+    zero weights are terms of the chain like any other.
+    """
+    acc = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    if dtype == torch.float32:
+        xd, wd = x.double(), w.double()
+        for k in range(w.shape[-2]):
+            acc = fma_f32(xd[:, k:k + 1], wd[k], acc)
+    else:
+        xf, wf = x.float(), w.float()
+        for k in range(w.shape[-2]):
+            acc = acc + xf[:, k:k + 1] * wf[k]
+    return acc.to(dtype)
+
+
 def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, *, dtype: torch.dtype,
-              activation: str = "relu", lattice=None
+              activation: str = "relu", lattice=None,
+              compute_unit: str = "vpu", coupling=None
               ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """One oscillator step on (S, I) states, in the vpu order.
+    """One oscillator step on (S, I) states.
 
-    ``h`` accumulates ``w1[i] * x[:, i]`` over ``i`` from zeros, then
+    vpu: ``h`` accumulates ``w1[i] * x[:, i]`` over ``i`` from zeros, then
     ``phi(h + b1)``; ``y`` accumulates ``w2[j] * h[:, j]`` over ``j`` from
     zeros, then ``+ b2``.  Weights are cast to ``dtype`` once, here.  They
     are one net's (``w1`` (I, H)) or one net per lane (``w1`` (S, I, H),
@@ -73,12 +128,39 @@ def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     alone.  ``lattice`` (the static descriptor) adds the coupling of the
     step's input, ``y + lattice_delta(x)``, after ``+ b2``; the loops stay
     dense over the lattice-expanded weights.
+
+    mxu (one net's weights): ``h = phi(dot(x, w1) + b1)``, ``y = dot(h,
+    w2) + b2``, and for a lattice ``y + dot(x, coupling^T)`` with the dense
+    (I, I) ``coupling`` operand cast to ``dtype``; each ``dot`` is
+    ``mxu_dot``, each add one op in ``dtype``.
     """
     phi = ACTIVATIONS[activation]
     w1, b1, w2, b2 = (t.to(dtype) for t in (w1, b1, w2, b2))
     i_dim, h_dim = w1.shape[-2:]
     if lattice is not None:
         check_lattice(lattice, i_dim)
+    if compute_unit == "mxu":
+        cpl_t = None
+        if lattice is not None:
+            if coupling is None:
+                raise ValueError("mxu lattice steps need the dense coupling "
+                                 "operand")
+            if tuple(coupling.shape) != (i_dim, i_dim):
+                raise ValueError(f"coupling shape {tuple(coupling.shape)} "
+                                 f"!= ({i_dim}, {i_dim})")
+            cpl_t = coupling.to(dtype).t()
+
+        def mxu_step(x: torch.Tensor) -> torch.Tensor:
+            h = phi(mxu_dot(x, w1, dtype) + b1)
+            y = mxu_dot(h, w2, dtype) + b2
+            if cpl_t is not None:
+                y = y + mxu_dot(x, cpl_t, dtype)
+            return y
+
+        return mxu_step
+    if compute_unit != "vpu":
+        raise ValueError(f"compute_unit must be 'vpu' or 'mxu', got "
+                         f"{compute_unit!r}")
 
     def step(x: torch.Tensor) -> torch.Tensor:
         h = torch.zeros((x.shape[0], h_dim), dtype=dtype, device=x.device)
@@ -98,11 +180,15 @@ def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
 def chaotic_ann_ref(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                     b2: torch.Tensor, x0: torch.Tensor, n_steps: int,
-                    activation: str = "relu", lattice=None) -> torch.Tensor:
+                    activation: str = "relu", lattice=None,
+                    compute_unit: str = "vpu", coupling=None
+                    ) -> torch.Tensor:
     """Plain K2: the (n_steps, S, I) trajectory after x0, in x0's dtype
-    (with ``lattice``: the lattice form of K2)."""
+    (with ``lattice``: the lattice form of K2; ``compute_unit="mxu"``
+    the mxu unit's, with the ``coupling`` operand for a lattice)."""
     step = make_step(w1, b1, w2, b2, dtype=x0.dtype, activation=activation,
-                     lattice=lattice)
+                     lattice=lattice, compute_unit=compute_unit,
+                     coupling=coupling)
     traj = torch.empty((n_steps,) + tuple(x0.shape), dtype=x0.dtype,
                        device=x0.device)
     x = x0
@@ -115,7 +201,8 @@ def chaotic_ann_ref(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor,
                          x0: torch.Tensor, n_steps: int, word_offset=0,
-                         activation: str = "relu", lattice=None
+                         activation: str = "relu", lattice=None,
+                         compute_unit: str = "vpu", coupling=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K1: the step scan, then ``ops.pack_words``.
 
@@ -123,7 +210,8 @@ def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
     """
     if n_steps < 2 or n_steps % 2:
         raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
-    traj = chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation, lattice)
+    traj = chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation, lattice,
+                           compute_unit, coupling)
     return ops.pack_words(traj, word_offset), traj[-1].clone()
 
 

@@ -120,6 +120,8 @@ class ChaoticPRNG:
 
     Holds only static configuration (weights, dtype, kernel config, device);
     stream state is explicit.  ``params`` are numpy arrays or tensors.
+    Given no ``config``, the kernel config is the JAX package's choice for
+    ``n_streams`` lanes (``core.dse.resolve_config``).
     """
 
     def __init__(self, params, *, n_streams: int = 256, burn_in: int = 16,
@@ -134,7 +136,8 @@ class ChaoticPRNG:
         self.backend = backend
         self.dim = self.params["w1"].shape[0]
         self.dtype = dtype
-        self.config = resolve_config(config, self.params, dtype)
+        self.config = resolve_config(config, self.params, dtype,
+                                     s_total=self.n_streams)
 
     def init(self, seed: int = 0, path: Tuple[int, ...] = ()) -> StreamState:
         """Seed + burn in a fresh stream (rows start counting at 0 after)."""

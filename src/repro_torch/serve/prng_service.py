@@ -42,7 +42,12 @@ class _Client:
 
 
 class PRNGService:
-    """Batches many named client streams onto one fused-kernel launch."""
+    """Batches many named client streams onto one fused-kernel launch.
+
+    Given no ``config``, the kernel config is the JAX package's choice for
+    one client's ``lanes_per_client`` lanes (``core.dse.resolve_config``),
+    so the service serves the JAX service's default stream.
+    """
 
     def __init__(self, params, *, lanes_per_client: int = 128,
                  burn_in: int = 16, activation: str = "relu",
@@ -56,7 +61,8 @@ class PRNGService:
         self.activation = activation
         self.backend = backend
         self.dtype = dtype
-        self.config = resolve_config(config, self.params, dtype)
+        self.config = resolve_config(config, self.params, dtype,
+                                     s_total=self.lanes_per_client)
         self.clients: Dict[str, _Client] = {}
         self.pool_x: Optional[torch.Tensor] = None    # (n_clients * L, I)
         self.launches = 0                             # batched pool launches

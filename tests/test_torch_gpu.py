@@ -290,3 +290,88 @@ def test_lattice_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="i_dim"):
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
                                      lattice=(4, 3, "ring", 0.05))
+
+
+MXU_SYSTEMS = ("chen", "hyperlorenz") + LATTICES
+
+
+@pytest.mark.parametrize("system", MXU_SYSTEMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mxu_kernels_bitwise_vs_plain_on_card(system, dtype):
+    """mxu K1 and K2 (scalar cores, and lattices with the coupling dot)
+    against the plain dense FMA chains: words, final state and trajectory,
+    at a ragged lane count and with offsets that wrap past 2**32."""
+    _need_card()
+    rng = np.random.default_rng(31)
+    p = params_from_numpy(default_params(system=system), device="cuda")
+    w = [p[k] for k in ("w1", "b1", "w2", "b2")]
+    kw = dict(lattice=None, coupling=None)
+    if "lattice_meta" in p:
+        from repro_torch.core.ann import lattice_meta_tuple
+        kw = dict(lattice=lattice_meta_tuple(p["lattice_meta"]),
+                  coupling=p["coupling"])
+    n_lanes = 100 + 3 if kw["lattice"] else 1000 + 37
+    x0 = torch.from_numpy(rng.uniform(-0.9, 0.9, (n_lanes, w[0].shape[0]))
+                          .astype(np.float32)).to("cuda", dtype)
+    off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
+    off_np[:4] = [0xFFFFFFFF, 0xFFFFFFF0, 0xFFFFFFC0, 0]
+    off = torch.from_numpy(off_np).to("cuda")
+    n0 = (chaotic_ann.chaotic_ann_mxu_bits.launches,
+          chaotic_ann.chaotic_ann_mxu_traj.launches)
+    words, state = chaotic_ann.chaotic_ann_bits(
+        *w, x0, off, n_steps=32, compute_unit="mxu", **kw)
+    traj = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=32,
+                                        compute_unit="mxu", **kw)
+    assert (chaotic_ann.chaotic_ann_mxu_bits.launches,
+            chaotic_ann.chaotic_ann_mxu_traj.launches) == (n0[0] + 1,
+                                                           n0[1] + 1)
+    rw, rs = ref.chaotic_ann_bits_ref(*w, x0, 32, off, compute_unit="mxu",
+                                      **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise(words, rw)
+    _assert_bitwise(state, rs)
+    _assert_bitwise(traj, ref.chaotic_ann_ref(*w, x0, 32, compute_unit="mxu",
+                                              **kw))
+
+
+def test_mxu_service_on_card_never_reaches_the_plain_version(monkeypatch):
+    """The no-config chen@ring32 service picks the mxu unit and serves
+    through mxu K1 alone; its words equal the plain version's."""
+    _need_card()
+    from repro_torch.serve.prng_service import PRNGService
+    p = default_params(system="chen@ring32")
+    want = PRNGService(p, lanes_per_client=32, burn_in=4, device="cpu")
+    want.register("a", seed=5)
+    want_words = want.draw("a", 256)
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "chaotic_ann_bits_ref", forbidden)
+    monkeypatch.setattr(ref, "chaotic_ann_ref", forbidden)
+    n0 = {name: getattr(chaotic_ann, name).launches
+          for name in ("chaotic_ann_mxu_bits", "chaotic_ann_bits",
+                       "chaotic_ann_lattice_bits")}
+    svc = PRNGService(p, lanes_per_client=32, burn_in=4, device="cuda")
+    assert svc.config.compute_unit == "mxu"
+    svc.register("a", seed=5)
+    np.testing.assert_array_equal(svc.draw("a", 256), want_words)
+    assert {name: getattr(chaotic_ann, name).launches - n
+            for name, n in n0.items()} == {"chaotic_ann_mxu_bits": 2,
+                                           "chaotic_ann_bits": 0,
+                                           "chaotic_ann_lattice_bits": 0}
+
+
+def test_mxu_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    w, lattice, x0, off = _lattice_inputs("chen@ring8", 64, torch.float32, 4)
+    with pytest.raises(ValueError, match="coupling"):
+        chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=4, lattice=lattice,
+                                     compute_unit="mxu")
+    with pytest.raises(ValueError, match="MXU_SHAPES"):
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, compute_unit="mxu")
+    bad = dict(default_params(system="chen@ring8"))
+    bad["coupling"] = bad["coupling"].copy()
+    bad["coupling"][0, 12] = 0.05        # node 0 <- node 4: not a neighbour
+    with pytest.raises(ValueError, match="support"):
+        params_from_numpy(bad, device="cuda")

@@ -281,15 +281,23 @@ def test_ops_and_module_route_lattices():
 
 
 def test_unported_lattice_forms_raise():
-    """mxu lattices and lattices in a gang or a farm name their ROADMAP.md
-    item; the plain dense loop refuses a descriptor that does not fit."""
+    """Lattices in a gang or a farm name their ROADMAP.md item; an mxu
+    lattice is routed with its coupling operand and refused without it;
+    the plain dense loop refuses a descriptor that does not fit."""
     p = params_from_numpy(default_params(system="chen@ring8"), device="cpu")
+    x0 = torch.from_numpy(seeds(np.random.default_rng(36), 8, 24))
+    words, state = ops.chaotic_bits(p, x0, 4, compute_unit="mxu")
+    want_w, want_s = ref.chaotic_ann_bits_ref(
+        *[p[k] for k in KEYS], x0, 4, lattice=lattice_meta_tuple(
+            p["lattice_meta"]), compute_unit="mxu", coupling=p["coupling"])
+    assert torch.equal(ops.from_uint32(words), ops.from_uint32(want_w))
+    assert torch.equal(state, want_s)
+    assert torch.equal(ops.chaotic_trajectory(p, x0, 4, config=Candidate(
+        i_dim=24, h_dim=64, compute_unit="mxu", n_nodes=8))[-1], state)
+    with pytest.raises(ValueError, match="coupling"):
+        ops.chaotic_bits({k: v for k, v in p.items() if k != "coupling"},
+                         x0, 4, compute_unit="mxu")
     x0 = torch.zeros(256, 24)
-    with pytest.raises(NotImplementedError, match="mxu unit"):
-        ops.chaotic_bits(p, x0, 4, compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="mxu unit"):
-        ops.chaotic_trajectory(p, x0, 4, config=Candidate(
-            i_dim=24, h_dim=64, compute_unit="mxu", n_nodes=8))
     gang = {k: p[k][None] for k in KEYS}
     gang["lattice_meta"] = p["lattice_meta"]
     with pytest.raises(NotImplementedError, match="K3/K4: lattice forms"):
@@ -349,13 +357,13 @@ def test_bf16_lattice_service_bitwise_vs_jax():
 
 
 def test_lattice_service_needs_an_explicit_config():
-    """Given no config, the JAX package searches vpu and mxu (mxu wins at
-    chen@ring32, another word stream), so the port asks for one."""
+    """The vpu lattice stream needs an explicit config: given none, the
+    port picks what the JAX package's ``select_config`` picks, and at
+    chen@ring32 that is the mxu unit (tests/test_torch_mxu.py serves it)."""
     p = default_params(system="chen@ring32")
-    with pytest.raises(ValueError, match="explicit config="):
-        PRNGService(p, device="cpu")
-    with pytest.raises(ValueError, match="explicit config="):
-        ChaoticPRNG(p, device="cpu")
+    for make in (PRNGService, ChaoticPRNG):
+        cfg = make(p, device="cpu").config
+        assert (cfg.compute_unit, cfg.n_nodes) == ("mxu", 32)
     svc = PRNGService(p, device="cpu", config=default_config(
         96, 256, torch.float32, n_nodes=32))
     assert (svc.dim, svc.config.compute_unit, svc.config.n_nodes,

@@ -90,13 +90,16 @@ def test_ops_route_and_refuse_unported_forms():
     assert torch.equal(s_auto, s_ref)
     assert torch.equal(ops.chaotic_trajectory(p, x0, 5),
                        ops.chaotic_trajectory(p, x0, 5, backend="ref"))
-    with pytest.raises(NotImplementedError, match="mxu unit"):
-        ops.chaotic_bits(p, x0, 8, compute_unit="mxu")
-    # a vpu lattice is routed (tests/test_torch_lattice.py); an mxu one is not
-    with pytest.raises(NotImplementedError, match="mxu coupling"):
-        ops.chaotic_trajectory(
-            dict(p, lattice_meta=torch.tensor([1, 3, 0, 0.05])), x0, 4,
-            compute_unit="mxu")
+    # the mxu unit is routed too (lattices: tests/test_torch_mxu.py), to a
+    # stream of its own; an unknown unit is refused
+    w_mxu, s_mxu = ops.chaotic_bits(p, x0, 8, 9, compute_unit="mxu")
+    w_mref, s_mref = ops.chaotic_bits(p, x0, 8, 9, compute_unit="mxu",
+                                      backend="ref")
+    assert torch.equal(ops.from_uint32(w_mxu), ops.from_uint32(w_mref))
+    assert torch.equal(s_mxu, s_mref)
+    assert not torch.equal(s_mxu, s_auto)
+    with pytest.raises(ValueError, match="compute_unit"):
+        ops.chaotic_trajectory(p, x0, 4, compute_unit="tpu")
     with pytest.raises(ValueError):
         ops.chaotic_bits(p, x0, 8, backend="pallas")
     # any activation on the plain version, relu only on the kernels

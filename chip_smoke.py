@@ -18,7 +18,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    The gang kernels K3 and K4 likewise, on the committed farm's cores
    (the four 3-8-3 cores as a gang of 4; hyperlorenz's farm and registry
    weights as a 4-16-4 gang of 2), padded and ragged: the words each
-   lane block or core asked for, and the final states.
+   lane block or core asked for, and the final states.  Their lattice
+   forms likewise, on chen, chua, lorenz and rossler as lattices of the
+   chen@ring32, chen@grid32 and chen@ring8 descriptors: K3 in 32 blocks
+   of 256 lanes with ragged rows, K4 with 2,048 + 37 lanes a core and one
+   core frozen early.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -64,6 +68,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    unit), 4,096 words per client per flush (32 word rows), through the
    mxu forms of K1 (served) and K2 (unfused), held bitwise against one
    plain run at that flush's shape; NIST printed, not gated.
+8. The lattice farm path, per dtype: ``OscillatorFarm`` with
+   chen/chua/lorenz/rossler@ring32 on ``default_config(96, 256, dtype,
+   n_nodes=32)`` beside the scalar chen on its own vpu config, 128
+   clients x 128 lanes a core (65,536 lanes a lattice gang).  Three
+   flushes, the launch counters zeroed just before each and read just
+   after: F1 uniform (16,384 words a client: one stacked lattice K4
+   launch, one K1 for chen), F2 skewed (chen@ring32 at 16,384, the rest
+   at 1,024: ragged or split), F3 unequal pools (one more lorenz@ring32
+   client: the lane-concat lattice K3); no scalar gang kernel launches.
+   Each flush bitwise against a ``gang=False`` farm, F2 against a
+   snapshot taken with its requests pending and restored onto a fresh
+   farm; F1's K4 and F3's K3 launches against one plain run each at
+   their shapes; their times, bounds and the ``gang=False`` cost.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -131,6 +148,18 @@ HOT_WORDS, COLD_WORDS = 65_536, 1_024    # F2: chen's clients, the others
 LATTICE = "chen@ring32"
 LATTICE_WORDS = 16_384                   # per client: 128 word rows
 MXU_WORDS = 4_096                        # per client: 32 word rows
+# the lattice gang kernels' checks: the four 3-8 bases as lattices of each
+# descriptor; K3 in 32 blocks of 256 lanes (ragged rows), K4 with lanes a
+# core not a multiple of a CTA's and one core frozen early
+LATTICE_GANG_CHECKS = ("chen@ring32", "chen@grid32", "chen@ring8")
+LATTICE_GANG_BLOCKS, LATTICE_GANG_S_BLOCK = 32, 256
+LATTICE_K3_ROW_MAP = np.resize([0, 3, 40, 17, 32, 9, 1, 8], 32)
+LATTICE_STACK_LANES = 2_048 + 37
+LATTICE_K4_ROW_MAP = [32, 5, 32, 32]
+# the lattice farm: the four bases at chen@ring32's descriptor beside the
+# scalar chen, 128 clients x 128 lanes a core (65,536 lanes a lattice gang)
+LATTICE_FARM = ("chen@ring32", "chua@ring32", "lorenz@ring32",
+                "rossler@ring32")
 
 
 class SmokeFailure(Exception):
@@ -345,6 +374,86 @@ def phase_gang_kernels(torch, device, errs) -> None:
                     errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
 
 
+def lattice_gang_weights(torch, device, system):
+    """The stacked (4, ...) weights, on the card, of the four 3-8 bases as
+    lattices of ``system``'s descriptor (``chen@ring32``: chen, chua,
+    lorenz and rossler @ring32, derived from their committed weights), and
+    that descriptor."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.prng.stream import default_params
+    topology = system.split("@")[1]
+    per_core = [default_params(system=f"{b}@{topology}")
+                for b in GANGS["3-8"]]
+    w = [torch.as_tensor(np.stack([p[k] for p in per_core]), device=device)
+         for k in ("w1", "b1", "w2", "b2")]
+    return w, lattice_meta_tuple(per_core[0]["lattice_meta"])
+
+
+def phase_lattice_gang_kernels(torch, device, errs) -> None:
+    """The lattice forms of K3 and K4 against their plain versions on the
+    card, bitwise: the words each block or core asked for, and the final
+    states."""
+    from repro_torch.kernels import chaotic_ann, ref
+
+    rng = np.random.default_rng(2)
+    n_steps = LATTICE_CHECK_STEPS
+    n_lanes = LATTICE_GANG_BLOCKS * LATTICE_GANG_S_BLOCK
+    core_map = np.arange(LATTICE_GANG_BLOCKS) % 4
+    rows = chaotic_ann.gang_effective_rows(LATTICE_K3_ROW_MAP, n_steps,
+                                           FARM_T_BLOCK, FARM_UNROLL)
+    srows = np.minimum(LATTICE_K4_ROW_MAP, n_steps // 2)
+    lane_rows = torch.as_tensor(
+        np.repeat(rows, LATTICE_GANG_S_BLOCK).astype(np.int64), device=device)
+    core_rows = torch.as_tensor(srows.astype(np.int64), device=device)[:, None]
+    for system in LATTICE_GANG_CHECKS:
+        w, lattice = lattice_gang_weights(torch, device, system)
+        i_dim = w[0].shape[1]
+        x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+        off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
+        off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)    # wrap mid-run
+        off = torch.as_tensor(off_np, device=device)
+        xs_np = rng.uniform(-0.9, 0.9, (4, LATTICE_STACK_LANES, i_dim)
+                            ).astype(np.float32)
+        offs_np = rng.integers(0, 1 << 32, (4, LATTICE_STACK_LANES),
+                               dtype=np.int64)
+        offs_np[:, :16] = (1 << 32) - 1 - 5 * np.arange(16)
+        offs = torch.as_tensor(offs_np, device=device)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+            xs = torch.as_tensor(xs_np, device=device).to(dtype)
+            words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                *w, x0, core_map, off, LATTICE_K3_ROW_MAP, n_steps=n_steps,
+                s_block=LATTICE_GANG_S_BLOCK, t_block=FARM_T_BLOCK,
+                unroll=FARM_UNROLL, lattice=lattice)
+            words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                *w, x0, core_map, n_steps, off, rows, lattice=lattice)
+            e3 = max(masked_err(torch, words_k, words_p, lane_rows),
+                     max_abs_err(torch, state_k, state_p))
+            words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                *w, xs, offs, LATTICE_K4_ROW_MAP, n_steps=n_steps,
+                lattice=lattice)
+            words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                *w, xs, n_steps, offs, LATTICE_K4_ROW_MAP, lattice=lattice)
+            e4 = max(masked_err(torch, words_k, words_p, core_rows),
+                     max_abs_err(torch, state_k, state_p))
+            torch.cuda.synchronize()
+            print(f"check lattice gang {system} {tag}: "
+                  f"chaotic_ann_lattice_gang_bits (C=4, "
+                  f"{LATTICE_GANG_BLOCKS} blocks x {LATTICE_GANG_S_BLOCK} "
+                  f"lanes, steps={n_steps}, rows "
+                  f"{sorted(set(rows.tolist()))}) max_abs_err={e3}; "
+                  f"chaotic_ann_lattice_gang_stacked (C=4 x "
+                  f"{LATTICE_STACK_LANES} lanes, rows {srows.tolist()}) "
+                  f"max_abs_err={e4}")
+            check(e3 == 0.0, f"chaotic_ann_lattice_gang_bits != plain "
+                             f"({system}, {tag})")
+            check(e4 == 0.0, f"chaotic_ann_lattice_gang_stacked != plain "
+                             f"({system}, {tag})")
+            for name, e in (("chaotic_ann_lattice_gang_bits", e3),
+                            ("chaotic_ann_lattice_gang_stacked", e4)):
+                errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
+
+
 def kernel_names(lattice, unit="vpu"):
     """The (K1, K2) wrappers whose counters a core's launches move: the
     mxu forms on the mxu unit; on the vpu the scalar kernels, or the
@@ -410,7 +519,11 @@ def phase_kernels(torch, device, errs) -> None:
 REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
             "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
             "chaotic_ann_gang_bits": "src/repro/kernels/chaotic_ann.py:630",
-            "chaotic_ann_gang_stacked": "src/repro/kernels/chaotic_ann.py:894"}
+            "chaotic_ann_gang_stacked": "src/repro/kernels/chaotic_ann.py:894",
+            "chaotic_ann_lattice_gang_bits":
+                "src/repro/kernels/chaotic_ann.py:630",
+            "chaotic_ann_lattice_gang_stacked":
+                "src/repro/kernels/chaotic_ann.py:894"}
 # each served (system, unit)'s (served path, unfused path): the served
 # path runs K1 only, the unfused path K2 only
 PATHS = {("chen", "vpu"): ("served", "unfused"),
@@ -419,7 +532,8 @@ PATHS = {("chen", "vpu"): ("served", "unfused"),
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
            "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
            "chaotic_ann_lattice_traj", "chaotic_ann_mxu_bits",
-           "chaotic_ann_mxu_traj")
+           "chaotic_ann_mxu_traj", "chaotic_ann_lattice_gang_bits",
+           "chaotic_ann_lattice_gang_stacked")
 
 
 def read_launches(chaotic_ann) -> dict:
@@ -702,6 +816,45 @@ def same_words(a, b) -> bool:
                                        for k in a[c]) for c in a)
 
 
+def request_all(farms, words) -> None:
+    """Queue ``words[core]`` words for every client of every core."""
+    for f in farms:
+        for core in f.cores:
+            for name in f.services[core].clients:
+                f.request(core, name, words[core])
+
+
+def counted_flush(torch, farm, solo, what, card):
+    """Flush ``farm`` with the launch counters zeroed just before and read
+    just after; print the flush's words, wall, profile split, decisions
+    and launches; hold its words against ``solo`` (gang=False).  Returns
+    (served words, kernel launches, planner decisions, plan layouts, farm
+    launches, wall seconds)."""
+    from repro_torch.kernels import chaotic_ann
+    n0, dec0, prof0 = farm.launches, farm.plan_decisions, farm.profile_stats
+    zero_launches(chaotic_ann)
+    t0 = time.perf_counter()
+    out = farm.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(chaotic_ann)
+    decisions = {k: v - dec0[k] for k, v in farm.plan_decisions.items()
+                 if v != dec0[k]}
+    prof = {k: (v - prof0[k]) * 1e3 for k, v in farm.profile_stats.items()
+            if k != "flushes"}
+    modes = sorted({p["mode"] for p in farm._sched._plans.values()})
+    n_words = sum(w.size for c in out.values() for w in c.values())
+    print(f"{what}: {n_words} words, wall {wall * 1e3:.1f} ms "
+          f"({n_words / wall:.4g} words/s); profile ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in prof.items())
+          + f"; decisions {decisions}; plan layouts {modes}; farm launches "
+          f"{farm.launches - n0}; kernel launches "
+          f"{ {k: v for k, v in got.items() if v} }; card {card}")
+    check(same_words(out, solo.flush()),
+          f"{what}: gang words differ from gang=False")
+    return out, got, decisions, modes, farm.launches - n0, wall
+
+
 def phase_farm(torch, device, dtype, tag, card):
     """The farm path: three flushes, each held against a gang=False farm;
     returns ({flush: launch counts}, timings)."""
@@ -734,35 +887,12 @@ def phase_farm(torch, device, dtype, tag, card):
         if label == "F3":                  # unequal pools: one more client
             for f in (farm, solo):
                 f.register("lorenz", f"c{FARM_CLIENTS}", seed=99)
-        for f in (farm, solo):
-            for core in cores:
-                for name in f.services[core].clients:
-                    f.request(core, name, words[core])
+        request_all((farm, solo), words)
         if label == "F2":                  # requests pending
             snap = farm.snapshot()
-        n0, dec0 = farm.launches, farm.plan_decisions
-        prof0 = farm.profile_stats
-        zero_launches(chaotic_ann)
-        t0 = time.perf_counter()
-        out = farm.flush()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[label] = read_launches(chaotic_ann)
-        decisions = {k: v - dec0[k] for k, v in farm.plan_decisions.items()
-                     if v != dec0[k]}
-        prof = {k: (v - prof0[k]) * 1e3 for k, v in farm.profile_stats.items()
-                if k != "flushes"}
-        modes = sorted({p["mode"] for p in farm._sched._plans.values()})
-        n_words = sum(w.size for c in out.values() for w in c.values())
-        print(f"farm {tag} {label}: {n_words} words, wall {wall * 1e3:.1f} ms"
-              f" ({n_words / wall:.4g} words/s); profile ms "
-              + ", ".join(f"{k} {v:.1f}" for k, v in prof.items())
-              + f"; decisions {decisions}; plan layouts {modes}; farm "
-              f"launches {farm.launches - n0}; kernel launches "
-              f"{ {k: v for k, v in launches[label].items() if v} }; "
-              f"card {card}")
-        check(same_words(out, solo.flush()),
-              f"farm {tag} {label}: gang words differ from gang=False")
+        out, got, decisions, modes, n_launched, _ = counted_flush(
+            torch, farm, solo, f"farm {tag} {label}", card)
+        launches[label] = got
         for name in clients[:2]:
             alone.request(name, words["chen"])
         mine = alone.flush()
@@ -770,13 +900,12 @@ def phase_farm(torch, device, dtype, tag, card):
                   for n in clients[:2]),
               f"farm {tag} {label}: chen differs from a standalone service")
         outs[label] = out
-        got = launches[label]
         if label == "F1":
             check(decisions == {"padded": 1} and modes == ["stacked"]
                   and got["chaotic_ann_gang_stacked"] == 1
                   and got["chaotic_ann_bits"] == 1
                   and got["chaotic_ann_gang_bits"] == 0
-                  and farm.launches - n0 == 2,
+                  and n_launched == 2,
                   f"farm {tag} F1: expected one padded K4 launch and one K1"
                   f" launch, got {decisions} {got}")
         elif label == "F2":
@@ -880,6 +1009,196 @@ def phase_farm(torch, device, dtype, tag, card):
     return path, t
 
 
+def phase_lattice_farm(torch, device, dtype, tag, card, errs):
+    """The lattice farm path: ``OscillatorFarm`` with the four LATTICE_FARM
+    cores on ``default_config(96, 256, dtype, n_nodes=32)`` beside the
+    scalar chen on its own vpu config, 128 clients x 128 lanes a core;
+    three flushes (F1 uniform: stacked lattice K4; F2 skewed: the planner
+    decides; F3 one more lorenz@ring32 client: lane-concat lattice K3),
+    each held against a gang=False farm, F2 against a snapshot taken with
+    its requests pending and restored onto a fresh farm; then the F1 K4
+    launch and the F3 K3 launch against one plain run each at their
+    shapes, bitwise, with their times and bounds.  Returns ({kernel:
+    launches over the three flushes}, timings)."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.core.dse import default_config
+    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.prng.stream import _round_rows, default_params
+    from repro_torch.serve.farm import OscillatorFarm
+
+    def make(gang=True):
+        farm = OscillatorFarm(gang=gang, profile=True, device=device)
+        for system in LATTICE_FARM:
+            farm.add_core(system, default_params(system=system),
+                          config=default_config(96, 256, dtype, n_nodes=32),
+                          dtype=dtype)
+        farm.add_core("chen", default_params(system="chen"),
+                      config=default_config(3, 8, dtype), dtype=dtype)
+        return farm
+
+    farm, solo = make(), make(gang=False)
+    cores = farm.cores
+    clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
+    t0 = time.perf_counter()
+    for f in (farm, solo):
+        for k, core in enumerate(cores):
+            for i, name in enumerate(clients):
+                f.register(core, name, seed=5000 + 1000 * k + i)
+    torch.cuda.synchronize()
+    t_register = (time.perf_counter() - t0) / 2
+    lat_svcs = [farm.services[c] for c in LATTICE_FARM]
+    check(all(s.config.compute_unit == "vpu" and s.config.n_nodes == 32
+              for s in lat_svcs), f"lattice farm {tag}: configs "
+                                  f"{[s.config for s in lat_svcs]}")
+    w = [torch.stack([s.params[k] for s in lat_svcs])
+         for k in ("w1", "b1", "w2", "b2")]
+    lattice = lattice_meta_tuple(lat_svcs[0].params["lattice_meta"])
+
+    def launch_inputs():
+        """Each lattice pool and its per-lane Weyl offsets, as the next
+        flush will launch them (``prepare_rows`` has no side effect)."""
+        pools = [s.pool_x.clone() for s in lat_svcs]
+        offsets = [torch.as_tensor(s.prepare_rows()[1].astype(np.int64),
+                                   device=device) for s in lat_svcs]
+        return pools, offsets
+
+    hot = {c: LATTICE_WORDS if c == LATTICE else COLD_WORDS for c in cores}
+    flushes = (("F1", {c: LATTICE_WORDS for c in cores}), ("F2", hot),
+               ("F3", {c: LATTICE_WORDS for c in cores}))
+    launches, outs, snap, shapes, walls = {}, {}, None, {}, {}
+    for label, words in flushes:
+        if label == "F3":                  # unequal pools: one more client
+            for f in (farm, solo):
+                f.register("lorenz@ring32", f"c{FARM_CLIENTS}", seed=99)
+        request_all((farm, solo), words)
+        if label == "F2":                  # requests pending
+            snap = farm.snapshot()
+        else:
+            shapes[label] = launch_inputs()
+        out, got, decisions, _, n_launched, walls[label] = counted_flush(
+            torch, farm, solo, f"lattice farm {tag} {label}", card)
+        launches[label] = got
+        outs[label] = out
+        check(got["chaotic_ann_gang_bits"] == 0
+              and got["chaotic_ann_gang_stacked"] == 0,
+              f"lattice farm {tag} {label}: a scalar gang kernel launched "
+              f"({got}); the scalar chen has no gang partner")
+        if label == "F1":
+            check(decisions == {"padded": 1}
+                  and got["chaotic_ann_lattice_gang_stacked"] == 1
+                  and got["chaotic_ann_lattice_gang_bits"] == 0
+                  and got["chaotic_ann_bits"] == 1
+                  and n_launched == 2,
+                  f"lattice farm {tag} F1: expected one padded lattice K4 "
+                  f"launch and one K1 launch, got {decisions} {got}")
+        elif label == "F2":
+            check("padded" not in decisions
+                  and got["chaotic_ann_lattice_gang_bits"]
+                  + got["chaotic_ann_lattice_gang_stacked"]
+                  + got["chaotic_ann_lattice_bits"] > 0,
+                  f"lattice farm {tag} F2: expected ragged or split, got "
+                  f"{decisions} {got}")
+        else:
+            check(decisions == {"padded": 1}
+                  and got["chaotic_ann_lattice_gang_bits"] == 1
+                  and got["chaotic_ann_lattice_gang_stacked"] == 0,
+                  f"lattice farm {tag} F3: expected one padded lattice K3 "
+                  f"launch, got {decisions} {got}")
+    fresh = make()
+    fresh.restore(snap)
+    check(same_words(outs["F2"], fresh.flush()),
+          f"lattice farm {tag}: F2 restored from a snapshot differs")
+    path = {k: sum(launches[f][k] for f in launches) for k in KERNELS}
+    for name in ("chaotic_ann_lattice_gang_bits",
+                 "chaotic_ann_lattice_gang_stacked"):
+        check(path[name] > 0, f"{name} not launched on the {tag} lattice "
+                              f"farm path")
+    print(f"lattice farm {tag}: {len(cores)} cores ({', '.join(cores)}) x "
+          f"{FARM_CLIENTS} clients x {LANES_PER_CLIENT} lanes; register "
+          f"{t_register:.3f} s per farm; every flush bitwise equal to the "
+          f"gang=False farm, F2 to its snapshot restored")
+
+    # F1's K4 and F3's K3 launches against one plain run each at their
+    # shapes, bitwise, and their device times (not counted as path
+    # launches); the farm's rows: demand rounded by _round_rows
+    t_block = lat_svcs[0].config.t_block
+    s_block = lat_svcs[0].config.s_block
+    steps = 2 * _round_rows(LATTICE_WORDS // LANES_PER_CLIENT, t_block)
+    pools, offsets = shapes["F1"]
+    xs, offs = torch.stack(pools), torch.stack(offsets)
+    pools, offsets = shapes["F3"]
+    x0c, offc = torch.cat(pools), torch.cat(offsets)
+    sizes = [p.shape[0] for p in pools]
+    check(all(n % s_block == 0 for n in sizes),
+          f"lattice farm {tag}: F3 pools {sizes} need no padding here")
+    core_map = np.repeat(np.arange(len(sizes)), [n // s_block for n in sizes])
+    t = {}
+    for key, kernel, plain in (
+            ("k4", lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                *w, xs, offs, n_steps=steps, lattice=lattice),
+             lambda: ref.chaotic_ann_gang_stacked_ref(
+                 *w, xs, steps, offs, lattice=lattice)),
+            ("k3", lambda: chaotic_ann.chaotic_ann_gang_bits(
+                *w, x0c, core_map, offc, n_steps=steps, s_block=s_block,
+                t_block=t_block, unroll=lat_svcs[0].config.unroll,
+                lattice=lattice),
+             lambda: ref.chaotic_ann_gang_bits_ref(
+                 *w, x0c, core_map, steps, offc, lattice=lattice))):
+        (words_p, state_p), t[f"{key}_plain"] = timed_once(torch, plain)
+        words_k, state_k = kernel()
+        e = max(max_abs_err(torch, words_k, words_p),
+                max_abs_err(torch, state_k, state_p))
+        del words_p, state_p, words_k, state_k
+        name = ("chaotic_ann_lattice_gang_stacked" if key == "k4"
+                else "chaotic_ann_lattice_gang_bits")
+        check(e == 0.0, f"{name} != plain at the lattice farm's "
+                        f"{'F1' if key == 'k4' else 'F3'} shape ({tag})")
+        errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
+        t[key] = cuda_ms(torch, kernel, reps=5, warmup=1)
+    item = xs.element_size()
+    i_dim, h_dim = w[0].shape[1:]
+    weight_bytes = 4 * (2 * i_dim * h_dim + h_dim + i_dim) * item
+    ops_step = lattice_step_flops(lattice, h_dim)
+
+    def gang_bound(n_lanes):
+        # x0 read, state written, offsets and weights read, words written
+        n_words = n_lanes * steps // 2
+        return bound(n_words * 2 * ops_step,
+                     2 * n_lanes * i_dim * item + n_lanes * 4 + weight_bytes
+                     + n_words * 4, tag)
+
+    t["k4_bound"] = gang_bound(xs.shape[0] * xs.shape[1])
+    t["k3_bound"] = gang_bound(x0c.shape[0])
+    # yardsticks in this call: one lattice K1 over F1's lanes (chen's
+    # weights), and the gang=False cost of F1 (four lattice K1 launches)
+    x1 = xs.reshape(-1, i_dim)
+    t["k1_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+        *[a[0] for a in w], x1, offs.reshape(-1), n_steps=steps,
+        lattice=lattice), reps=5, warmup=1)
+
+    def solo_f1():
+        for c in range(xs.shape[0]):
+            chaotic_ann.chaotic_ann_bits(*[a[c] for a in w], xs[c], offs[c],
+                                         n_steps=steps, lattice=lattice)
+
+    t["k1_x4_f1"] = cuda_ms(torch, solo_f1, reps=5, warmup=1)
+    t["walls"] = walls
+    print(f"lattice farm device times {tag} ({LATTICE} descriptor, "
+          f"{ops_step} ops a step, {steps} steps): F1 "
+          f"chaotic_ann_lattice_gang_stacked (4 x {xs.shape[1]} lanes) "
+          f"{t['k4']:.4f} ms (bound {t['k4_bound'][0]:.4f} ms by "
+          f"{t['k4_bound'][1]}; plain {t['k4_plain']:.1f} ms; busy "
+          f"{t['k4'] / (walls['F1'] * 1e3):.2%} of F1's wall), "
+          f"gang=False 4 x chaotic_ann_lattice_bits {t['k1_x4_f1']:.4f} ms, "
+          f"one chaotic_ann_lattice_bits over all {x1.shape[0]} lanes "
+          f"{t['k1_f1']:.4f} ms; F3 chaotic_ann_lattice_gang_bits "
+          f"({x0c.shape[0]} lanes, s_block {s_block}) {t['k3']:.4f} ms "
+          f"(bound {t['k3_bound'][0]:.4f} ms by {t['k3_bound'][1]}; plain "
+          f"{t['k3_plain']:.1f} ms; busy "
+          f"{t['k3'] / (walls['F3'] * 1e3):.2%} of F3's wall); card {card}")
+    return path, t
+
+
 def nist3(words: np.ndarray):
     """p-values of the online-gate subset, and the tests under alpha."""
     from repro_torch.prng.nist import _to_bits, block_frequency, monobit, runs
@@ -951,6 +1270,8 @@ def main() -> int:
     phase_done("kernel checks")
     phase_gang_kernels(torch, device, errs)
     phase_done("gang kernel checks")
+    phase_lattice_gang_kernels(torch, device, errs)
+    phase_done("lattice gang kernel checks")
     rows, served = [], {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         launches, t, served[tag] = phase_served(
@@ -996,6 +1317,24 @@ def main() -> int:
               + ", ".join(f"{k} p={v:.4g}" for k, v in p.items())
               + f"; under alpha {NIST_ALPHA}: {failed} (not gated)")
     phase_done("mxu path")
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        path, t = phase_lattice_farm(torch, device, dtype, tag, card, errs)
+        for name, key, shape in (
+                ("chaotic_ann_lattice_gang_bits", "k3", "F3 padded concat"),
+                ("chaotic_ann_lattice_gang_stacked", "k4", "F1 padded")):
+            rows.append({
+                "name": f"{name}/{tag}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+                "replaces": REPLACES[name], "path": "lattice-farm",
+                "launches": path[name], "max_abs_err": errs[(name, tag)],
+                "ms": t[key], "plain_ms": t[f"{key}_plain"],
+                "bound_ms": t[f"{key}_bound"][0],
+                "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+                "shape": shape,
+                "form": (f"{LATTICE} vpu lattice (K5, "
+                         f"src/repro/kernels/chaotic_ann.py:61)"),
+            })
+    phase_done("lattice farm path")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

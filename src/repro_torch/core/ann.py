@@ -64,24 +64,29 @@ def lattice_meta_tuple(meta) -> Tuple[int, int, str, float]:
     base_dim, topology, strength)``; ``strength`` is the float32 value the
     array holds."""
     m = np.asarray(meta, np.float32).reshape(-1)
+    if m.size != 4:
+        raise ValueError(f"lattice_meta must be the 4-entry descriptor "
+                         f"[n_nodes, base_dim, topology_code, strength], got "
+                         f"{m.size} entries")
     names = {v: k for k, v in _TOPOLOGY_CODES.items()}
     return (int(m[0]), int(m[1]), names[int(m[2])], float(m[3]))
 
 
 def check_block_diagonal(w1: torch.Tensor, w2: torch.Tensor,
                          n_nodes: int) -> None:
-    """Raise unless ``w1`` (I, H) and ``w2`` (H, I) are zero off their
-    ``n_nodes`` diagonal node blocks, the only entries the lattice kernels
-    read."""
-    i_dim, h_dim = w1.shape
+    """Raise unless ``w1`` (..., I, H) and ``w2`` (..., H, I) are zero off
+    their ``n_nodes`` diagonal node blocks, the only entries the lattice
+    kernels read.  A leading axis (a gang's stacked cores) is checked
+    core by core in one pass."""
+    i_dim, h_dim = w1.shape[-2:]
     d, h = i_dim // n_nodes, h_dim // n_nodes
     if (d * n_nodes, h * n_nodes) != (i_dim, h_dim):
         raise ValueError(f"lattice weights {tuple(w1.shape)} do not split "
                          f"into {n_nodes} node blocks")
     eye = torch.eye(n_nodes, dtype=torch.bool, device=w1.device)
     off = ~eye[:, None, :, None]
-    if bool(((w1.reshape(n_nodes, d, n_nodes, h) != 0) & off).any()
-            or ((w2.reshape(n_nodes, h, n_nodes, d) != 0) & off).any()):
+    if bool(((w1.reshape(-1, n_nodes, d, n_nodes, h) != 0) & off).any()
+            or ((w2.reshape(-1, n_nodes, h, n_nodes, d) != 0) & off).any()):
         raise ValueError(
             "lattice weights must be block-diagonal (expand_lattice_params): "
             "the lattice kernels read only the diagonal node blocks")

@@ -5,7 +5,7 @@ A lattice couples ``n_nodes`` copies of a base oscillator diffusively on a
 ring or a P x Q torus; it is addressed everywhere as
 ``<base>@<ring|grid><n>`` (e.g. ``chen@ring32``).  The ODE systems, the
 RK-4 integrator and ``lattice()`` as an ODE system are not ported
-(ROADMAP.md queue 1, item 10).
+(ROADMAP.md queue 1, 'Paper flow').
 """
 from __future__ import annotations
 

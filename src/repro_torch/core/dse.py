@@ -9,12 +9,13 @@ are not a model of this card: they are the JAX package's definition of a
 core's *default stream*.  Its ``compute_unit`` (and the dtype) decides
 the words, and its ``t_block`` how many rows a draw launches, so a port
 that chose otherwise would serve other words, or buffer another overdraw,
-than the JAX service.  A Hopper tuner (ROADMAP.md queue 1, item 6) may
-reshape launches but must keep the selected ``compute_unit``.
+than the JAX service.  A Hopper tuner (ROADMAP.md queue 1, 'DSE on a
+Hopper model') may reshape launches but must keep the selected
+``compute_unit``.
 
 ``GangCostModel`` keeps the JAX launch arithmetic with a Hopper step
 model (the ``CLOCK_HZ``/``PEAK_FLOPS`` inputs below); its ``fit`` waits
-for measured launches (queue 1, item 6).
+for measured launches (queue 1, 'DSE on a Hopper model').
 """
 from __future__ import annotations
 
@@ -325,9 +326,9 @@ CLOCK_HZ = 1.98e9            # SM boost clock: the model's cycle
 # Rate of each state dtype outside the tensor cores: every op of a step
 # rounds in the state dtype, which tensor cores (f32 accumulators) do not.
 PEAK_FLOPS = {4: 67e12, 2: 133.8e12}
-# Assumed until ``fit`` measures it (queue 1, item 6): the host side of one
-# launch (wrapper checks, the core/row map copy to the card, the ctypes
-# call) plus the launch latency, about 20 us.
+# Assumed until ``fit`` measures it (ROADMAP.md queue 1, 'DSE on a Hopper
+# model'): the host side of one launch (wrapper checks, the core/row map
+# copy to the card, the ctypes call) plus the launch latency, about 20 us.
 GANG_LAUNCH_OVERHEAD_CYCLES = 20e-6 * CLOCK_HZ
 # Host cost of buffering overdraw: the copy to host memory and the
 # per-client numpy buffers of ``absorb``.  Assumed 1 GB/s, the order of
@@ -360,8 +361,8 @@ class GangCostModel:
     overhead, and K4 masks nothing per row, so a freeze costs nothing.
     The ragged stacked (freeze) layout is still charged the group's max
     rows, as on the TPU, though the CUDA K4 stops a frozen core's threads
-    at its demand; ``fit`` (queue 1, item 6) is where measured launches
-    will correct these inputs.
+    at its demand; ``fit`` (ROADMAP.md queue 1, 'DSE on a Hopper model')
+    is where measured launches will correct these inputs.
     """
 
     launch_overhead_cycles: float = GANG_LAUNCH_OVERHEAD_CYCLES

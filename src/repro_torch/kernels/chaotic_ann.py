@@ -9,7 +9,10 @@ The lattice forms of K1 and K2 (``lattice=`` on ``chaotic_ann_bits`` /
 ``chaotic_ann_traj``) are kernels of their own, with their own wrappers
 and counters (``chaotic_ann_lattice_bits`` / ``chaotic_ann_lattice_traj``),
 and so is the mxu unit of K1 and K2, scalar and lattice cores alike
-(``compute_unit="mxu"``: ``chaotic_ann_mxu_bits`` / ``chaotic_ann_mxu_traj``).
+(``compute_unit="mxu"``: ``chaotic_ann_mxu_bits`` / ``chaotic_ann_mxu_traj``),
+and the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
+``chaotic_ann_gang_bits`` / ``chaotic_ann_gang_stacked``:
+``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The ROADMAP.md items that port what these kernels refuse.
-TODO_GANG_MXU = "queue 2, item 2 (K3's mxu form)"
+TODO_GANG_MXU = "queue 2, 'K3: the mxu form'"
 TODO_NON_RELU = "queue 2, 'K1-K4: non-relu activations'"
 
 
@@ -56,6 +59,12 @@ def _lib() -> ctypes.CDLL:
         [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 6
         + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_lattice_traj_launch.restype = _c_int
+    for name, n_ptr in (("chaotic_ann_lattice_gang_bits_launch", 10),
+                        ("chaotic_ann_lattice_gang_stacked_launch", 9)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * n_ptr
+                       + [_c_i64] * 3 + [_c_ptr])
+        fn.restype = _c_int
     for name, n_ptr in (("chaotic_ann_mxu_bits_launch", 9),
                         ("chaotic_ann_mxu_traj_launch", 7)):
         fn = getattr(lib, name)
@@ -237,12 +246,14 @@ chaotic_ann_traj.launches = 0
 # K5: the vpu lattice forms of K1 and K2.
 # ---------------------------------------------------------------------------
 
-def _lattice_operands(w1, b1, w2, b2, x0, lattice):
+def _lattice_operands(w1, b1, w2, b2, x0, lattice, lead=(),
+                      x_dims=("S", "I")):
     """Validated operands of a lattice launch: the weights cast to the
     state dtype, the dtype code, the shape codes (base I, base H, n_nodes,
-    topology) and the coupling strength as a value of the state dtype."""
+    topology) and the coupling strength as a value of the state dtype.
+    ``lead`` and ``x_dims`` as in ``_operands``."""
     ref.check_lattice(lattice, w1.shape[-2])
-    weights, code = _operands(w1, b1, w2, b2, x0)
+    weights, code = _operands(w1, b1, w2, b2, x0, lead, x_dims)
     n_nodes, base_dim, topology, strength = lattice
     if w1.shape[-1] % n_nodes:
         raise ValueError(f"H = {w1.shape[-1]} does not split into "
@@ -527,13 +538,51 @@ def _host_ints(a) -> np.ndarray:
     return np.asarray(a, np.int64)
 
 
+def _gang_maps(x0, core_map, row_map, n_cores: int, n_steps: int,
+               s_block: int, t_block: int, unroll: int):
+    """Validated host maps of a lane-concat launch: (core_map, rows), each
+    (n_blocks,), ``rows`` the ``gang_effective_rows`` of ``row_map`` (all
+    rows when None)."""
+    _check_steps(n_steps)
+    cmap = _host_ints(core_map)
+    n_blocks, n_lanes = cmap.shape[0], x0.shape[0]
+    if n_lanes != n_blocks * s_block:
+        raise ValueError(
+            f"pool of {n_lanes} lanes != {n_blocks} core-map blocks x "
+            f"s_block {s_block}; pad each member pool to an s_block multiple")
+    if row_map is not None and np.shape(row_map) != cmap.shape:
+        raise ValueError(f"row_map shape {np.shape(row_map)} != core_map "
+                         f"shape {cmap.shape}")
+    if n_blocks and (cmap.min() < 0 or cmap.max() >= n_cores):
+        raise ValueError(f"core_map values must lie in [0, {n_cores})")
+    rows = (gang_effective_rows(row_map, n_steps, t_block, unroll)
+            if row_map is not None
+            else np.full(n_blocks, n_steps // 2, np.int32))
+    return cmap, rows
+
+
+def _stacked_rows(x0, row_map, n_cores: int, n_steps: int) -> np.ndarray:
+    """Validated (C,) rows of a stacked launch: ``row_map`` clamped to
+    n_steps // 2, or all rows."""
+    _check_steps(n_steps)
+    if x0.ndim != 3 or x0.shape[0] != n_cores:
+        raise ValueError(f"x0 must be ({n_cores}, S, I), one pool per "
+                         f"core, got {tuple(x0.shape)}")
+    if row_map is not None and np.shape(row_map) != (n_cores,):
+        raise ValueError(f"row_map must have shape ({n_cores},), got "
+                         f"{np.shape(row_map)}")
+    n_rows = n_steps // 2
+    return (np.minimum(_host_ints(row_map), n_rows) if row_map is not None
+            else np.full(n_cores, n_rows, np.int64))
+
+
 def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
                           w2: torch.Tensor, b2: torch.Tensor,
                           x0: torch.Tensor, core_map, word_offset=0,
                           row_map=None, *, n_steps: int, s_block: int = 256,
                           t_block: int = 128, unroll: int = 1,
                           activation: str = "relu",
-                          compute_unit: str = "vpu"
+                          compute_unit: str = "vpu", lattice=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lane-concat gang launch: C stacked nets (``w1`` (C, I, H), ``b1``
     (C, H), ``w2`` (C, H, I), ``b2`` (C, I)), one launch.  ``x0`` (S, I)
@@ -543,7 +592,9 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     t_block, unroll)[g]`` rows (its demand rounded up to the granularity
     the farm absorbs by) and its state advances by exactly that; later
     rows are unwritten.  None = every block computes every row.  Returns
-    (n_steps // 2, S) uint32 words and the (S, I) state.
+    (n_steps // 2, S) uint32 words and the (S, I) state.  ``lattice`` (one
+    descriptor for every core) takes the lattice form,
+    ``chaotic_ann_lattice_gang_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
     (K3).  Bound on the H100: operations, as K1: 2 steps of
@@ -559,21 +610,14 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
         raise NotImplementedError(
             f"compute_unit={compute_unit!r}: the gang kernels are vpu only; "
             f"see ROADMAP.md {TODO_GANG_MXU}")
-    _check_steps(n_steps)
-    cmap = _host_ints(core_map)
-    n_blocks, n_lanes, n_rows = cmap.shape[0], x0.shape[0], n_steps // 2
-    if n_lanes != n_blocks * s_block:
-        raise ValueError(
-            f"pool of {n_lanes} lanes != {n_blocks} core-map blocks x "
-            f"s_block {s_block}; pad each member pool to an s_block multiple")
-    if row_map is not None and np.shape(row_map) != cmap.shape:
-        raise ValueError(f"row_map shape {np.shape(row_map)} != core_map "
-                         f"shape {cmap.shape}")
+    if lattice is not None:
+        return chaotic_ann_lattice_gang_bits(
+            w1, b1, w2, b2, x0, core_map, word_offset, row_map,
+            n_steps=n_steps, lattice=lattice, s_block=s_block,
+            t_block=t_block, unroll=unroll, activation=activation)
     n_cores = w1.shape[0]
-    if n_blocks and (cmap.min() < 0 or cmap.max() >= n_cores):
-        raise ValueError(f"core_map values must lie in [0, {n_cores})")
-    rows = (gang_effective_rows(row_map, n_steps, t_block, unroll)
-            if row_map is not None else np.full(n_blocks, n_rows, np.int32))
+    cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
+                            t_block, unroll)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_gang_bits_ref(w1, b1, w2, b2, x0, cmap,
                                              n_steps, word_offset, rows,
@@ -582,6 +626,7 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"s_block {s_block} must be a multiple of "
                          f"{_CTA_LANES}, the kernel's lanes per CTA")
     weights, code = _operands(w1, b1, w2, b2, x0, lead=(n_cores,))
+    n_lanes, n_rows = x0.shape[0], n_steps // 2
     maps = _int32_on_card(np.stack([cmap, rows]), x0.device)
     offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
     words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
@@ -608,14 +653,15 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
                              w2: torch.Tensor, b2: torch.Tensor,
                              x0: torch.Tensor, word_offset=0, row_map=None,
                              *, n_steps: int, activation: str = "relu",
-                             compute_unit: str = "vpu"
+                             compute_unit: str = "vpu", lattice=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked gang launch for C equal pools: stacked nets as in
     ``chaotic_ann_gang_bits``, ``x0`` (C, S, I), ``word_offset`` a scalar
     or (C, S).  ``row_map`` (C,) freezes core ``c`` after exactly
     ``min(row_map[c], n_steps // 2)`` rows, with no rounding; later rows
     are unwritten.  Returns (n_steps // 2, C, S) uint32 words and the
-    (C, S, I) state.
+    (C, S, I) state.  ``lattice`` takes the lattice form,
+    ``chaotic_ann_lattice_gang_stacked``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_pallas``
     (K4).  Bound on the H100: operations, as K1, summed over the rows each
@@ -629,17 +675,12 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError("stacked gang launches support compute_unit='vpu' "
                          "only (the stacked step is the vpu order)")
     _check_activation(activation)
-    _check_steps(n_steps)
+    if lattice is not None:
+        return chaotic_ann_lattice_gang_stacked(
+            w1, b1, w2, b2, x0, word_offset, row_map, n_steps=n_steps,
+            lattice=lattice, activation=activation)
     n_cores, n_rows = w1.shape[0], n_steps // 2
-    if x0.ndim != 3 or x0.shape[0] != n_cores:
-        raise ValueError(f"x0 must be ({n_cores}, S, I), one pool per "
-                         f"core, got {tuple(x0.shape)}")
-    n_lanes = x0.shape[1]
-    if row_map is not None and np.shape(row_map) != (n_cores,):
-        raise ValueError(f"row_map must have shape ({n_cores},), got "
-                         f"{np.shape(row_map)}")
-    rows = (np.minimum(_host_ints(row_map), n_rows) if row_map is not None
-            else np.full(n_cores, n_rows, np.int64))
+    rows = _stacked_rows(x0, row_map, n_cores, n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_gang_stacked_ref(w1, b1, w2, b2, x0, n_steps,
                                                 word_offset, rows,
@@ -648,6 +689,7 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"{n_cores} cores exceed the grid's y extent")
     weights, code = _operands(w1, b1, w2, b2, x0, lead=(n_cores,),
                               x_dims=("C", "S", "I"))
+    n_lanes = x0.shape[1]
     rows_d = _int32_on_card(rows, x0.device)
     offsets = ops.to_uint32(ops.word_offsets(
         word_offset, (n_cores, n_lanes), x0.device))
@@ -668,3 +710,124 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
 
 
 chaotic_ann_gang_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 in K3 and K4: the vpu lattice forms of the gang kernels.
+# ---------------------------------------------------------------------------
+
+def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
+                                  w2: torch.Tensor, b2: torch.Tensor,
+                                  x0: torch.Tensor, core_map, word_offset=0,
+                                  row_map=None, *, n_steps: int, lattice,
+                                  s_block: int = 256, t_block: int = 128,
+                                  unroll: int = 1, activation: str = "relu"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's lattice form: the lane-concat gang of ``chaotic_ann_gang_bits``
+    for C lattice cores of ONE descriptor ``lattice``, each with its own
+    lattice-expanded block-diagonal weights in the stacked operands.
+    Precondition, checked where stacked lattice weights enter (the farm's
+    gang plan; ``params_from_numpy`` for each core): every core's weights
+    are zero off their diagonal node blocks, the only entries read.
+
+    Replaces the vpu lattice form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas`` (K3 with
+    K5's ``_lattice_delta``).  Bound on the H100: operations, as
+    ``chaotic_ann_lattice_bits`` (7,808 ops a word at chen@ring32), summed
+    over the rows each block really computes, against 4 bytes a word.
+    Design: the lattice K1's thread per (lane, node), weight blocks and
+    state in registers, neighbours by warp shuffles; a CTA holds
+    128 / n_nodes lanes and ``s_block`` is a multiple of that, so a CTA
+    lies inside one lane block and reads that block's core and rows.
+    """
+    _check_activation(activation)
+    n_cores = w1.shape[0]
+    cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
+                            t_block, unroll)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_gang_bits_ref(w1, b1, w2, b2, x0, cmap,
+                                             n_steps, word_offset, rows,
+                                             activation, lattice)
+    weights, code, shape, eps = _lattice_operands(
+        w1, b1, w2, b2, x0, lattice, lead=(n_cores,))
+    cta_lanes = _CTA_LANES // lattice[0]
+    if s_block % cta_lanes:
+        raise ValueError(f"s_block {s_block} must be a multiple of "
+                         f"{cta_lanes}, the lattice kernel's lanes per CTA "
+                         f"at {lattice[0]} nodes")
+    n_lanes, n_rows = x0.shape[0], n_steps // 2
+    maps = _int32_on_card(np.stack([cmap, rows]), x0.device)
+    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_lattice_gang_bits_launch(
+        x0.device.index, code, *shape, eps,
+        *(t.data_ptr() for t in weights), x0.data_ptr(), maps[0].data_ptr(),
+        maps[1].data_ptr(), offsets.data_ptr(), words.data_ptr(),
+        state.data_ptr(), n_lanes, s_block, n_rows,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_gang_bits", shape)
+    chaotic_ann_lattice_gang_bits.launches += 1
+    return words, state
+
+
+chaotic_ann_lattice_gang_bits.launches = 0
+
+
+def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
+                                     w2: torch.Tensor, b2: torch.Tensor,
+                                     x0: torch.Tensor, word_offset=0,
+                                     row_map=None, *, n_steps: int, lattice,
+                                     activation: str = "relu"
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's lattice form: the stacked gang of ``chaotic_ann_gang_stacked``
+    for C equal pools of lattice cores of ONE descriptor ``lattice``, with
+    the precondition of ``chaotic_ann_lattice_gang_bits``.
+
+    Replaces the vpu lattice form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_pallas`` (K4
+    with K5's ``_lattice_delta``).  Bound on the H100: operations, as
+    ``chaotic_ann_lattice_bits``, summed over the rows each core really
+    computes.  Design: ``blockIdx.y`` the core, the lattice K1's thread per
+    (lane, node) within it; a thread's lane is counted inside its core, so
+    a ragged edge mirrors the core's own last lane.  The TPU's sublane
+    stack of C lattice periods has no counterpart: each CTA holds one
+    core's state in registers, so there is no VMEM cliff, and the only
+    limit is the grid's y extent (65,535 cores).
+    """
+    _check_activation(activation)
+    n_cores, n_rows = w1.shape[0], n_steps // 2
+    rows = _stacked_rows(x0, row_map, n_cores, n_steps)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_gang_stacked_ref(w1, b1, w2, b2, x0, n_steps,
+                                                word_offset, rows,
+                                                activation, lattice)
+    if n_cores > 65535:
+        raise ValueError(f"{n_cores} cores exceed the grid's y extent")
+    weights, code, shape, eps = _lattice_operands(
+        w1, b1, w2, b2, x0, lattice, lead=(n_cores,), x_dims=("C", "S", "I"))
+    n_lanes = x0.shape[1]
+    rows_d = _int32_on_card(rows, x0.device)
+    offsets = ops.to_uint32(ops.word_offsets(
+        word_offset, (n_cores, n_lanes), x0.device))
+    words = torch.empty((n_rows, n_cores, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0 or n_cores == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_lattice_gang_stacked_launch(
+        x0.device.index, code, *shape, eps,
+        *(t.data_ptr() for t in weights), x0.data_ptr(), rows_d.data_ptr(),
+        offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_cores,
+        n_lanes, n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_gang_stacked", shape)
+    chaotic_ann_lattice_gang_stacked.launches += 1
+    return words, state
+
+
+chaotic_ann_lattice_gang_stacked.launches = 0

@@ -23,9 +23,6 @@ from repro_torch.kernels import chaotic_ann, ref
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9          # Weyl increment (2^32 / phi)
-# The ROADMAP.md item that ports the gang lattice forms.
-TODO_LATTICE_GANG = ("queue 2, 'K3/K4: lattice forms, and a farm of "
-                     "lattice cores'")
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -136,11 +133,8 @@ def _lattice_args(params: Dict[str, torch.Tensor], compute_unit: str):
 
 def _check_ported(params: Dict[str, torch.Tensor], compute_unit: str,
                   gang: bool = False):
-    """Raise for the forms not ported; else ``(lattice, coupling)``."""
-    if gang and "lattice_meta" in params:
-        raise NotImplementedError(
-            f"lattice cores in a gang launch are not ported; see "
-            f"ROADMAP.md {TODO_LATTICE_GANG}")
+    """Raise for the forms not ported (a gang on the mxu unit, scalar or
+    lattice); else ``(lattice, coupling)``."""
     if gang and compute_unit != "vpu":
         raise NotImplementedError(
             f"compute_unit={compute_unit!r} in a gang launch is not ported; "
@@ -238,26 +232,29 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     unroll)[g]`` word rows and its state advances by exactly that many;
     later word rows are garbage that callers slice away.  ``config`` (a
     ``core.dse.Candidate``) overrides s_block/t_block/unroll/compute_unit.
-    The JAX signature's ``mesh``/``partitioner`` are not ported
-    (ROADMAP.md queue 1, item 11).
+    A lattice group (``params`` with the un-stacked ``lattice_meta`` of
+    its one descriptor) takes the lattice form of K3.  The JAX
+    signature's ``mesh``/``partitioner`` are not ported (ROADMAP.md queue
+    1, 'Multi-device').
     """
     if config is not None:
         s_block, t_block = config.s_block, config.t_block
         unroll, compute_unit = config.unroll, config.compute_unit
-    _check_ported(params, compute_unit, gang=True)
+    lattice, _ = _check_ported(params, compute_unit, gang=True)
     w = _stacked_weights(params)
     if backend == "ref":
         rows = (chaotic_ann.gang_effective_rows(row_map, n_steps, t_block,
                                                 unroll)
                 if row_map is not None else None)
         return ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps,
-                                             word_offset, rows, activation)
+                                             word_offset, rows, activation,
+                                             lattice)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_gang_bits(
         *w, x0, core_map, word_offset, row_map, n_steps=n_steps,
         s_block=s_block, t_block=t_block, unroll=unroll,
-        activation=activation, compute_unit=compute_unit)
+        activation=activation, compute_unit=compute_unit, lattice=lattice)
 
 
 def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
@@ -268,7 +265,8 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
                               compute_unit: str = "vpu",
                               config=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked gang draw for C EQUAL-size pools: ``x0`` (C, S, I), one pool
-    per core, ``word_offset`` a scalar or (C, S).  vpu groups only.
+    per core, ``word_offset`` a scalar or (C, S).  vpu groups only; a
+    lattice group takes the lattice form of K4.
 
     ``row_map`` (optional, (C,)) freezes core ``c``'s state after exactly
     ``row_map[c]`` word rows; its words past them are garbage.  Returns
@@ -278,13 +276,13 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
     """
     if config is not None:
         compute_unit = config.compute_unit
-    _check_ported(params, compute_unit, gang=True)
+    lattice, _ = _check_ported(params, compute_unit, gang=True)
     w = _stacked_weights(params)
     if backend == "ref":
         return ref.chaotic_ann_gang_stacked_ref(*w, x0, n_steps, word_offset,
-                                                row_map, activation)
+                                                row_map, activation, lattice)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_gang_stacked(
         *w, x0, word_offset, row_map, n_steps=n_steps, activation=activation,
-        compute_unit=compute_unit)
+        compute_unit=compute_unit, lattice=lattice)

@@ -217,35 +217,53 @@ def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
 
 def _gang_scan(w1, b1, w2, b2, x0: torch.Tensor, lane_core: torch.Tensor,
                lane_rows: torch.Tensor, n_steps: int, offsets: torch.Tensor,
-               activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+               activation: str, lattice=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain gang scan over (N, I) lanes: lane ``l`` runs net
     ``lane_core[l]`` of the stacked weights for ``lane_rows[l]`` word rows
-    and then holds its state.  Every lane steps the whole launch (the
-    words past its rows are computed and zeroed), vectorised over lanes,
-    never looped over blocks or cores.  ``offsets`` are (N,) int64.
+    and then holds its state (``torch.where``).  ``lattice`` (the static
+    descriptor shared by every core) adds each core's coupling of its own
+    lanes.  ``offsets`` are (N,) int64.
+
+    It loops over the cores present and steps each core's lanes with that
+    core's ``make_step``, never a net gathered per lane: at chen@ring32 a
+    gathered ``w1`` is a (96, 256) matrix for every lane, 6.4 GB at 65,536
+    lanes.  Every lane still runs exactly the ops it would run alone, so
+    the result is bitwise that of one launch per core.
 
     Returns (n_steps // 2, N) uint32 words, zero past each lane's rows,
     and the (N, I) state after each lane's own rows.
     """
     if n_steps < 2 or n_steps % 2:
         raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
-    step = make_step(w1[lane_core], b1[lane_core], w2[lane_core],
-                     b2[lane_core], dtype=x0.dtype, activation=activation)
     n_rows = n_steps // 2
-    ragged = bool((lane_rows < n_rows).any())
-    traj = torch.empty((n_steps,) + tuple(x0.shape), dtype=x0.dtype,
-                       device=x0.device)
-    x = x0
-    for r in range(n_rows):
-        x1 = step(x)
-        x2 = step(x1)
-        traj[2 * r], traj[2 * r + 1] = x1, x2
-        x = torch.where((r < lane_rows)[:, None], x2, x) if ragged else x2
-    words = ops._packed(traj, offsets)
-    if ragged:
-        rows = torch.arange(n_rows, device=x0.device)[:, None]
-        words = torch.where(rows < lane_rows[None, :], words, 0)
-    return ops.to_uint32(words), x
+    words = torch.zeros((n_rows, x0.shape[0]), dtype=torch.int64,
+                        device=x0.device)
+    state = x0.clone()
+    for c in torch.unique(lane_core).tolist():
+        idx = torch.nonzero(lane_core == c).squeeze(1)
+        rows = lane_rows[idx]
+        r_max = int(rows.max())
+        if r_max == 0:
+            continue
+        step = make_step(w1[c], b1[c], w2[c], b2[c], dtype=x0.dtype,
+                         activation=activation, lattice=lattice)
+        ragged = bool((rows < r_max).any())
+        x = x0[idx]
+        traj = torch.empty((2 * r_max,) + tuple(x.shape), dtype=x0.dtype,
+                           device=x0.device)
+        for r in range(r_max):
+            x1 = step(x)
+            x2 = step(x1)
+            traj[2 * r], traj[2 * r + 1] = x1, x2
+            x = torch.where((r < rows)[:, None], x2, x) if ragged else x2
+        w = ops._packed(traj, offsets[idx])
+        if ragged:
+            live = torch.arange(r_max, device=x0.device)[:, None] < rows
+            w = torch.where(live, w, 0)
+        words[:r_max, idx] = w
+        state[idx] = x
+    return ops.to_uint32(words), state
 
 
 def _rows(row_map, n: int, n_steps: int, device) -> torch.Tensor:
@@ -261,12 +279,13 @@ def chaotic_ann_gang_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
                               w2: torch.Tensor, b2: torch.Tensor,
                               x0: torch.Tensor, core_map, n_steps: int,
                               word_offset=0, row_map=None,
-                              activation: str = "relu"
+                              activation: str = "relu", lattice=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K3, the lane-concat gang: stacked weights ``w1`` (C, I, H),
     ``b1`` (C, H), ``w2`` (C, H, I), ``b2`` (C, I); ``x0`` (S, I) split
     into ``len(core_map)`` equal lane blocks, block ``g`` running net
-    ``core_map[g]``.
+    ``core_map[g]``.  ``lattice`` (one descriptor for every core) takes
+    K3's lattice form: each core's lanes coupled among their own nodes.
 
     ``row_map`` (n_blocks,) is the word rows each block computes,
     *exactly* (values past ``n_steps // 2`` are clamped): the kernel's
@@ -286,20 +305,20 @@ def chaotic_ann_gang_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
     return _gang_scan(w1, b1, w2, b2, x0, cmap.repeat_interleave(s_block),
                       rows.repeat_interleave(s_block), n_steps,
                       ops.word_offsets(word_offset, n_lanes, dev),
-                      activation)
+                      activation, lattice)
 
 
 def chaotic_ann_gang_stacked_ref(w1: torch.Tensor, b1: torch.Tensor,
                                  w2: torch.Tensor, b2: torch.Tensor,
                                  x0: torch.Tensor, n_steps: int,
                                  word_offset=0, row_map=None,
-                                 activation: str = "relu"
+                                 activation: str = "relu", lattice=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K4, C equal pools: stacked weights as in K3, ``x0`` (C, S, I),
     ``word_offset`` a scalar or (C, S).  ``row_map`` (C,) freezes core
-    ``c`` after exactly ``min(row_map[c], n_steps // 2)`` rows.  Returns
-    (n_steps // 2, C, S) uint32 words, zero past a core's rows, and the
-    (C, S, I) state.
+    ``c`` after exactly ``min(row_map[c], n_steps // 2)`` rows;
+    ``lattice`` as in K3.  Returns (n_steps // 2, C, S) uint32 words, zero
+    past a core's rows, and the (C, S, I) state.
     """
     n_cores, n_lanes, i_dim = x0.shape
     dev = x0.device
@@ -309,6 +328,6 @@ def chaotic_ann_gang_stacked_ref(w1: torch.Tensor, b1: torch.Tensor,
     words, state = _gang_scan(
         w1, b1, w2, b2, x0.reshape(n_cores * n_lanes, i_dim),
         cores.repeat_interleave(n_lanes), rows.repeat_interleave(n_lanes),
-        n_steps, off.reshape(-1), activation)
+        n_steps, off.reshape(-1), activation, lattice)
     return (words.reshape(n_steps // 2, n_cores, n_lanes),
             state.reshape(n_cores, n_lanes, i_dim))

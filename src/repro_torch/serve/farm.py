@@ -7,20 +7,38 @@ client's words are identical whether served standalone or through the
 farm.
 
 **Gang scheduling**: compatible cores (same (i_dim, h_dim, dtype,
-activation, backend, kernel config)) do not each pay their own launch per
-flush.  ``GangScheduler`` stacks their weights along a leading core axis
-and issues ONE gang launch for the group (the stacked kernel K4 for equal
-pools, the lane-concat kernel K3 otherwise or for demand-shaped launches),
-then scatters words and final states back to each service through its
-``prepare_rows()/absorb()`` halves.  Lanes evolve independently and word
-emission is defined in absolute word-row space, so per-client words are
-bit-identical to the per-core path.
+activation, backend, kernel config, lattice descriptor)) do not each pay
+their own launch per flush.  ``GangScheduler`` stacks their weights along
+a leading core axis and issues ONE gang launch for the group (the stacked
+kernel K4 for equal pools, the lane-concat kernel K3 otherwise or for
+demand-shaped launches), then scatters words and final states back to
+each service through its ``prepare_rows()/absorb()`` halves.  Lanes
+evolve independently and word emission is defined in absolute word-row
+space, so per-client words are bit-identical to the per-core path.
 
-Not ported here: ``attach_monitor`` and the serving tier's health hooks
-(ROADMAP.md queue 1, item 9), fault injection (same item), the mesh
-arguments and topology keys (item 11), and lattice cores (queue 2, the
-lattice forms of K3/K4): ``add_core`` refuses a lattice core, which
-``PRNGService`` serves on its own.
+**Lattice cores** (``lattice_meta`` in their params) gang only with
+lattice cores of the same descriptor (n_nodes, base_dim, topology,
+strength), never with scalar cores; a vpu lattice group runs the lattice
+forms of K3 and K4.  The plan carries ``coupling`` and ``lattice_meta``
+un-stacked from its first member, as the JAX plan does.  A lone lattice
+core on the mxu unit is served by its own service's solo launch; two mxu
+cores of one key (lattice or scalar) raise at flush, since K3's mxu form
+is not ported (ROADMAP.md queue 2, 'K3: the mxu form').
+
+**The stacked layout differs from the JAX planner's.**  The JAX farm also
+requires the C-tall stack to fit VMEM (``stacked_gang_vmem_bytes <=
+VMEM_USABLE``); on Hopper each K4 CTA holds one core's weights and its
+lanes' states live in registers, so there is no such cliff, and the only
+limit is the grid's y extent (65,535 cores).  From 69 chen@ring32
+members in f32 (126 in bf16, on ``default_config(96, 256, dtype,
+n_nodes=32)``) the port's plan therefore stays stacked where the JAX
+farm's goes to lane-concat: ``plan_decisions`` and launch counts can
+differ from the JAX farm's, the words cannot (gang and solo words are
+bitwise equal).
+
+Not ported here: ``attach_monitor`` and the serving tier's health hooks,
+fault injection (ROADMAP.md queue 1, 'Serving tier'), and the mesh
+arguments and topology keys (queue 1, 'Multi-device').
 """
 from __future__ import annotations
 
@@ -33,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.clock import Clock, SystemClock
+from repro_torch.core.ann import check_block_diagonal, lattice_meta_tuple
 from repro_torch.core.dse import LANES, Candidate, GangCostModel, _pad
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -44,20 +63,33 @@ from repro_torch.serve.prng_service import PRNGService
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _lattice_sig(svc: PRNGService) -> Optional[Tuple]:
+    """Hashable lattice identity of one core's service, or ``None`` for a
+    scalar (uncoupled) core.  The coupling operator is a pure function of
+    this tuple (``lattice_coupling_matrix``), so equal signatures imply a
+    shared coupling operand is exact for every member of a gang."""
+    meta = svc.params.get("lattice_meta")
+    if meta is None:
+        return None
+    return lattice_meta_tuple(np.asarray(meta))
+
+
 def _compat_key(svc: PRNGService) -> Tuple:
     """Gang-compatibility signature of one core's service.
 
     Two cores may share a stacked-weight launch iff every static property
     of the kernel instantiation matches: network shape (i_dim, h_dim),
-    state dtype, activation, backend and the full kernel config (s_block,
-    t_block, unroll, compute_unit).  The farm refuses lattice cores and
-    there is one device, so the JAX key's lattice and topology entries are
-    left out.
+    state dtype, activation, backend, the full kernel config (s_block,
+    t_block, unroll, compute_unit) and the lattice signature (scalar cores
+    never gang with lattice cores, and lattice cores gang only on an
+    identical (n_nodes, base_dim, topology, strength)).  There is one
+    device, so the JAX key's topology entry is left out.
     """
     c = svc.config
     return (svc.dim, int(svc.params["w1"].shape[1]), str(svc.dtype),
             svc.activation, svc.backend,
-            c.s_block, c.t_block, c.unroll, c.compute_unit)
+            c.s_block, c.t_block, c.unroll, c.compute_unit,
+            _lattice_sig(svc))
 
 
 class GangScheduler:
@@ -113,7 +145,11 @@ class GangScheduler:
 
         'stacked' (equal-size vpu pools) takes K4 with one (C, S, I) pool
         stack; 'concat' takes K3, member pools padded to whole lane blocks
-        and concatenated, with a per-block core-id map.
+        and concatenated, with a per-block core-id map.  A lattice group
+        carries ``coupling`` and ``lattice_meta`` un-stacked (the compat
+        key pins one descriptor), and its stacked weights are checked
+        block-diagonal here, once per plan: the lattice kernels read only
+        the diagonal node blocks of every core.
         """
         sig = (key, tuple((name, int(svc.pool_x.shape[0]))
                           for name, svc in members), mode)
@@ -124,6 +160,12 @@ class GangScheduler:
         s_block = svc0.config.s_block
         params = {k: torch.stack([svc.params[k] for _, svc in members])
                   for k in ("w1", "b1", "w2", "b2")}
+        for k in ("coupling", "lattice_meta"):
+            if k in svc0.params:
+                params[k] = svc0.params[k]
+        if "lattice_meta" in params:
+            check_block_diagonal(params["w1"], params["w2"],
+                                 lattice_meta_tuple(params["lattice_meta"])[0])
         sizes = [int(svc.pool_x.shape[0]) for _, svc in members]
         plan = {"sig": sig, "params": params, "s_block": s_block,
                 "mode": mode, "last_x": None, "handed": None}
@@ -174,7 +216,9 @@ class GangScheduler:
         The stacked layout needs equal pools and the vpu unit, nothing
         more: the JAX check that the C-tall stack fits VMEM has no
         counterpart, because each K4 CTA holds one core's weights and
-        its lanes' states live in registers, whatever C is.
+        its lanes' states live in registers, whatever C is (so from 69
+        f32 ring32 members this plan stays stacked where the JAX one goes
+        to concat; see the module docstring).
         """
         if not self.planner:
             slo = None
@@ -434,10 +478,6 @@ class OscillatorFarm:
 
     def _service(self, params, *, config, dtype, activation,
                  lanes_per_client, burn_in, backend) -> PRNGService:
-        if "lattice_meta" in params:
-            raise NotImplementedError(
-                f"lattice cores in a farm are not ported; see ROADMAP.md "
-                f"{ops.TODO_LATTICE_GANG}")
         return PRNGService(params, lanes_per_client=lanes_per_client,
                            burn_in=burn_in, activation=activation,
                            backend=backend, config=config,

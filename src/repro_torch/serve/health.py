@@ -1,7 +1,7 @@
 """Core health (port of ``repro/serve/health.py``, the exception only).
 
 ``HealthMonitor`` (retry policy, circuit breaker, online NIST windows) is
-the serving tier, ROADMAP.md queue 1, item 9; the farm's ``quarantine`` /
+the serving tier, ROADMAP.md queue 1, 'Serving tier'; the farm's ``quarantine`` /
 ``rotate`` raise and handle ``CoreQuarantined`` without it.
 """
 from __future__ import annotations

@@ -327,7 +327,7 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ops.chaotic_bits_gang(params, x0, 4, core_map=[0, 1], s_block=128,
                               compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="4-entry descriptor"):
         ops.chaotic_bits_gang_stacked(
             dict(params, lattice_meta=torch.tensor([2, 3, 0])), xs, 4)
     with pytest.raises(ValueError, match="leading core axis"):

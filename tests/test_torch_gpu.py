@@ -375,3 +375,158 @@ def test_mxu_wrappers_reject_what_the_kernels_do_not_take():
     bad["coupling"][0, 12] = 0.05        # node 0 <- node 4: not a neighbour
     with pytest.raises(ValueError, match="support"):
         params_from_numpy(bad, device="cuda")
+
+
+LATTICE_GANGS = ("ring8", "grid8", "ring32")
+
+
+def _lattice_gang(topology):
+    """The stacked (C=4, ...) weights, on the card, of chen, chua, lorenz
+    and rossler as lattices of one descriptor, and that descriptor."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    per_core = [default_params(system=f"{b}@{topology}")
+                for b in ("chen", "chua", "lorenz", "rossler")]
+    w = [torch.from_numpy(np.stack([p[k] for p in per_core])).cuda()
+         for k in ("w1", "b1", "w2", "b2")]
+    return w, lattice_meta_tuple(per_core[0]["lattice_meta"])
+
+
+def _masked_rows(words, rows):
+    """The uint32 words as int64, zero past each lane's (or core's)
+    rows; ``rows`` broadcasts against one word row."""
+    r = torch.arange(words.shape[0], device=words.device)
+    r = r.reshape((-1,) + (1,) * (words.ndim - 1))
+    return torch.where(r < rows, ops.from_uint32(words), 0)
+
+
+def _x0_np(rng, shape):
+    return rng.uniform(-0.9, 0.9, shape).astype(np.float32)
+
+
+def _off_np(rng, shape):
+    off = rng.integers(0, 1 << 32, shape, dtype=np.int64)
+    off.reshape(-1)[:4] = [0xFFFFFFFF, 0xFFFFFFF0, 0xFFFFFFC0, 0]
+    return off
+
+
+@pytest.mark.parametrize("topology", LATTICE_GANGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lattice_gang_kernels_bitwise_vs_plain_on_card(topology, dtype):
+    """Lattice K3 (s_block 48: three CTAs of 16 ring8 lanes, twelve of 4
+    ring32 lanes; ragged rows, offsets that wrap) and lattice K4 (137 lanes
+    a core: a ragged CTA edge in every core; one core frozen early, one at
+    0 rows) against their plain versions: the words each block or core
+    asked for, and the final states, bitwise."""
+    _need_card()
+    w, lattice = _lattice_gang(topology)
+    i_dim = w[0].shape[1]
+    rng = np.random.default_rng(37)
+    n_steps, s_block = 32, 48
+    core_map = np.array([2, 0, 3, 1, 1, 0])
+    row_map = np.array([16, 3, 0, 9, 40, 1])
+    x0 = torch.from_numpy(_x0_np(rng, (6 * s_block, i_dim))).to("cuda", dtype)
+    off = torch.from_numpy(_off_np(rng, 6 * s_block)).to("cuda")
+    n0 = (chaotic_ann.chaotic_ann_lattice_gang_bits.launches,
+          chaotic_ann.chaotic_ann_lattice_gang_stacked.launches)
+    words, state = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, off, row_map, n_steps=n_steps, s_block=s_block,
+        t_block=8, unroll=2, lattice=lattice)
+    rows = chaotic_ann.gang_effective_rows(row_map, n_steps, 8, 2)
+    rw, rs = ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps, off,
+                                           rows, lattice=lattice)
+    lane_rows = torch.from_numpy(np.repeat(rows, s_block)).cuda()
+    xs = torch.from_numpy(_x0_np(rng, (4, 137, i_dim))).to("cuda", dtype)
+    offs = torch.from_numpy(_off_np(rng, (4, 137))).to("cuda")
+    srows = [16, 5, 0, 16]
+    sw, ss = chaotic_ann.chaotic_ann_gang_stacked(
+        *w, xs, offs, srows, n_steps=n_steps, lattice=lattice)
+    rsw, rss = ref.chaotic_ann_gang_stacked_ref(*w, xs, n_steps, offs, srows,
+                                                lattice=lattice)
+    torch.cuda.synchronize()
+    assert (chaotic_ann.chaotic_ann_lattice_gang_bits.launches,
+            chaotic_ann.chaotic_ann_lattice_gang_stacked.launches) == (
+                n0[0] + 1, n0[1] + 1)
+    assert torch.equal(_masked_rows(words, lane_rows),
+                       _masked_rows(rw, lane_rows))
+    _assert_bitwise(state, rs)
+    core_rows = torch.tensor(srows, device="cuda")[:, None]
+    assert torch.equal(_masked_rows(sw, core_rows),
+                       _masked_rows(rsw, core_rows))
+    _assert_bitwise(ss, rss)
+
+
+def test_lattice_farm_on_card_never_reaches_the_plain_version(monkeypatch):
+    """Two chen@ring8-shaped lattice cores beside the scalar chen: one
+    stacked lattice launch, then lane-concat, each equal to the CPU farm's
+    words (the plain versions), and no scalar gang kernel launched."""
+    _need_card()
+    from repro_torch.core.dse import Candidate
+    from repro_torch.serve.farm import OscillatorFarm
+    lat = Candidate(i_dim=24, h_dim=64, p=0, compute_unit="vpu",
+                    dtype_bytes=2, t_block=8, unroll=2, n_nodes=8)
+    scal = Candidate(i_dim=3, h_dim=8, p=0, compute_unit="vpu",
+                     dtype_bytes=2, t_block=32, unroll=2)
+
+    def farm_on(device):
+        farm = OscillatorFarm(device=device)
+        for name, system in (("a", "chen@ring8"), ("b", "lorenz@ring8")):
+            farm.add_core(name, default_params(system=system), config=lat,
+                          dtype=torch.bfloat16, lanes_per_client=32)
+        farm.add_core("chen", default_params(), config=scal,
+                      dtype=torch.bfloat16, lanes_per_client=32)
+        for i, core in enumerate(farm.cores):
+            farm.register(core, "t", seed=i)
+        return farm
+
+    def serve(farm):
+        """A uniform flush (stacked), then one more client on b (concat)."""
+        for core in farm.cores:
+            farm.request(core, "t", 512)
+        out = [farm.flush()]
+        farm.register("b", "u", seed=9)
+        for core in farm.cores:
+            for client in farm.services[core].clients:
+                farm.request(core, client, 256)
+        return out + [farm.flush()]
+
+    want = serve(farm_on("cpu"))
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    farm = farm_on("cuda")
+    for name in ("chaotic_ann_gang_bits_ref", "chaotic_ann_gang_stacked_ref",
+                 "chaotic_ann_bits_ref"):
+        monkeypatch.setattr(ref, name, forbidden)
+    names = ("chaotic_ann_lattice_gang_bits",
+             "chaotic_ann_lattice_gang_stacked", "chaotic_ann_gang_bits",
+             "chaotic_ann_gang_stacked")
+    n0 = {n: getattr(chaotic_ann, n).launches for n in names}
+    for g, e in zip(serve(farm), want):
+        assert set(g) == set(e)
+        for core in e:
+            for client in e[core]:
+                np.testing.assert_array_equal(g[core][client],
+                                              e[core][client])
+    assert {n: getattr(chaotic_ann, n).launches - n0[n] for n in names} == {
+        "chaotic_ann_lattice_gang_bits": 1,
+        "chaotic_ann_lattice_gang_stacked": 1, "chaotic_ann_gang_bits": 0,
+        "chaotic_ann_gang_stacked": 0}
+
+
+def test_lattice_gang_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    w, lattice = _lattice_gang("ring8")
+    x0 = torch.zeros(4 * 32, 24, device="cuda")
+    with pytest.raises(ValueError, match="LATTICE_SHAPES"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1, 2, 3], n_steps=4,
+                                          s_block=32,
+                                          lattice=(4, 6, "ring", 0.05))
+    with pytest.raises(ValueError, match="LATTICE_SHAPES"):
+        chaotic_ann.chaotic_ann_gang_stacked(*w, x0.reshape(4, 32, 24),
+                                             n_steps=4,
+                                             lattice=(4, 6, "ring", 0.05))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0[:4 * 8], [0, 1, 2, 3],
+                                          n_steps=4, s_block=8,
+                                          lattice=lattice)

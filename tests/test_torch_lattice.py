@@ -34,7 +34,6 @@ from repro_torch.core.dse import Candidate, default_config
 from repro_torch.kernels import chaotic_ann, ops, ref
 from repro_torch.prng.stream import (ChaoticPRNG, default_params,
                                      trained_oscillator)
-from repro_torch.serve.farm import OscillatorFarm
 from repro_torch.serve.prng_service import PRNGService
 
 KEYS = ("w1", "b1", "w2", "b2")
@@ -281,9 +280,10 @@ def test_ops_and_module_route_lattices():
 
 
 def test_unported_lattice_forms_raise():
-    """Lattices in a gang or a farm name their ROADMAP.md item; an mxu
-    lattice is routed with its coupling operand and refused without it;
-    the plain dense loop refuses a descriptor that does not fit."""
+    """A lattice gang on the mxu unit, or with a non-relu activation, names
+    its ROADMAP.md item; an mxu lattice is routed with its coupling
+    operand and refused without it; the plain dense loop refuses a
+    descriptor that does not fit."""
     p = params_from_numpy(default_params(system="chen@ring8"), device="cpu")
     x0 = torch.from_numpy(seeds(np.random.default_rng(36), 8, 24))
     words, state = ops.chaotic_bits(p, x0, 4, compute_unit="mxu")
@@ -300,13 +300,16 @@ def test_unported_lattice_forms_raise():
     x0 = torch.zeros(256, 24)
     gang = {k: p[k][None] for k in KEYS}
     gang["lattice_meta"] = p["lattice_meta"]
-    with pytest.raises(NotImplementedError, match="K3/K4: lattice forms"):
-        ops.chaotic_bits_gang(gang, x0, 4, core_map=[0], s_block=256)
-    with pytest.raises(NotImplementedError, match="K3/K4: lattice forms"):
-        ops.chaotic_bits_gang_stacked(gang, x0[None], 4)
-    with pytest.raises(NotImplementedError, match="farm of lattice cores"):
-        OscillatorFarm(device="cpu").add_core("lat", default_params(
-            system="chen@ring8"))
+    with pytest.raises(NotImplementedError, match="K3: the mxu form"):
+        ops.chaotic_bits_gang(gang, x0, 4, core_map=[0], s_block=256,
+                              compute_unit="mxu")
+    with pytest.raises(NotImplementedError, match="K3: the mxu form"):
+        ops.chaotic_bits_gang_stacked(gang, x0[None], 4, compute_unit="mxu")
+    with pytest.raises(NotImplementedError, match="non-relu"):
+        ops.chaotic_bits_gang(gang, x0, 4, core_map=[0], s_block=256,
+                              activation="tanh")
+    with pytest.raises(NotImplementedError, match="non-relu"):
+        ops.chaotic_bits_gang_stacked(gang, x0[None], 4, activation="tanh")
     with pytest.raises(ValueError, match="i_dim"):
         ref.chaotic_ann_ref(*[p[k] for k in KEYS], x0, 2,
                             lattice=(4, 3, "ring", 0.05))

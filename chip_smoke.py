@@ -22,7 +22,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    forms likewise, on chen, chua, lorenz and rossler as lattices of the
    chen@ring32, chen@grid32 and chen@ring8 descriptors: K3 in 32 blocks
    of 256 lanes with ragged rows, K4 with 2,048 + 37 lanes a core and one
-   core frozen early.
+   core frozen early.  K3's mxu form likewise at every compiled mxu shape
+   (the two scalar gangs; the four bases as lattices of chen@ring8,
+   grid8, ring32 and grid32 with their one shared coupling operand), 32
+   blocks of 128 lanes, padded and ragged.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -81,6 +84,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    snapshot taken with its requests pending and restored onto a fresh
    farm; F1's K4 and F3's K3 launches against one plain run each at
    their shapes; their times, bounds and the ``gang=False`` cost.
+9. The mxu farm path, per dtype: ``OscillatorFarm`` with the four
+   ring32 cores of phase 8 added with NO config (the JAX farm's default
+   lattice gang: ``select_config`` puts them on the mxu unit, s_block 128,
+   t_block 256, unroll 8) beside chen, chua, lorenz and rossler 3-8-3 on
+   ``select_config(3, 8, s_total=128, unit="mxu")``, 128 clients x 128
+   lanes a core, 4,096 words a client.  Three flushes, the launch
+   counters zeroed just before each and read just after: F1 uniform (one
+   padded mxu K3 launch a group, no K4 of any form, no mxu K1), F2
+   skewed (chen@ring32 and chen at 4,096, the rest at 256: ragged or
+   split), F3 unequal pools (one more lorenz@ring32 client: padded
+   lane-concat mxu K3).  Each flush bitwise against a ``gang=False`` farm
+   (every core its own mxu K1), F2 against a restored snapshot; F3's
+   lattice launch against one plain run on each core's first and last
+   lane block; the mxu K3's times at F1 and F3, bounds, and the
+   ``gang=False`` cost (four solo mxu K1 launches over F1's lanes).
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -160,6 +178,21 @@ LATTICE_K4_ROW_MAP = [32, 5, 32, 32]
 # scalar chen, 128 clients x 128 lanes a core (65,536 lanes a lattice gang)
 LATTICE_FARM = ("chen@ring32", "chua@ring32", "lorenz@ring32",
                 "rossler@ring32")
+# K3's mxu form, checked at every MXU_SHAPES entry: the scalar gangs, and
+# the four 3-8 bases as lattices of each compiled descriptor; 32 blocks of
+# 128 lanes (a CTA's worth for a scalar core), LATTICE_K3_ROW_MAP's ragged
+# rows; the plain f32 FMA chains of a lattice are bound by op launches
+# (4 cores x 112 chains a step at 8 nodes, x 448 at 32), so those checks
+# run fewer steps (the farm phase checks 64 steps at 32 nodes)
+MXU_GANG_CHECKS = ("3-8", "4-16", "chen@ring8", "chen@grid8", "chen@ring32",
+                   "chen@grid32")
+MXU_GANG_BLOCKS, MXU_GANG_S_BLOCK = 32, 128
+MXU_GANG_STEPS = {1: 64, 8: 32, 32: 8}           # by n_nodes
+MXU_GANG_T_BLOCK, MXU_GANG_UNROLL = 8, 2         # row granularity 2
+# the mxu farm: the four ring32 cores with NO config (the JAX farm's
+# default lattice gang, mxu) beside the four 3-8-3 registry nets on the
+# mxu unit; F2's cold cores draw MXU_COLD_WORDS
+MXU_COLD_WORDS = 256
 
 
 class SmokeFailure(Exception):
@@ -454,6 +487,70 @@ def phase_lattice_gang_kernels(torch, device, errs) -> None:
                 errs[(name, tag)] = max(errs.get((name, tag), 0.0), e)
 
 
+def mxu_gang_operands(torch, device, gang):
+    """The stacked weights on the card of one of MXU_GANG_CHECKS, its
+    lattice descriptor and its one shared coupling operand (None, None
+    for a scalar gang)."""
+    from repro_torch.prng.stream import default_params
+    if gang in GANGS:
+        return gang_weights(torch, device, gang), None, None
+    w, lattice = lattice_gang_weights(torch, device, gang)
+    cpl = torch.as_tensor(default_params(system=gang)["coupling"],
+                          device=device)
+    return w, lattice, cpl
+
+
+def phase_mxu_gang_kernels(torch, device, errs) -> None:
+    """K3's mxu form against its plain version on the card, bitwise, at
+    every MXU_SHAPES entry, padded and ragged: the words each block asked
+    for, and the final states."""
+    from repro_torch.kernels import chaotic_ann, ref
+
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    n_lanes = MXU_GANG_BLOCKS * MXU_GANG_S_BLOCK
+    for gang in MXU_GANG_CHECKS:
+        w, lattice, cpl = mxu_gang_operands(torch, device, gang)
+        n_cores, i_dim = w[0].shape[0], w[0].shape[1]
+        n_steps = MXU_GANG_STEPS[lattice[0] if lattice else 1]
+        core_map = np.arange(MXU_GANG_BLOCKS) % n_cores
+        x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+        off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
+        off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)    # wrap mid-run
+        off = torch.as_tensor(off_np, device=device)
+        kw = dict(lattice=lattice, compute_unit="mxu", coupling=cpl)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+            for shape in ("padded", "ragged"):
+                row_map = LATTICE_K3_ROW_MAP if shape == "ragged" else None
+                rows = (chaotic_ann.gang_effective_rows(
+                    row_map, n_steps, MXU_GANG_T_BLOCK, MXU_GANG_UNROLL)
+                    if row_map is not None
+                    else np.full(MXU_GANG_BLOCKS, n_steps // 2, np.int32))
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, row_map, n_steps=n_steps,
+                    s_block=MXU_GANG_S_BLOCK, t_block=MXU_GANG_T_BLOCK,
+                    unroll=MXU_GANG_UNROLL, **kw)
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0, core_map, n_steps, off, rows, **kw)
+                lane_rows = torch.as_tensor(
+                    np.repeat(rows, MXU_GANG_S_BLOCK).astype(np.int64),
+                    device=device)
+                e = max(masked_err(torch, words_k, words_p, lane_rows),
+                        max_abs_err(torch, state_k, state_p))
+                torch.cuda.synchronize()
+                print(f"check mxu gang {gang} {tag} {shape}: "
+                      f"chaotic_ann_mxu_gang_bits (C={n_cores}, "
+                      f"{MXU_GANG_BLOCKS} blocks x {MXU_GANG_S_BLOCK} lanes, "
+                      f"steps={n_steps}, rows {sorted(set(rows.tolist()))}) "
+                      f"max_abs_err={e}")
+                check(e == 0.0, f"chaotic_ann_mxu_gang_bits != plain "
+                                f"({gang}, {tag}, {shape})")
+                key = ("chaotic_ann_mxu_gang_bits", tag)
+                errs[key] = max(errs.get(key, 0.0), e)
+    print(f"mxu gang kernel checks: {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_names(lattice, unit="vpu"):
     """The (K1, K2) wrappers whose counters a core's launches move: the
     mxu forms on the mxu unit; on the vpu the scalar kernels, or the
@@ -523,7 +620,9 @@ REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
             "chaotic_ann_lattice_gang_bits":
                 "src/repro/kernels/chaotic_ann.py:630",
             "chaotic_ann_lattice_gang_stacked":
-                "src/repro/kernels/chaotic_ann.py:894"}
+                "src/repro/kernels/chaotic_ann.py:894",
+            "chaotic_ann_mxu_gang_bits":
+                "src/repro/kernels/chaotic_ann.py:630"}
 # each served (system, unit)'s (served path, unfused path): the served
 # path runs K1 only, the unfused path K2 only
 PATHS = {("chen", "vpu"): ("served", "unfused"),
@@ -533,7 +632,7 @@ KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
            "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
            "chaotic_ann_lattice_traj", "chaotic_ann_mxu_bits",
            "chaotic_ann_mxu_traj", "chaotic_ann_lattice_gang_bits",
-           "chaotic_ann_lattice_gang_stacked")
+           "chaotic_ann_lattice_gang_stacked", "chaotic_ann_mxu_gang_bits")
 
 
 def read_launches(chaotic_ann) -> dict:
@@ -824,6 +923,27 @@ def request_all(farms, words) -> None:
                 f.request(core, name, words[core])
 
 
+def register_all(torch, farms, clients, seed0) -> float:
+    """Register ``clients`` on every core of every farm (core k's client i
+    seeded ``seed0 + 1000 * k + i``); returns the seconds per farm."""
+    t0 = time.perf_counter()
+    for f in farms:
+        for k, core in enumerate(f.cores):
+            for i, name in enumerate(clients):
+                f.register(core, name, seed=seed0 + 1000 * k + i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(farms)
+
+
+def launch_inputs(torch, device, svcs):
+    """Each service's pool and its per-lane Weyl offsets, as the next
+    flush will launch them (``prepare_rows`` has no side effect)."""
+    pools = [s.pool_x.clone() for s in svcs]
+    offsets = [torch.as_tensor(s.prepare_rows()[1].astype(np.int64),
+                               device=device) for s in svcs]
+    return pools, offsets
+
+
 def counted_flush(torch, farm, solo, what, card):
     """Flush ``farm`` with the launch counters zeroed just before and read
     just after; print the flush's words, wall, profile split, decisions
@@ -865,13 +985,7 @@ def phase_farm(torch, device, dtype, tag, card):
     solo = make_farm(torch, device, tag, gang=False)
     cores = farm.cores
     clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
-    t0 = time.perf_counter()
-    for f in (farm, solo):
-        for k, core in enumerate(cores):
-            for i, name in enumerate(clients):
-                f.register(core, name, seed=1000 * k + i)
-    torch.cuda.synchronize()
-    t_register = (time.perf_counter() - t0) / 2
+    t_register = register_all(torch, (farm, solo), clients, 0)
     # a standalone service for two chen clients
     chen = farm.services["chen"]
     alone = PRNGService(chen.params, lanes_per_client=LANES_PER_CLIENT,
@@ -893,6 +1007,9 @@ def phase_farm(torch, device, dtype, tag, card):
         out, got, decisions, modes, n_launched, _ = counted_flush(
             torch, farm, solo, f"farm {tag} {label}", card)
         launches[label] = got
+        check(got["chaotic_ann_mxu_gang_bits"] + got["chaotic_ann_mxu_bits"]
+              == 0, f"farm {tag} {label}: an mxu kernel launched on the "
+                    f"vpu farm ({got})")
         for name in clients[:2]:
             alone.request(name, words["chen"])
         mine = alone.flush()
@@ -1039,13 +1156,7 @@ def phase_lattice_farm(torch, device, dtype, tag, card, errs):
     farm, solo = make(), make(gang=False)
     cores = farm.cores
     clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
-    t0 = time.perf_counter()
-    for f in (farm, solo):
-        for k, core in enumerate(cores):
-            for i, name in enumerate(clients):
-                f.register(core, name, seed=5000 + 1000 * k + i)
-    torch.cuda.synchronize()
-    t_register = (time.perf_counter() - t0) / 2
+    t_register = register_all(torch, (farm, solo), clients, 5000)
     lat_svcs = [farm.services[c] for c in LATTICE_FARM]
     check(all(s.config.compute_unit == "vpu" and s.config.n_nodes == 32
               for s in lat_svcs), f"lattice farm {tag}: configs "
@@ -1053,14 +1164,6 @@ def phase_lattice_farm(torch, device, dtype, tag, card, errs):
     w = [torch.stack([s.params[k] for s in lat_svcs])
          for k in ("w1", "b1", "w2", "b2")]
     lattice = lattice_meta_tuple(lat_svcs[0].params["lattice_meta"])
-
-    def launch_inputs():
-        """Each lattice pool and its per-lane Weyl offsets, as the next
-        flush will launch them (``prepare_rows`` has no side effect)."""
-        pools = [s.pool_x.clone() for s in lat_svcs]
-        offsets = [torch.as_tensor(s.prepare_rows()[1].astype(np.int64),
-                                   device=device) for s in lat_svcs]
-        return pools, offsets
 
     hot = {c: LATTICE_WORDS if c == LATTICE else COLD_WORDS for c in cores}
     flushes = (("F1", {c: LATTICE_WORDS for c in cores}), ("F2", hot),
@@ -1074,7 +1177,7 @@ def phase_lattice_farm(torch, device, dtype, tag, card, errs):
         if label == "F2":                  # requests pending
             snap = farm.snapshot()
         else:
-            shapes[label] = launch_inputs()
+            shapes[label] = launch_inputs(torch, device, lat_svcs)
         out, got, decisions, _, n_launched, walls[label] = counted_flush(
             torch, farm, solo, f"lattice farm {tag} {label}", card)
         launches[label] = got
@@ -1083,6 +1186,9 @@ def phase_lattice_farm(torch, device, dtype, tag, card, errs):
               and got["chaotic_ann_gang_stacked"] == 0,
               f"lattice farm {tag} {label}: a scalar gang kernel launched "
               f"({got}); the scalar chen has no gang partner")
+        check(got["chaotic_ann_mxu_gang_bits"] + got["chaotic_ann_mxu_bits"]
+              == 0, f"lattice farm {tag} {label}: an mxu kernel launched "
+                    f"on the vpu farm ({got})")
         if label == "F1":
             check(decisions == {"padded": 1}
                   and got["chaotic_ann_lattice_gang_stacked"] == 1
@@ -1199,6 +1305,198 @@ def phase_lattice_farm(torch, device, dtype, tag, card, errs):
     return path, t
 
 
+def phase_mxu_farm(torch, device, dtype, tag, card, errs):
+    """The mxu farm path: ``OscillatorFarm`` with the four LATTICE_FARM
+    cores added with NO config (``select_config`` puts them on the mxu
+    unit: the JAX farm's default lattice gang) beside the four 3-8-3
+    registry nets on ``select_config(3, 8, s_total=128, unit="mxu")``, 128
+    clients x 128 lanes a core, MXU_WORDS a client.  Three flushes (F1
+    uniform: one padded mxu K3 launch a group; F2 skewed: the planner
+    decides; F3 one more lorenz@ring32 client: a padded lane-concat mxu
+    K3), each held against a gang=False farm (every core its own mxu K1),
+    F2 against a snapshot taken with its requests pending and restored
+    onto a fresh farm; then F3's lattice mxu K3 launch against one plain
+    run on each core's first and last lane block (lanes are independent),
+    bitwise, and the mxu K3's times at F1 and F3 beside four solo mxu K1
+    launches over F1's lanes.  Returns ({kernel: launches over the three
+    flushes}, timings)."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.core.dse import select_config
+    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.prng.stream import _round_rows, default_params
+    from repro_torch.serve.farm import OscillatorFarm
+
+    scalar = GANGS["3-8"]
+    scalar_cfg = select_config(3, 8, s_total=LANES_PER_CLIENT, dtype=dtype,
+                               unit="mxu")
+
+    def make(gang=True):
+        farm = OscillatorFarm(gang=gang, profile=True, device=device)
+        for system in LATTICE_FARM:
+            farm.add_core(system, default_params(system=system), dtype=dtype)
+        for system in scalar:
+            farm.add_core(system, default_params(system=system),
+                          config=scalar_cfg, dtype=dtype)
+        return farm
+
+    farm, solo = make(), make(gang=False)
+    cores = farm.cores
+    for core in cores:
+        c = farm.services[core].config
+        print(f"mxu farm {tag}: {core} config "
+              f"{'resolved' if core in LATTICE_FARM else 'given'} {c} "
+              f"(s_block {c.s_block})")
+        check(c.compute_unit == "mxu" and c.s_block == 128
+              and c.t_block == 256 and c.unroll == 8,
+              f"mxu farm {tag}: {core} config {c}")
+    clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
+    t_register = register_all(torch, (farm, solo), clients, 7000)
+    lat_svcs = [farm.services[c] for c in LATTICE_FARM]
+    w = [torch.stack([s.params[k] for s in lat_svcs])
+         for k in ("w1", "b1", "w2", "b2")]
+    lattice = lattice_meta_tuple(lat_svcs[0].params["lattice_meta"])
+    cpl = lat_svcs[0].params["coupling"]
+
+    hot = {c: MXU_WORDS if c in (LATTICE, "chen") else MXU_COLD_WORDS
+           for c in cores}
+    flushes = (("F1", {c: MXU_WORDS for c in cores}), ("F2", hot),
+               ("F3", {c: MXU_WORDS for c in cores}))
+    launches, outs, snap, shapes, walls = {}, {}, None, {}, {}
+    for label, words in flushes:
+        if label == "F3":                  # unequal pools: one more client
+            for f in (farm, solo):
+                f.register("lorenz@ring32", f"c{FARM_CLIENTS}", seed=99)
+        request_all((farm, solo), words)
+        if label == "F2":                  # requests pending
+            snap = farm.snapshot()
+        else:
+            shapes[label] = launch_inputs(torch, device, lat_svcs)
+        out, got, decisions, modes, n_launched, walls[label] = counted_flush(
+            torch, farm, solo, f"mxu farm {tag} {label}", card)
+        launches[label] = got
+        outs[label] = out
+        stacked = (got["chaotic_ann_gang_stacked"]
+                   + got["chaotic_ann_lattice_gang_stacked"])
+        vpu = sum(got[k] for k in ("chaotic_ann_bits", "chaotic_ann_traj",
+                                   "chaotic_ann_gang_bits",
+                                   "chaotic_ann_lattice_bits",
+                                   "chaotic_ann_lattice_traj",
+                                   "chaotic_ann_lattice_gang_bits"))
+        check(stacked == 0 and vpu == 0 and modes == ["concat"],
+              f"mxu farm {tag} {label}: K4 or a vpu kernel launched, or a "
+              f"stacked plan ({got}, {modes})")
+        if label == "F2":
+            check("padded" not in decisions
+                  and got["chaotic_ann_mxu_gang_bits"]
+                  + got["chaotic_ann_mxu_bits"] > 0,
+                  f"mxu farm {tag} F2: expected ragged or split, got "
+                  f"{decisions} {got}")
+        else:
+            check(decisions == {"padded": 2}
+                  and got["chaotic_ann_mxu_gang_bits"] == 2
+                  and got["chaotic_ann_mxu_bits"] == 0 and n_launched == 2,
+                  f"mxu farm {tag} {label}: expected one padded mxu K3 "
+                  f"launch a group and no mxu K1, got {decisions} {got}")
+    fresh = make()
+    fresh.restore(snap)
+    check(same_words(outs["F2"], fresh.flush()),
+          f"mxu farm {tag}: F2 restored from a snapshot differs")
+    path = {k: sum(launches[f][k] for f in launches) for k in KERNELS}
+    print(f"mxu farm {tag}: {len(cores)} cores ({', '.join(cores)}) x "
+          f"{FARM_CLIENTS} clients x {LANES_PER_CLIENT} lanes; register "
+          f"{t_register:.3f} s per farm; every flush bitwise equal to the "
+          f"gang=False farm (each core its own mxu K1), F2 to its snapshot "
+          f"restored")
+
+    # F3's lattice launch against one plain run on each core's first and
+    # last block, bitwise; the mxu K3's times at F1 and F3 (not counted as
+    # path launches); the farm's rows: demand rounded by _round_rows
+    cfg = lat_svcs[0].config
+    steps = 2 * _round_rows(MXU_WORDS // LANES_PER_CLIENT, cfg.t_block)
+    pools, offsets = shapes["F1"]
+    x1, off1 = torch.cat(pools), torch.cat(offsets)
+    map1 = np.repeat(np.arange(len(pools)),
+                     [p.shape[0] // cfg.s_block for p in pools])
+    pools, offsets = shapes["F3"]
+    x0c, offc = torch.cat(pools), torch.cat(offsets)
+    sizes = [p.shape[0] for p in pools]
+    check(all(n % cfg.s_block == 0 for n in sizes),
+          f"mxu farm {tag}: F3 pools {sizes} need no padding here")
+    core_map = np.repeat(np.arange(len(sizes)),
+                         [n // cfg.s_block for n in sizes])
+    kw = dict(n_steps=steps, s_block=cfg.s_block, t_block=cfg.t_block,
+              unroll=cfg.unroll, compute_unit="mxu", lattice=lattice,
+              coupling=cpl)
+    first = np.searchsorted(core_map, np.arange(len(sizes)))
+    blocks = np.unique(np.concatenate([first, first + np.asarray(sizes)
+                                       // cfg.s_block - 1]))
+    lanes = torch.as_tensor(
+        (blocks[:, None] * cfg.s_block + np.arange(cfg.s_block)).reshape(-1),
+        device=device)
+    t = {}
+    words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0c, core_map, offc, **kw)
+    (words_p, state_p), t["k3_plain"] = timed_once(
+        torch, lambda: ref.chaotic_ann_gang_bits_ref(
+            *w, x0c[lanes], core_map[blocks], steps, offc[lanes],
+            lattice=lattice, compute_unit="mxu", coupling=cpl))
+    # uint32 has few CUDA ops: gather the words' columns as int32
+    picked = words_k.view(torch.int32)[:, lanes].view(torch.uint32)
+    e = max(max_abs_err(torch, picked, words_p),
+            max_abs_err(torch, state_k[lanes], state_p))
+    del words_k, state_k, words_p, state_p, picked
+    print(f"check mxu farm {tag} F3 shape ({x0c.shape[0]} lanes, "
+          f"{len(core_map)} blocks): chaotic_ann_mxu_gang_bits vs one plain "
+          f"run on blocks {blocks.tolist()} (each core's first and last, "
+          f"{lanes.numel()} lanes) max_abs_err={e}")
+    check(e == 0.0, f"chaotic_ann_mxu_gang_bits != plain at the mxu farm's "
+                    f"F3 shape ({tag})")
+    errs[("chaotic_ann_mxu_gang_bits", tag)] = max(
+        errs.get(("chaotic_ann_mxu_gang_bits", tag), 0.0), e)
+    t["plain_lanes"] = lanes.numel()
+    t["k3"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0c, core_map, offc, **kw), reps=5, warmup=1)
+    t["k3_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+        *w, x1, map1, off1, **kw), reps=5, warmup=1)
+    k1 = dict(n_steps=steps, compute_unit="mxu", lattice=lattice,
+              coupling=cpl)
+
+    def solo_f1():
+        for c, (p, o) in enumerate(zip(*shapes["F1"])):
+            chaotic_ann.chaotic_ann_bits(*[a[c] for a in w], p, o, **k1)
+
+    t["k1_x4_f1"] = cuda_ms(torch, solo_f1, reps=5, warmup=1)
+    item = x0c.element_size()
+    i_dim, h_dim = w[0].shape[1:]
+    weight_bytes = 4 * (2 * i_dim * h_dim + h_dim + i_dim) * item
+    ops_step = mxu_step_flops(i_dim, h_dim, lattice)
+
+    def gang_bound(n_lanes):
+        # x0 read, state written, offsets, weights, coupling and maps read,
+        # words written; ops at the f32 rate (the chains accumulate in f32)
+        n_words = n_lanes * steps // 2
+        return bound(n_words * 2 * ops_step,
+                     2 * n_lanes * i_dim * item + n_lanes * 4 + weight_bytes
+                     + i_dim * i_dim * item + 8 * n_lanes // cfg.s_block
+                     + n_words * 4, "f32")
+
+    t["k3_bound"] = gang_bound(x0c.shape[0])
+    t["k3_f1_bound"] = gang_bound(x1.shape[0])
+    t["walls"] = walls
+    print(f"mxu farm device times {tag} ({LATTICE} descriptor, {ops_step} "
+          f"ops a step, {steps} steps): F1 chaotic_ann_mxu_gang_bits "
+          f"({x1.shape[0]} lanes) {t['k3_f1']:.4f} ms (bound "
+          f"{t['k3_f1_bound'][0]:.4f} ms by {t['k3_f1_bound'][1]}; busy "
+          f"{t['k3_f1'] / (walls['F1'] * 1e3):.2%} of F1's wall), "
+          f"gang=False 4 x chaotic_ann_mxu_bits {t['k1_x4_f1']:.4f} ms; F3 "
+          f"chaotic_ann_mxu_gang_bits ({x0c.shape[0]} lanes, s_block "
+          f"{cfg.s_block}) {t['k3']:.4f} ms (bound {t['k3_bound'][0]:.4f} ms"
+          f" by {t['k3_bound'][1]}; plain on {lanes.numel()} lanes "
+          f"{t['k3_plain']:.1f} ms; busy {t['k3'] / (walls['F3'] * 1e3):.2%}"
+          f" of F3's wall); card {card}")
+    return path, t
+
+
 def nist3(words: np.ndarray):
     """p-values of the online-gate subset, and the tests under alpha."""
     from repro_torch.prng.nist import _to_bits, block_frequency, monobit, runs
@@ -1258,7 +1556,7 @@ def main() -> int:
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
 
     errs = {}
-    t_phase = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
 
     def phase_done(what):
         nonlocal t_phase
@@ -1269,6 +1567,7 @@ def main() -> int:
     phase_kernels(torch, device, errs)
     phase_done("kernel checks")
     phase_gang_kernels(torch, device, errs)
+    phase_mxu_gang_kernels(torch, device, errs)
     phase_done("gang kernel checks")
     phase_lattice_gang_kernels(torch, device, errs)
     phase_done("lattice gang kernel checks")
@@ -1335,6 +1634,30 @@ def main() -> int:
                          f"src/repro/kernels/chaotic_ann.py:61)"),
             })
     phase_done("lattice farm path")
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        path, t = phase_mxu_farm(torch, device, dtype, tag, card, errs)
+        name = "chaotic_ann_mxu_gang_bits"
+        check(path[name] > 0, f"{name} not launched on the {tag} mxu farm "
+                              f"path")
+        rows.append({
+            "name": f"{name}/{tag}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+            "replaces": REPLACES[name], "path": "mxu-farm",
+            "launches": path[name], "max_abs_err": errs[(name, tag)],
+            "ms": t["k3"], "plain_ms": t["k3_plain"],
+            "plain_lanes": t["plain_lanes"],
+            "bound_ms": t["k3_bound"][0], "bound_by": t["k3_bound"][1],
+            "library_ms": None, "shape": "F3 padded concat",
+            "ms_f1": t["k3_f1"], "bound_ms_f1": t["k3_f1_bound"][0],
+            "gang_false_ms_f1": t["k1_x4_f1"],
+            "flush_wall_ms": {k: v * 1e3 for k, v in t["walls"].items()},
+            "form": (f"{LATTICE} mxu unit (the dot form, "
+                     f"src/repro/kernels/chaotic_ann.py:154-161, with the "
+                     f"shared coupling dot :664-667)"),
+        })
+    phase_done("mxu farm path")
+    print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
+          f"build)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

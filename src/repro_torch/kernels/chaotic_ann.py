@@ -10,9 +10,11 @@ The lattice forms of K1 and K2 (``lattice=`` on ``chaotic_ann_bits`` /
 and counters (``chaotic_ann_lattice_bits`` / ``chaotic_ann_lattice_traj``),
 and so is the mxu unit of K1 and K2, scalar and lattice cores alike
 (``compute_unit="mxu"``: ``chaotic_ann_mxu_bits`` / ``chaotic_ann_mxu_traj``),
-and the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
+the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
 ``chaotic_ann_gang_bits`` / ``chaotic_ann_gang_stacked``:
-``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``).
+``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``),
+and K3 on the mxu unit (``compute_unit="mxu"`` on ``chaotic_ann_gang_bits``:
+``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ from repro_torch.kernels import build, ops, ref
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# The ROADMAP.md items that port what these kernels refuse.
-TODO_GANG_MXU = "queue 2, 'K3: the mxu form'"
+# The ROADMAP.md item that ports what these kernels refuse.
 TODO_NON_RELU = "queue 2, 'K1-K4: non-relu activations'"
 
 
@@ -71,6 +72,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [_c_int] * 6 + [_c_ptr] * n_ptr + [_c_i64, _c_i64,
                                                          _c_ptr]
         fn.restype = _c_int
+    lib.chaotic_ann_mxu_gang_bits_launch.argtypes = (
+        [_c_int] * 6 + [_c_ptr] * 11 + [_c_i64] * 3 + [_c_ptr])
+    lib.chaotic_ann_mxu_gang_bits_launch.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
     return lib
@@ -365,12 +369,13 @@ chaotic_ann_lattice_traj.launches = 0
 # The mxu unit of K1 and K2, with K5's mxu coupling for a lattice core.
 # ---------------------------------------------------------------------------
 
-def _mxu_operands(w1, b1, w2, b2, x0, lattice, coupling):
+def _mxu_operands(w1, b1, w2, b2, x0, lattice, coupling, lead=()):
     """Validated operands of an mxu launch: the weights cast to the state
     dtype, the coupling operand likewise (None for a scalar core), the
     dtype code and the shape codes (node I, node H, n_nodes, topology); a
-    scalar core is one node."""
-    weights, code = _operands(w1, b1, w2, b2, x0)
+    scalar core is one node.  ``lead`` as in ``_operands``: the coupling
+    operand is one (I, I) array whatever the lead."""
+    weights, code = _operands(w1, b1, w2, b2, x0, lead)
     i_dim, h_dim = w1.shape[-2:]
     if lattice is None:
         return weights, None, code, (i_dim, h_dim, 1, 0)
@@ -582,7 +587,8 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
                           row_map=None, *, n_steps: int, s_block: int = 256,
                           t_block: int = 128, unroll: int = 1,
                           activation: str = "relu",
-                          compute_unit: str = "vpu", lattice=None
+                          compute_unit: str = "vpu", lattice=None,
+                          coupling=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lane-concat gang launch: C stacked nets (``w1`` (C, I, H), ``b1``
     (C, H), ``w2`` (C, H, I), ``b2`` (C, I)), one launch.  ``x0`` (S, I)
@@ -594,7 +600,9 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     rows are unwritten.  None = every block computes every row.  Returns
     (n_steps // 2, S) uint32 words and the (S, I) state.  ``lattice`` (one
     descriptor for every core) takes the lattice form,
-    ``chaotic_ann_lattice_gang_bits``.
+    ``chaotic_ann_lattice_gang_bits``; ``compute_unit="mxu"`` the mxu
+    unit, ``chaotic_ann_mxu_gang_bits`` (a lattice group with its one
+    shared dense ``coupling``).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
     (K3).  Bound on the H100: operations, as K1: 2 steps of
@@ -605,11 +613,14 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     that core's weights in shared memory.  The TPU's scalar-prefetched
     maps become two small int32 arrays the CTA reads itself.
     """
+    _check_unit(compute_unit)
+    if compute_unit == "mxu":
+        return chaotic_ann_mxu_gang_bits(
+            w1, b1, w2, b2, x0, core_map, word_offset, row_map,
+            n_steps=n_steps, lattice=lattice, coupling=coupling,
+            s_block=s_block, t_block=t_block, unroll=unroll,
+            activation=activation)
     _check_activation(activation)
-    if compute_unit != "vpu":
-        raise NotImplementedError(
-            f"compute_unit={compute_unit!r}: the gang kernels are vpu only; "
-            f"see ROADMAP.md {TODO_GANG_MXU}")
     if lattice is not None:
         return chaotic_ann_lattice_gang_bits(
             w1, b1, w2, b2, x0, core_map, word_offset, row_map,
@@ -831,3 +842,76 @@ def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
 
 
 chaotic_ann_lattice_gang_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 on the mxu unit, scalar and lattice cores alike.
+# ---------------------------------------------------------------------------
+
+def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
+                              w2: torch.Tensor, b2: torch.Tensor,
+                              x0: torch.Tensor, core_map, word_offset=0,
+                              row_map=None, *, n_steps: int, lattice=None,
+                              coupling=None, s_block: int = 256,
+                              t_block: int = 128, unroll: int = 1,
+                              activation: str = "relu"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the mxu unit: the lane-concat gang of ``chaotic_ann_gang_bits``
+    for C scalar cores, or C lattice cores of ONE descriptor ``lattice``
+    with ONE dense (I, I) ``coupling`` operand shared by every lane block
+    (the farm's compat key pins the descriptor, and the coupling is a
+    function of it).  Preconditions, as ``chaotic_ann_mxu_bits``: lattice
+    weights block-diagonal and the coupling zero off its ring or torus
+    support (checked where they enter: the farm's gang plan and
+    ``params_from_numpy``).
+
+    Replaces the mxu form of
+    ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas`` (K3 with
+    the dot step, and K5's coupling dot for a lattice).  Bound on the H100:
+    operations at the f32 rate in both dtypes, as ``chaotic_ann_mxu_bits``
+    (4,096 ops a step at chen@ring32, 107 for 3-8-3), summed over the rows
+    each block really computes, against 4 bytes a word.  Design: the mxu
+    K1's thread per (lane, node), its weight blocks in registers, each dot
+    a forward ``__fmaf_rn`` chain in k order, so a core's words are bitwise
+    its mxu K1's; a CTA holds 128 / n_nodes lanes (128 for a scalar core)
+    and ``s_block`` is a multiple of that, so a CTA lies inside one lane
+    block and reads that block's core and rows.  K4 has no mxu form (the
+    stacked step is the vpu order), so every mxu gang is this launch.
+    """
+    _check_activation(activation)
+    n_cores = w1.shape[0]
+    cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
+                            t_block, unroll)
+    if x0.device.type == "cpu":
+        return ref.chaotic_ann_gang_bits_ref(w1, b1, w2, b2, x0, cmap,
+                                             n_steps, word_offset, rows,
+                                             activation, lattice, "mxu",
+                                             coupling)
+    weights, cpl, code, shape = _mxu_operands(w1, b1, w2, b2, x0, lattice,
+                                              coupling, lead=(n_cores,))
+    cta_lanes = _CTA_LANES // shape[2]
+    if s_block % cta_lanes:
+        raise ValueError(f"s_block {s_block} must be a multiple of "
+                         f"{cta_lanes}, the mxu kernel's lanes per CTA at "
+                         f"{shape[2]} node(s)")
+    n_lanes, n_rows = x0.shape[0], n_steps // 2
+    maps = _int32_on_card(np.stack([cmap, rows]), x0.device)
+    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
+                        device=x0.device)
+    state = torch.empty_like(x0)
+    if n_lanes == 0:
+        return words, state
+    lib = _lib()
+    rc = lib.chaotic_ann_mxu_gang_bits_launch(
+        x0.device.index, code, *shape, *(t.data_ptr() for t in weights),
+        None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
+        maps[0].data_ptr(), maps[1].data_ptr(), offsets.data_ptr(),
+        words.data_ptr(), state.data_ptr(), n_lanes, s_block, n_rows,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    _raise_on_mxu(lib, rc, "chaotic_ann_mxu_gang_bits", shape)
+    chaotic_ann_mxu_gang_bits.launches += 1
+    return words, state
+
+
+chaotic_ann_mxu_gang_bits.launches = 0

@@ -131,17 +131,6 @@ def _lattice_args(params: Dict[str, torch.Tensor], compute_unit: str):
     return lattice, params.get("coupling") if compute_unit == "mxu" else None
 
 
-def _check_ported(params: Dict[str, torch.Tensor], compute_unit: str,
-                  gang: bool = False):
-    """Raise for the forms not ported (a gang on the mxu unit, scalar or
-    lattice); else ``(lattice, coupling)``."""
-    if gang and compute_unit != "vpu":
-        raise NotImplementedError(
-            f"compute_unit={compute_unit!r} in a gang launch is not ported; "
-            f"see ROADMAP.md {chaotic_ann.TODO_GANG_MXU}")
-    return _lattice_args(params, compute_unit)
-
-
 def _weights(params):
     return params["w1"], params["b1"], params["w2"], params["b2"]
 
@@ -161,7 +150,7 @@ def chaotic_trajectory(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     """
     if config is not None:
         compute_unit = config.compute_unit
-    lattice, cpl = _check_ported(params, compute_unit)
+    lattice, cpl = _lattice_args(params, compute_unit)
     if backend == "ref":
         return ref.chaotic_ann_ref(*_weights(params), x0, n_steps, activation,
                                    lattice, compute_unit, cpl)
@@ -187,7 +176,7 @@ def chaotic_bits(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     """
     if config is not None:
         compute_unit = config.compute_unit
-    lattice, cpl = _check_ported(params, compute_unit)
+    lattice, cpl = _lattice_args(params, compute_unit)
     if backend == "ref":
         return ref.chaotic_ann_bits_ref(*_weights(params), x0, n_steps,
                                         word_offset, activation, lattice,
@@ -233,14 +222,16 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     later word rows are garbage that callers slice away.  ``config`` (a
     ``core.dse.Candidate``) overrides s_block/t_block/unroll/compute_unit.
     A lattice group (``params`` with the un-stacked ``lattice_meta`` of
-    its one descriptor) takes the lattice form of K3.  The JAX
+    its one descriptor) takes the lattice form of K3; an mxu group takes
+    K3's mxu form, a lattice group there with the un-stacked ``coupling``
+    every member shares.  The JAX
     signature's ``mesh``/``partitioner`` are not ported (ROADMAP.md queue
     1, 'Multi-device').
     """
     if config is not None:
         s_block, t_block = config.s_block, config.t_block
         unroll, compute_unit = config.unroll, config.compute_unit
-    lattice, _ = _check_ported(params, compute_unit, gang=True)
+    lattice, cpl = _lattice_args(params, compute_unit)
     w = _stacked_weights(params)
     if backend == "ref":
         rows = (chaotic_ann.gang_effective_rows(row_map, n_steps, t_block,
@@ -248,13 +239,14 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
                 if row_map is not None else None)
         return ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps,
                                              word_offset, rows, activation,
-                                             lattice)
+                                             lattice, compute_unit, cpl)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
     return chaotic_ann.chaotic_ann_gang_bits(
         *w, x0, core_map, word_offset, row_map, n_steps=n_steps,
         s_block=s_block, t_block=t_block, unroll=unroll,
-        activation=activation, compute_unit=compute_unit, lattice=lattice)
+        activation=activation, compute_unit=compute_unit, lattice=lattice,
+        coupling=cpl)
 
 
 def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
@@ -265,8 +257,10 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
                               compute_unit: str = "vpu",
                               config=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked gang draw for C EQUAL-size pools: ``x0`` (C, S, I), one pool
-    per core, ``word_offset`` a scalar or (C, S).  vpu groups only; a
-    lattice group takes the lattice form of K4.
+    per core, ``word_offset`` a scalar or (C, S).  vpu groups only, on
+    every backend (the stacked step is the vpu order; an mxu group takes
+    ``chaotic_bits_gang``, as in the JAX package); a lattice group takes
+    the lattice form of K4.
 
     ``row_map`` (optional, (C,)) freezes core ``c``'s state after exactly
     ``row_map[c]`` word rows; its words past them are garbage.  Returns
@@ -276,7 +270,10 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
     """
     if config is not None:
         compute_unit = config.compute_unit
-    lattice, _ = _check_ported(params, compute_unit, gang=True)
+    if compute_unit != "vpu":
+        raise ValueError("stacked gang launches support compute_unit='vpu' "
+                         "only; use chaotic_bits_gang for mxu")
+    lattice, _ = _lattice_args(params, compute_unit)
     w = _stacked_weights(params)
     if backend == "ref":
         return ref.chaotic_ann_gang_stacked_ref(*w, x0, n_steps, word_offset,

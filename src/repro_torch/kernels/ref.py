@@ -217,13 +217,14 @@ def chaotic_ann_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
 
 def _gang_scan(w1, b1, w2, b2, x0: torch.Tensor, lane_core: torch.Tensor,
                lane_rows: torch.Tensor, n_steps: int, offsets: torch.Tensor,
-               activation: str, lattice=None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               activation: str, lattice=None, compute_unit: str = "vpu",
+               coupling=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain gang scan over (N, I) lanes: lane ``l`` runs net
     ``lane_core[l]`` of the stacked weights for ``lane_rows[l]`` word rows
     and then holds its state (``torch.where``).  ``lattice`` (the static
     descriptor shared by every core) adds each core's coupling of its own
-    lanes.  ``offsets`` are (N,) int64.
+    lanes; on the mxu unit through the one (I, I) ``coupling`` operand
+    every core shares.  ``offsets`` are (N,) int64.
 
     It loops over the cores present and steps each core's lanes with that
     core's ``make_step``, never a net gathered per lane: at chen@ring32 a
@@ -247,7 +248,8 @@ def _gang_scan(w1, b1, w2, b2, x0: torch.Tensor, lane_core: torch.Tensor,
         if r_max == 0:
             continue
         step = make_step(w1[c], b1[c], w2[c], b2[c], dtype=x0.dtype,
-                         activation=activation, lattice=lattice)
+                         activation=activation, lattice=lattice,
+                         compute_unit=compute_unit, coupling=coupling)
         ragged = bool((rows < r_max).any())
         x = x0[idx]
         traj = torch.empty((2 * r_max,) + tuple(x.shape), dtype=x0.dtype,
@@ -279,13 +281,17 @@ def chaotic_ann_gang_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
                               w2: torch.Tensor, b2: torch.Tensor,
                               x0: torch.Tensor, core_map, n_steps: int,
                               word_offset=0, row_map=None,
-                              activation: str = "relu", lattice=None
+                              activation: str = "relu", lattice=None,
+                              compute_unit: str = "vpu", coupling=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K3, the lane-concat gang: stacked weights ``w1`` (C, I, H),
     ``b1`` (C, H), ``w2`` (C, H, I), ``b2`` (C, I); ``x0`` (S, I) split
     into ``len(core_map)`` equal lane blocks, block ``g`` running net
     ``core_map[g]``.  ``lattice`` (one descriptor for every core) takes
     K3's lattice form: each core's lanes coupled among their own nodes.
+    ``compute_unit="mxu"`` takes K3's mxu form, each core's step that of
+    the mxu K1 (``make_step``), a lattice group with its one dense
+    ``coupling`` operand, un-stacked.
 
     ``row_map`` (n_blocks,) is the word rows each block computes,
     *exactly* (values past ``n_steps // 2`` are clamped): the kernel's
@@ -305,7 +311,7 @@ def chaotic_ann_gang_bits_ref(w1: torch.Tensor, b1: torch.Tensor,
     return _gang_scan(w1, b1, w2, b2, x0, cmap.repeat_interleave(s_block),
                       rows.repeat_interleave(s_block), n_steps,
                       ops.word_offsets(word_offset, n_lanes, dev),
-                      activation, lattice)
+                      activation, lattice, compute_unit, coupling)
 
 
 def chaotic_ann_gang_stacked_ref(w1: torch.Tensor, b1: torch.Tensor,

@@ -20,10 +20,13 @@ space, so per-client words are bit-identical to the per-core path.
 lattice cores of the same descriptor (n_nodes, base_dim, topology,
 strength), never with scalar cores; a vpu lattice group runs the lattice
 forms of K3 and K4.  The plan carries ``coupling`` and ``lattice_meta``
-un-stacked from its first member, as the JAX plan does.  A lone lattice
-core on the mxu unit is served by its own service's solo launch; two mxu
-cores of one key (lattice or scalar) raise at flush, since K3's mxu form
-is not ported (ROADMAP.md queue 2, 'K3: the mxu form').
+un-stacked from its first member, as the JAX plan does.
+
+**mxu groups** (scalar or lattice; a lattice core given no config is one,
+since ``select_config`` puts ``chen@ring32`` on the mxu unit) always take
+the lane-concat layout: K4 has no mxu form, so ``stackable`` requires the
+vpu, and every mxu gang is one launch of K3's mxu form with the plan's
+one shared ``coupling``, as in the JAX farm.
 
 **The stacked layout differs from the JAX planner's.**  The JAX farm also
 requires the C-tall stack to fit VMEM (``stacked_gang_vmem_bytes <=

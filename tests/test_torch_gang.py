@@ -304,9 +304,21 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="core_map values"):
         chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 2], n_steps=4,
                                           s_block=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="compute_unit"):
         chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1], n_steps=4,
-                                          s_block=128, compute_unit="mxu")
+                                          s_block=128, compute_unit="tpu")
+    xm = torch.from_numpy(_x0(np.random.default_rng(5), (32, 3)))
+    before = chaotic_ann.chaotic_ann_mxu_gang_bits.launches
+    mxu_w, mxu_s = chaotic_ann.chaotic_ann_gang_bits(
+        *w, xm, [0, 1], n_steps=4, s_block=16, compute_unit="mxu")
+    assert chaotic_ann.chaotic_ann_mxu_gang_bits.launches == before  # CPU
+    for c in range(2):
+        want_w, want_s = chaotic_ann.chaotic_ann_bits(
+            *[t[c] for t in w], xm[16 * c:16 * (c + 1)], n_steps=4,
+            compute_unit="mxu")
+        assert torch.equal(ops.from_uint32(mxu_w[:, 16 * c:16 * (c + 1)]),
+                           ops.from_uint32(want_w))
+        assert torch.equal(mxu_s[16 * c:16 * (c + 1)], want_s)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1], n_steps=4,
                                           s_block=128, activation="tanh")
@@ -324,9 +336,12 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
         chaotic_ann.chaotic_ann_gang_bits(*w, x0.to("meta"), [0, 1],
                                           n_steps=4, s_block=128)
     params = dict(zip(KEYS, w))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.chaotic_bits_gang(params, x0, 4, core_map=[0, 1], s_block=128,
-                              compute_unit="mxu")
+    with pytest.raises(ValueError, match="compute_unit='vpu' only"):
+        ops.chaotic_bits_gang_stacked(params, xs, 4, compute_unit="mxu")
+    words, state = ops.chaotic_bits_gang(params, xm, 4, core_map=[0, 1],
+                                         s_block=16, compute_unit="mxu")
+    assert torch.equal(ops.from_uint32(words), ops.from_uint32(mxu_w))
+    assert torch.equal(state, mxu_s)
     with pytest.raises(ValueError, match="4-entry descriptor"):
         ops.chaotic_bits_gang_stacked(
             dict(params, lattice_meta=torch.tensor([2, 3, 0])), xs, 4)

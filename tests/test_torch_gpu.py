@@ -530,3 +530,153 @@ def test_lattice_gang_wrappers_reject_what_the_kernels_do_not_take():
         chaotic_ann.chaotic_ann_gang_bits(*w, x0[:4 * 8], [0, 1, 2, 3],
                                           n_steps=4, s_block=8,
                                           lattice=lattice)
+
+
+# K3's mxu form at every MXU_SHAPES entry: the scalar gangs (3-8, 4-16) and
+# the four 3-8 bases as lattices of each compiled descriptor
+MXU_GANGS = ("3-8", "4-16", "ring8", "grid8", "ring32", "grid32")
+
+
+def _mxu_gang(gang):
+    """Stacked weights on the card, the lattice descriptor and the one
+    shared coupling operand (None, None for a scalar gang)."""
+    if gang in GANGS:
+        return _gang_weights(gang), None, None
+    w, lattice = _lattice_gang(gang)
+    cpl = default_params(system=f"chen@{gang}")["coupling"]
+    return w, lattice, torch.from_numpy(cpl).cuda()
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["padded", "ragged"])
+@pytest.mark.parametrize("gang", MXU_GANGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mxu_gang_kernel_bitwise_vs_plain_on_card(gang, dtype, ragged):
+    """mxu K3 (six blocks of 128 lanes, a CTA's worth for a scalar core;
+    demands of 0, odd and above the launch's rows; offsets that wrap)
+    against its plain version: the words each block asked for, and the
+    final states, bitwise; one launch of the mxu K3 and no other gang
+    kernel."""
+    _need_card()
+    w, lattice, cpl = _mxu_gang(gang)
+    n_cores, i_dim = w[0].shape[0], w[0].shape[1]
+    rng = np.random.default_rng(38)
+    n_steps, s_block, n_blocks = 32, 128, 6
+    core_map = np.arange(n_blocks) % n_cores
+    row_map = np.array([0, 3, 16, 9, 40, 1]) if ragged else None
+    x0 = torch.from_numpy(_x0_np(rng, (n_blocks * s_block, i_dim))).to(
+        "cuda", dtype)
+    off = torch.from_numpy(_off_np(rng, n_blocks * s_block)).to("cuda")
+    names = ("chaotic_ann_mxu_gang_bits", "chaotic_ann_gang_bits",
+             "chaotic_ann_lattice_gang_bits", "chaotic_ann_mxu_bits")
+    n0 = {n: getattr(chaotic_ann, n).launches for n in names}
+    words, state = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, off, row_map, n_steps=n_steps, s_block=s_block,
+        t_block=8, unroll=2, compute_unit="mxu", lattice=lattice,
+        coupling=cpl)
+    assert {n: getattr(chaotic_ann, n).launches - n0[n] for n in names} == {
+        "chaotic_ann_mxu_gang_bits": 1, "chaotic_ann_gang_bits": 0,
+        "chaotic_ann_lattice_gang_bits": 0, "chaotic_ann_mxu_bits": 0}
+    rows = (chaotic_ann.gang_effective_rows(row_map, n_steps, 8, 2)
+            if ragged else np.full(n_blocks, n_steps // 2))
+    rw, rs = ref.chaotic_ann_gang_bits_ref(
+        *w, x0, core_map, n_steps, off, rows, lattice=lattice,
+        compute_unit="mxu", coupling=cpl)
+    torch.cuda.synchronize()
+    lane_rows = torch.from_numpy(np.repeat(rows, s_block)).cuda()
+    assert torch.equal(_masked_rows(words, lane_rows),
+                       _masked_rows(rw, lane_rows))
+    _assert_bitwise(state, rs)
+
+
+def test_mxu_farm_on_card_never_reaches_the_plain_version(monkeypatch):
+    """Two no-config chen@ring32-descriptor cores (the mxu unit) and two
+    3-8-3 cores on an mxu config: each group one mxu K3 launch per flush,
+    a uniform flush and one with unequal pools, each equal to the CPU
+    farm's words (the plain versions); no other kernel launched but the
+    new client's burn-in (one mxu K1)."""
+    _need_card()
+    from repro_torch.core.dse import select_config
+    from repro_torch.serve.farm import OscillatorFarm
+    scal = select_config(3, 8, s_total=128, dtype=torch.bfloat16, unit="mxu")
+
+    def farm_on(device):
+        farm = OscillatorFarm(device=device)
+        for name in ("chen@ring32", "lorenz@ring32"):
+            farm.add_core(name, default_params(system=name),
+                          dtype=torch.bfloat16, burn_in=2)
+        for name in ("chen", "rossler"):
+            farm.add_core(name, default_params(system=name), config=scal,
+                          dtype=torch.bfloat16, burn_in=2)
+        for i, core in enumerate(farm.cores):
+            farm.register(core, "t", seed=i)
+        return farm
+
+    def serve(farm):
+        """A uniform flush, then one more client on lorenz@ring32."""
+        for core in farm.cores:
+            farm.request(core, "t", 512)
+        out = [farm.flush()]
+        farm.register("lorenz@ring32", "u", seed=9)
+        for core in farm.cores:
+            for client in farm.services[core].clients:
+                farm.request(core, client, 512)
+        return out + [farm.flush()]
+
+    want = serve(farm_on("cpu"))
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    farm = farm_on("cuda")
+    assert all(s.config.compute_unit == "mxu" for s in farm.services.values())
+    for name in ("chaotic_ann_gang_bits_ref", "chaotic_ann_gang_stacked_ref",
+                 "chaotic_ann_bits_ref", "chaotic_ann_ref"):
+        monkeypatch.setattr(ref, name, forbidden)
+    names = ("chaotic_ann_mxu_gang_bits", "chaotic_ann_mxu_bits",
+             "chaotic_ann_gang_bits", "chaotic_ann_gang_stacked",
+             "chaotic_ann_lattice_gang_bits",
+             "chaotic_ann_lattice_gang_stacked")
+    n0 = {n: getattr(chaotic_ann, n).launches for n in names}
+    for g, e in zip(serve(farm), want):
+        assert set(g) == set(e)
+        for core in e:
+            for client in e[core]:
+                np.testing.assert_array_equal(g[core][client],
+                                              e[core][client])
+    got = {n: getattr(chaotic_ann, n).launches - n0[n] for n in names}
+    assert got == dict.fromkeys(names, 0) | {"chaotic_ann_mxu_gang_bits": 4,
+                                             "chaotic_ann_mxu_bits": 1}
+
+
+def test_mxu_gang_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    w, lattice, cpl = _mxu_gang("ring32")
+    x0 = torch.zeros(4 * 8, 96, device="cuda")
+    kw = dict(n_steps=4, compute_unit="mxu", lattice=lattice)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0[:4 * 2], [0, 1, 2, 3],
+                                          s_block=2, coupling=cpl, **kw)
+    with pytest.raises(ValueError, match="coupling"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1, 2, 3], s_block=8,
+                                          **kw)
+    with pytest.raises(ValueError, match="coupling"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1, 2, 3], s_block=8,
+                                          coupling=cpl[:48, :48], **kw)
+    with pytest.raises(ValueError, match="coupling"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1, 2, 3], s_block=8,
+                                          coupling=cpl.cpu(), **kw)
+    with pytest.raises(ValueError, match=r"w1 must be"):
+        chaotic_ann.chaotic_ann_gang_bits(w[0].cpu(), *w[1:], x0,
+                                          [0, 1, 2, 3], s_block=8,
+                                          coupling=cpl, **kw)
+    with pytest.raises(ValueError, match="CUDA"):      # no silent fallback
+        chaotic_ann.chaotic_ann_gang_bits(*w, x0.to("meta"), [0, 1, 2, 3],
+                                          s_block=8, coupling=cpl, **kw)
+    ws = _gang_weights("3-8")
+    xs = torch.zeros(4 * 64, 3, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        chaotic_ann.chaotic_ann_gang_bits(*ws, xs, [0, 1, 2, 3], n_steps=4,
+                                          s_block=64, compute_unit="mxu")
+    with pytest.raises(ValueError, match="vpu"):
+        chaotic_ann.chaotic_ann_gang_stacked(*ws, xs.reshape(4, 64, 3),
+                                             n_steps=4, compute_unit="mxu")

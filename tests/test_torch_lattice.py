@@ -280,10 +280,11 @@ def test_ops_and_module_route_lattices():
 
 
 def test_unported_lattice_forms_raise():
-    """A lattice gang on the mxu unit, or with a non-relu activation, names
-    its ROADMAP.md item; an mxu lattice is routed with its coupling
-    operand and refused without it; the plain dense loop refuses a
-    descriptor that does not fit."""
+    """A lattice gang with a non-relu activation names its ROADMAP.md item;
+    an mxu lattice is routed with its coupling operand and refused without
+    it, in a lattice gang too (K3's mxu form, its shared operand taken from
+    the params), and the stacked gang refuses the mxu unit as JAX does; the
+    plain dense loop refuses a descriptor that does not fit."""
     p = params_from_numpy(default_params(system="chen@ring8"), device="cpu")
     x0 = torch.from_numpy(seeds(np.random.default_rng(36), 8, 24))
     words, state = ops.chaotic_bits(p, x0, 4, compute_unit="mxu")
@@ -300,10 +301,16 @@ def test_unported_lattice_forms_raise():
     x0 = torch.zeros(256, 24)
     gang = {k: p[k][None] for k in KEYS}
     gang["lattice_meta"] = p["lattice_meta"]
-    with pytest.raises(NotImplementedError, match="K3: the mxu form"):
-        ops.chaotic_bits_gang(gang, x0, 4, core_map=[0], s_block=256,
+    with pytest.raises(ValueError, match="coupling"):
+        ops.chaotic_bits_gang(gang, x0[:8], 4, core_map=[0], s_block=8,
                               compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="K3: the mxu form"):
+    gang["coupling"] = p["coupling"]
+    g_words, g_state = ops.chaotic_bits_gang(gang, x0[:8], 4, core_map=[0],
+                                             s_block=8, compute_unit="mxu")
+    want_w, want_s = ops.chaotic_bits(p, x0[:8], 4, compute_unit="mxu")
+    assert torch.equal(ops.from_uint32(g_words), ops.from_uint32(want_w))
+    assert torch.equal(g_state, want_s)
+    with pytest.raises(ValueError, match="compute_unit='vpu' only"):
         ops.chaotic_bits_gang_stacked(gang, x0[None], 4, compute_unit="mxu")
     with pytest.raises(NotImplementedError, match="non-relu"):
         ops.chaotic_bits_gang(gang, x0, 4, core_map=[0], s_block=256,

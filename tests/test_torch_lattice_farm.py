@@ -357,8 +357,9 @@ def test_ring_and_grid_lattice_cores_never_gang():
 
 def test_mxu_lattice_cores_alone_served_and_as_a_gang_refused():
     """On the mxu unit a lone lattice core is served by its own service's
-    solo launch; two lattice cores of one key raise at flush, naming the
-    ROADMAP.md item that ports K3's mxu form."""
+    solo launch; two lattice cores of one key, once refused at flush, now
+    gang through K3's mxu form (one lane-concat launch), each delivering
+    the words of a standalone service."""
     mxu = lattice_config("ring", 2, "mxu")[1]
 
     def farm_of(names):
@@ -375,13 +376,16 @@ def test_mxu_lattice_cores_alone_served_and_as_a_gang_refused():
                         lanes_per_client=8, burn_in=2, config=mxu,
                         dtype=torch.bfloat16, device="cpu")
     alone.register("t", seed=3)
-    np.testing.assert_array_equal(one.draw("a", "t", 32),
-                                  alone.draw("t", 32))
+    want = alone.draw("t", 32)
+    np.testing.assert_array_equal(one.draw("a", "t", 32), want)
     two = farm_of(["a", "b"])
     for core in two.cores:
         two.request(core, "t", 32)
-    with pytest.raises(NotImplementedError, match="K3: the mxu form"):
-        two.flush()
+    out = two.flush()
+    assert two.gang_launches == 1
+    assert {p["mode"] for p in two._sched._plans.values()} == {"concat"}
+    for core in two.cores:
+        np.testing.assert_array_equal(out[core]["t"], want)
 
 
 def test_stacked_layout_has_no_vmem_cliff_unlike_the_jax_planner():

@@ -99,6 +99,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    lattice launch against one plain run on each core's first and last
    lane block; the mxu K3's times at F1 and F3, bounds, and the
    ``gang=False`` cost (four solo mxu K1 launches over F1's lanes).
+10. The paper flow, for a tanh and a sigmoid net.  First the kernels'
+   tanh and sigmoid alone (``chaotic_ann.activation``) against the plain
+   formulas, bitwise, on every finite bf16 value and 2**24 f32 inputs.
+   Then ``make_dataset("chen", 50_000)`` (RK-4 on the card; timed on the
+   host's CPU too, and the two datasets compared) and, per
+   activation: ``train`` on the card (3-8-3, 60 epochs, lr 3e-3, batch
+   256; MSE, MAE, RMSE, R2 and seconds an epoch printed); ``select(3, 8,
+   ...)`` min_latency and lowest_cost, each held to the JAX package's
+   ``Candidate``; ``generate_core`` for both into a temporary directory
+   and each ``testbench.py`` run on the card in its own process (a
+   non-zero exit fails the phase).  The path, each part with the launch
+   counters zeroed just before it and read just after: 2**20 words of
+   ``ChaoticStream.from_trained`` (K1, f32; NIST subset printed, not
+   gated), the trained net iterated 2,000 steps on the card (K2, f32;
+   bounded), the min-latency core's ``generate`` and ``generate_bits``
+   (K2, K1, bf16); each part's output is then held bitwise against the
+   same call on the plain path (``backend="ref"``) on the card.  Then the
+   tanh/sigmoid K1 and K2 bitwise against their
+   plain versions at each core's ``s_block`` and at the served shape
+   (65,536 lanes, 1,024 steps), timed there beside relu's K1 and the
+   bounds.  tanh's test MSE must be below sigmoid's (Table II's order).
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -193,6 +214,32 @@ MXU_GANG_T_BLOCK, MXU_GANG_UNROLL = 8, 2         # row granularity 2
 # default lattice gang, mxu) beside the four 3-8-3 registry nets on the
 # mxu unit; F2's cold cores draw MXU_COLD_WORDS
 MXU_COLD_WORDS = 256
+# phase 10, the paper flow: the quickstart's chen dataset, trained 60
+# epochs (the quickstart trains 200; 60 is the JAX activation-ordering
+# test's recipe) with tanh and with sigmoid; the two solutions the JAX
+# package's DSE selects for a 3-8-3 net (a CPU run of repro.core.dse.select,
+# held in tests/test_torch_paper_flow.py too); 2**20 words a stream; the
+# kernels checked and timed at the served shape (phase 3's 65,536 lanes,
+# 1,024 steps) and at each generated core's s_block
+PAPER_ACTIVATIONS = ("tanh", "sigmoid")
+PAPER_SAMPLES = 50_000
+PAPER_EPOCHS = 60
+PAPER_SELECT = {
+    "min_latency": dict(i_dim=3, h_dim=8, p=5, compute_unit="vpu",
+                        dtype_bytes=2, unroll=8, t_block=256, n_nodes=1),
+    "lowest_cost": dict(i_dim=3, h_dim=8, p=0, compute_unit="vpu",
+                        dtype_bytes=2, unroll=1, t_block=32, n_nodes=1)}
+PAPER_CHECK_LANES, PAPER_CHECK_STEPS = 65_536, 1_024
+PAPER_CORE_STEPS = 512
+ATTRACTOR_LANES, ATTRACTOR_STEPS = 16, 2_000
+ACT_F32_INPUTS = 1 << 24
+# ops per hidden unit that tanh and sigmoid add to a step (relu's select
+# is not counted in step_flops), a fused multiply-add counted as 2:
+# tanh: clamp 2, x^2 1, 9 FMAs, x * P 1, divide 1, |x| < 0.0004 1, select 1;
+# sigmoid: negate 1, exp (clamp 2, 1 + 2 + 5 + 1 FMAs, floor 1, r^2 1,
+# + 1 1, 2^fx 1, the f64 scaling 1, flush 1), 1 + e 1, divide 1, flush 1.
+# These are f32 ops in both state dtypes (bf16 takes the f32 formula).
+ACT_OPS = {"relu": 0, "tanh": 25, "sigmoid": 30}
 
 
 class SmokeFailure(Exception):
@@ -250,8 +297,11 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def bound(flops: float, n_bytes: float, tag: str):
-    ops_ms = flops / PEAK_FLOPS[tag] * 1e3
+def bound(flops: float, n_bytes: float, tag: str, f32_flops: float = 0.0):
+    """The least time for ``flops`` at the ``tag`` dtype's rate plus
+    ``f32_flops`` at the f32 rate, or for ``n_bytes`` at HBM bandwidth,
+    whichever is larger."""
+    ops_ms = (flops / PEAK_FLOPS[tag] + f32_flops / PEAK_FLOPS["f32"]) * 1e3
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -1497,6 +1547,297 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
     return path, t
 
 
+def run_testbenches(pkgs) -> None:
+    """Each generated core's ``testbench.py`` in its own process on the
+    card, all started together; every process is waited for (killed on a
+    failure), and any non-zero exit fails the phase."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [(pkg, subprocess.Popen(
+        [sys.executable, str(pkg / "testbench.py"), "cuda"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for pkg in pkgs]
+    try:
+        for pkg, proc in procs:
+            out, err = proc.communicate(timeout=300)
+            print(f"testbench {pkg.name} (exit {proc.returncode}): "
+                  f"{out.strip() or err.strip()[-800:]}")
+            check(proc.returncode == 0 and "TESTBENCH PASS" in out,
+                  f"testbench of {pkg.name} failed on the card")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_activation_hook(torch, device) -> None:
+    """The kernels' tanh and sigmoid alone (``chaotic_ann.activation``)
+    against the plain formulas: every finite bf16 pattern, and 2**24
+    seeded f32 inputs over the formulas' range with their edges."""
+    from repro_torch.kernels import chaotic_ann, ref
+    pat = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    xb = pat.view(torch.bfloat16).to(device)
+    xb = xb[torch.isfinite(xb.float())]
+    rng = np.random.default_rng(10)
+    edges = np.array([0.0004, 7.99881172180175781, 88.3762626647949, 87.34,
+                      87.5, 88.0, 103.0, 1e-40, 1.4e-45, 0.0], np.float32)
+    edges = np.concatenate([edges, -edges])
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf))])
+    n = ACT_F32_INPUTS
+    x = torch.from_numpy(np.concatenate([
+        rng.normal(0.0, 3.0, n // 2), rng.uniform(-110.0, 110.0, n // 4),
+        rng.uniform(-1e-3, 1e-3, n - n // 2 - n // 4), edges]
+    ).astype(np.float32)).to(device)
+    for name in PAPER_ACTIVATIONS:
+        for xs, tag in ((xb, "bf16"), (x, "f32")):
+            got = chaotic_ann.activation(xs, name)
+            want = ref.ACTIVATIONS[name](xs)
+            e = max_abs_err(torch, got, want)
+            print(f"check device {name} {tag} on {xs.numel()} inputs: "
+                  f"max_abs_err={e}")
+            check(e == 0.0, f"device {name} != plain ({tag})")
+
+
+def phase_paper_flow(torch, device, card, errs):
+    """Phase 10, the paper's flow for tanh and sigmoid nets: the chen
+    dataset, training on the card, the DSE's two solutions, a generated
+    core and its testbench for each, 2**20 words from
+    ``ChaoticStream.from_trained``, and the NIST subset; then the scalar
+    vpu K1/K2 with that activation against their plain versions and timed.
+    Returns ({(kernel, activation, tag): path launches}, {...: times})."""
+    import importlib
+    import tempfile
+    from repro_torch.core.ann import (AnnConfig, extract_parameters,
+                                      params_from_numpy, train)
+    from repro_torch.core.chaotic import make_dataset
+    from repro_torch.core.codegen import generate_core
+    from repro_torch.core.dse import Candidate, select
+    from repro_torch.kernels import chaotic_ann, ops, ref
+    from repro_torch.prng.nist import run_nist_subset
+    from repro_torch.prng.stream import ChaoticStream
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = make_dataset("chen", n_samples=PAPER_SAMPLES, device=device)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_cpu = make_dataset("chen", n_samples=PAPER_SAMPLES, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    same = bool(np.array_equal(ds.x_train, ds_cpu.x_train))
+    print(f"paper flow: chen dataset, {PAPER_SAMPLES} samples, RK-4 on the "
+          f"card {t_card:.2f} s, on the host's CPU {t_cpu:.2f} s (the same "
+          f"pairs: {same}); scale {ds.scale}, offset {ds.offset} (CPU: "
+          f"{ds_cpu.scale}, {ds_cpu.offset}); card {card}")
+    check(np.allclose(ds.scale, ds_cpu.scale, rtol=0.1)
+          and np.abs(ds.offset - ds_cpu.offset).max()
+          <= 0.1 * ds_cpu.scale.min(),
+          "the card's and the CPU's datasets span different attractor boxes")
+    del ds_cpu
+    cands = {}
+    for mode, want in PAPER_SELECT.items():
+        cands[mode] = select(3, 8, mode)
+        print(f"paper flow: select(3, 8, {mode!r}) = {cands[mode]}")
+        check(cands[mode] == Candidate(**want),
+              f"select {mode}: {cands[mode]} is not the JAX package's")
+    launches, times, mse = {}, {}, {}
+    tmp = tempfile.TemporaryDirectory(prefix="paper_flow_")
+    sys.path.insert(0, tmp.name)
+    try:
+        for act in PAPER_ACTIVATIONS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, hist = train(AnnConfig(dim=3, hidden=8, activation=act),
+                                 ds, epochs=PAPER_EPOCHS, batch_size=256,
+                                 lr=3e-3, device=device)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            m = hist["test_metrics"]
+            mse[act] = m["mse"]
+            print(f"paper flow {act}: trained {PAPER_EPOCHS} epochs on the "
+                  f"card in {t_train:.1f} s ({t_train / PAPER_EPOCHS:.3f} s "
+                  f"an epoch); MSE={m['mse']:.4g} MAE={m['mae']:.4g} "
+                  f"RMSE={m['rmse']:.4g} R2={m['r2']:.6f}; card {card}")
+            check(np.isfinite(list(m.values())).all() and m["r2"] > 0.99,
+                  f"{act} training: {m}")
+            bundle = extract_parameters(params)
+            pkgs = [generate_core(f"chen_383_{act}_{mode}", tmp.name,
+                                  params=bundle, candidate=cand,
+                                  system="chen", activation=act,
+                                  scale=ds.scale, offset=ds.offset)
+                    for mode, cand in cands.items()]
+            t0 = time.perf_counter()
+            run_testbenches(pkgs)
+            print(f"paper flow {act}: testbenches "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+            # the path, each part with the counters zeroed just before it
+            # and read just after: the stream (K1 f32), the trained net
+            # iterated on the card (K2 f32), the min-latency core (bf16)
+            def counted(fn, name, tag):
+                zero_launches(chaotic_ann)
+                out = fn()
+                torch.cuda.synchronize()
+                got = read_launches(chaotic_ann)
+                check(got[name] > 0 and sum(got.values()) == got[name],
+                      f"{act} {tag}: the path must launch {name} only, "
+                      f"got {got}")
+                launches[(name, act, tag)] = got[name]
+                return out
+
+            stream = ChaoticStream.from_trained(bundle, activation=act,
+                                                device=device)
+            words = counted(lambda: stream.bits(NIST_WORDS).numpy(),
+                            "chaotic_ann_bits", "f32")
+            path_out = {"stream words": (words, ChaoticStream.from_trained(
+                bundle, activation=act, device=device,
+                backend="ref").bits(NIST_WORDS).numpy())}
+            res = run_nist_subset(words, alpha=NIST_ALPHA)
+            print(f"nist {act} trained chen on {words.size} words of "
+                  f"ChaoticStream.from_trained (not gated): "
+                  + ", ".join(f"{k} p={v['p_value']:.4g}"
+                              for k, v in res.items()))
+            p_dev = params_from_numpy(bundle, device=device)
+            x_att = torch.as_tensor(ds.x_test[:ATTRACTOR_LANES],
+                                    device=device)
+            traj = counted(lambda: ops.chaotic_trajectory(
+                p_dev, x_att, ATTRACTOR_STEPS, activation=act),
+                "chaotic_ann_traj", "f32")
+            amax = float(traj.abs().max())
+            std = float(traj[-500:].std())
+            print(f"paper flow {act}: {ATTRACTOR_STEPS} autonomous steps "
+                  f"of {ATTRACTOR_LANES} lanes on the card: max|x| "
+                  f"{amax:.4g}, std of the last 500 {std:.4g}")
+            check(bool(torch.isfinite(traj).all()) and amax < 5.0,
+                  f"{act}: the trained net leaves the attractor box")
+            path_out["attractor"] = (traj, ops.chaotic_trajectory(
+                p_dev, x_att, ATTRACTOR_STEPS, activation=act,
+                backend="ref"))
+            core = importlib.import_module(f"chen_383_{act}_min_latency")
+            x0 = np.random.default_rng(3).uniform(
+                -0.5, 0.5, (core.S_BLOCK, 3)).astype(np.float32)
+            path_out["core generate"] = (
+                counted(lambda: core.generate(x0, PAPER_CORE_STEPS,
+                                              device=device),
+                        "chaotic_ann_traj", "bf16"),
+                core.generate(x0, PAPER_CORE_STEPS, backend="ref",
+                              device=device))
+            path_out["core generate_bits"] = (
+                counted(lambda: core.generate_bits(
+                    x0, 2 * PAPER_CORE_STEPS, device=device),
+                    "chaotic_ann_bits", "bf16"),
+                core.generate_bits(x0, 2 * PAPER_CORE_STEPS, backend="ref",
+                                   device=device))
+            for what, (got, want) in path_out.items():
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                e = max(max_abs_err(torch, torch.as_tensor(g),
+                                    torch.as_tensor(w))
+                        for g, w in zip(got, want))
+                shape = tuple(np.shape(got[0]))
+                print(f"check {act} path: {what} {shape} against the plain "
+                      f"path: max_abs_err={e}")
+                check(e == 0.0, f"{act} path: {what} != plain")
+            del path_out
+
+            # the kernels against their plain versions, and timed
+            w = [p_dev[k] for k in ("w1", "b1", "w2", "b2")]
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                for mode in cands:
+                    s_block = cands[mode].s_block
+                    xc = torch.as_tensor(np.random.default_rng(4).uniform(
+                        -0.5, 0.5, (s_block, 3)).astype(np.float32),
+                        device=device).to(dtype)
+                    t_k = chaotic_ann.chaotic_ann_traj(
+                        *w, xc, n_steps=PAPER_CORE_STEPS, activation=act)
+                    w_k, s_k = chaotic_ann.chaotic_ann_bits(
+                        *w, xc, 5, n_steps=PAPER_CORE_STEPS, activation=act)
+                    t_p = ref.chaotic_ann_ref(*w, xc, PAPER_CORE_STEPS, act)
+                    e = max(max_abs_err(torch, t_k, t_p),
+                            max_abs_err(torch, w_k, ops.pack_words(t_p, 5)),
+                            max_abs_err(torch, s_k, t_p[-1]))
+                    print(f"check {act} {tag} S={s_block} steps="
+                          f"{PAPER_CORE_STEPS} ({mode} core's s_block): "
+                          f"K1, K2 max_abs_err={e}")
+                    check(e == 0.0, f"{act} K1/K2 != plain ({tag}, "
+                                    f"S={s_block})")
+                times[(act, tag)] = paper_kernel_times(
+                    torch, device, w, act, dtype, tag, card, errs)
+            sys.modules.pop(f"chen_383_{act}_min_latency", None)
+    finally:
+        sys.path.remove(tmp.name)
+        tmp.cleanup()
+    print(f"paper flow: test MSE tanh {mse['tanh']:.4g}, sigmoid "
+          f"{mse['sigmoid']:.4g} (the JAX test's ordering: tanh < sigmoid)")
+    check(mse["tanh"] < mse["sigmoid"],
+          f"Table II ordering tanh < sigmoid fails: {mse}")
+    return launches, times
+
+
+def paper_kernel_times(torch, device, w, act, dtype, tag, card, errs):
+    """tanh/sigmoid K1 and K2 at the served shape (65,536 lanes, 1,024
+    steps) against one plain run, bitwise, then their device times, relu's
+    K1 beside them on the same weights and inputs, the plain times and
+    the bounds."""
+    from repro_torch.kernels import chaotic_ann, ops, ref
+    n, steps = PAPER_CHECK_LANES, PAPER_CHECK_STEPS
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32),
+                        device=device).to(dtype)
+    off_np = rng.integers(0, 1 << 32, n, dtype=np.int64)
+    off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)     # wrap mid-run
+    off = torch.as_tensor(off_np, device=device)
+    kw = dict(n_steps=steps, activation=act)
+    traj_p, plain_traj_ms = timed_once(
+        torch, lambda: ref.chaotic_ann_ref(*w, x, steps, act))
+    words_p, pack_ms = timed_once(torch, lambda: ops.pack_words(traj_p, off))
+    words_k, state_k = chaotic_ann.chaotic_ann_bits(*w, x, off, **kw)
+    e_bits = max(max_abs_err(torch, words_k, words_p),
+                 max_abs_err(torch, state_k, traj_p[-1]))
+    traj_k = chaotic_ann.chaotic_ann_traj(*w, x, **kw)
+    e_traj = max_abs_err(torch, traj_k, traj_p)
+    del traj_k, words_k, words_p
+    print(f"check {act} {tag} S={n} steps={steps} (the served shape): "
+          f"chaotic_ann_bits max_abs_err={e_bits} chaotic_ann_traj "
+          f"max_abs_err={e_traj} max|x|={traj_p.float().abs().max().item():.6g}")
+    check(e_bits == 0.0, f"{act} chaotic_ann_bits != plain ({tag})")
+    check(e_traj == 0.0, f"{act} chaotic_ann_traj != plain ({tag})")
+    for name, e in (("chaotic_ann_bits", e_bits), ("chaotic_ann_traj", e_traj)):
+        errs[(name, act, tag)] = e
+    del traj_p
+    t = {"bits_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+             *w, x, off, **kw), reps=5, warmup=2),
+         "relu_bits_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+             *w, x, off, n_steps=steps), reps=5, warmup=2),
+         "traj_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_traj(
+             *w, x, **kw), reps=3, warmup=1),
+         "traj_plain_ms": plain_traj_ms,
+         "bits_plain_ms": plain_traj_ms + pack_ms}
+    item, i_dim, h_dim = x.element_size(), 3, 8
+    base, extra = step_flops(i_dim, h_dim), h_dim * ACT_OPS[act]
+    weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim) * item
+    n_out = steps // 2 * n
+    t["bits_bound"] = bound(n_out * 2 * base,
+                            2 * n * i_dim * item + n * 4 + weight_bytes
+                            + n_out * 4, tag, f32_flops=n_out * 2 * extra)
+    t["traj_bound"] = bound(steps * n * base,
+                            n * i_dim * item + weight_bytes
+                            + steps * n * i_dim * item, tag,
+                            f32_flops=steps * n * extra)
+    t["ops_step"] = base + extra
+    print(f"device times {act} {tag} (S={n}, n_steps={steps}, {base} + "
+          f"{extra} ops a step): chaotic_ann_bits {t['bits_ms']:.4f} ms "
+          f"(relu's {t['relu_bits_ms']:.4f} ms in this call; bound "
+          f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}); plain "
+          f"{t['bits_plain_ms']:.1f} ms; chaotic_ann_traj "
+          f"{t['traj_ms']:.4f} ms (bound {t['traj_bound'][0]:.4f} ms by "
+          f"{t['traj_bound'][1]}); plain {t['traj_plain_ms']:.1f} ms; "
+          f"card {card}")
+    return t
+
+
 def nist3(words: np.ndarray):
     """p-values of the online-gate subset, and the tests under alpha."""
     from repro_torch.prng.nist import _to_bits, block_frequency, monobit, runs
@@ -1656,6 +1997,26 @@ def main() -> int:
                      f"shared coupling dot :664-667)"),
         })
     phase_done("mxu farm path")
+    phase_activation_hook(torch, device)
+    phase_done("activation check")
+    launches, times = phase_paper_flow(torch, device, card, errs)
+    for (name, act, tag), n in sorted(launches.items()):
+        key = "bits" if name == "chaotic_ann_bits" else "traj"
+        t = times[(act, tag)]
+        rows.append({
+            "name": f"{name}/{act}/{tag}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+            "replaces": REPLACES[name], "path": "paper-flow",
+            "launches": n, "max_abs_err": errs[(name, act, tag)],
+            "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+            "bound_ms": t[f"{key}_bound"][0],
+            "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+            "ops_step": t["ops_step"],
+            "relu_ms": t["relu_bits_ms"] if key == "bits" else None,
+            "form": (f"vpu scalar, {act} (_activation, "
+                     f"src/repro/kernels/chaotic_ann.py:44-45)"),
+        })
+    phase_done("paper flow")
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
     print(f"card: {card}")

@@ -1,1 +1,2 @@
-"""Oscillator model containers and the kernel configuration record."""
+"""Oscillator systems and nets, training, design-space exploration and
+core generation (the paper's flow), and the kernel configuration record."""

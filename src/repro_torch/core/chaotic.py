@@ -1,17 +1,270 @@
-"""Block-coupled oscillator lattices: names, topology and the coupling
-operator (numpy copy of the lattice part of ``repro/core/chaotic.py``).
+"""Chaotic ODE systems, the RK-4 reference integrator, the training
+dataset (paper Eqs. 1-5, section III-A), and block-coupled oscillator
+lattices: names, topology and the coupling operator.  Port of
+``repro/core/chaotic.py``.
+
+The five systems are the JAX package's, each ``f`` written with the same
+expressions on torch tensors.  ``integrate`` steps RK-4 in a Python loop
+(the JAX package scans it under ``jit``) on x0's device; the dataset's
+trajectory is integrated on the card unless the caller asks for the CPU,
+and normalized on the host with numpy exactly as the JAX package does.  A long float32 trajectory of a chaotic system depends on
+the last bit of every op, so the two packages' datasets agree in their
+attractor box (``scale``/``offset``), not sample by sample.
 
 A lattice couples ``n_nodes`` copies of a base oscillator diffusively on a
 ring or a P x Q torus; it is addressed everywhere as
-``<base>@<ring|grid><n>`` (e.g. ``chen@ring32``).  The ODE systems, the
-RK-4 integrator and ``lattice()`` as an ODE system are not ported
-(ROADMAP.md queue 1, 'Paper flow').
+``<base>@<ring|grid><n>`` (e.g. ``chen@ring32``).  ``lattice()`` as an ODE
+system is not ported (ROADMAP.md queue 1, 'Paper flow').
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Callable, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaoticSystem:
+    """A system of N autonomous ODEs dX/dt = f(X) (paper Eq. 1).
+
+    ``n_mul_dynamic`` / ``n_add_dynamic`` are the dynamic-term operation
+    counts of ``f`` used by the paper's Eq. 4 RK-4 cost model.
+    """
+
+    name: str
+    dim: int
+    f: Callable[[torch.Tensor], torch.Tensor]
+    n_mul_dynamic: int
+    n_add_dynamic: int
+    # A point near the attractor, used as the default trajectory seed.
+    x0: Tuple[float, ...] = ()
+    # Integration step that keeps RK-4 stable on the attractor.
+    dt: float = 0.01
+
+    def __post_init__(self):
+        if not self.x0:
+            object.__setattr__(self, "x0", tuple([0.1] * self.dim))
+
+
+def _chen(a: float = 35.0, b: float = 3.0, c: float = 28.0) -> ChaoticSystem:
+    """Chen system (paper Eq. 5): 6 muls, 5 adds in f (paper counts)."""
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
+        d1 = a * (x2 - x1)
+        d2 = (c - a) * x1 - x1 * x3 + c * x2
+        d3 = x1 * x2 - b * x3
+        return torch.stack([d1, d2, d3], dim=-1)
+
+    return ChaoticSystem("chen", 3, f, n_mul_dynamic=6, n_add_dynamic=5,
+                         x0=(-0.1, 0.5, -0.6), dt=0.002)
+
+
+def _lorenz(sigma: float = 10.0, rho: float = 28.0,
+            beta: float = 8.0 / 3.0) -> ChaoticSystem:
+    def f(x: torch.Tensor) -> torch.Tensor:
+        x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
+        d1 = sigma * (x2 - x1)
+        d2 = x1 * (rho - x3) - x2
+        d3 = x1 * x2 - beta * x3
+        return torch.stack([d1, d2, d3], dim=-1)
+
+    return ChaoticSystem("lorenz", 3, f, n_mul_dynamic=5, n_add_dynamic=5,
+                         x0=(1.0, 1.0, 1.0), dt=0.005)
+
+
+def _rossler(a: float = 0.2, b: float = 0.2, c: float = 5.7) -> ChaoticSystem:
+    def f(x: torch.Tensor) -> torch.Tensor:
+        x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
+        d1 = -x2 - x3
+        d2 = x1 + a * x2
+        d3 = b + x3 * (x1 - c)
+        return torch.stack([d1, d2, d3], dim=-1)
+
+    return ChaoticSystem("rossler", 3, f, n_mul_dynamic=2, n_add_dynamic=5,
+                         x0=(0.0, 1.0, 0.0), dt=0.02)
+
+
+def _chua(alpha: float = 15.6, beta: float = 28.0,
+          m0: float = -1.143, m1: float = -0.714) -> ChaoticSystem:
+    """Chua's circuit with the piecewise-linear diode."""
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
+        h = m1 * x1 + 0.5 * (m0 - m1) * (torch.abs(x1 + 1.0)
+                                         - torch.abs(x1 - 1.0))
+        d1 = alpha * (x2 - x1 - h)
+        d2 = x1 - x2 + x3
+        d3 = -beta * x2
+        return torch.stack([d1, d2, d3], dim=-1)
+
+    return ChaoticSystem("chua", 3, f, n_mul_dynamic=4, n_add_dynamic=7,
+                         x0=(0.7, 0.0, 0.0), dt=0.01)
+
+
+def _hyperlorenz(sigma: float = 10.0, rho: float = 28.0,
+                 beta: float = 8.0 / 3.0, r: float = -1.0) -> ChaoticSystem:
+    """4-D hyperchaotic Lorenz (Wang 2007): Lorenz plus a feedback state."""
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        x1, x2, x3, x4 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+        d1 = sigma * (x2 - x1) + x4
+        d2 = x1 * (rho - x3) - x2
+        d3 = x1 * x2 - beta * x3
+        d4 = -x2 * x3 + r * x4
+        return torch.stack([d1, d2, d3, d4], dim=-1)
+
+    return ChaoticSystem("hyperlorenz", 4, f, n_mul_dynamic=6,
+                         n_add_dynamic=6, x0=(1.0, 1.0, 1.0, 1.0), dt=0.005)
+
+
+SYSTEMS = {s.name: s for s in (_chen(), _lorenz(), _rossler(), _chua(),
+                               _hyperlorenz())}
+
+
+def get_system(name: str) -> ChaoticSystem:
+    if "@" in name:
+        raise NotImplementedError(
+            f"{name!r}: a lattice as an ODE system is not ported (ROADMAP.md "
+            f"queue 1, 'Paper flow'); its weights derive from the base "
+            f"system's (prng.stream.trained_oscillator)")
+    try:
+        return SYSTEMS[name]
+    except KeyError:
+        raise KeyError(f"unknown chaotic system {name!r}; "
+                       f"have {sorted(SYSTEMS)}") from None
+
+
+# ---------------------------------------------------------------------------
+# RK-4 (paper Eqs. 2-3)
+# ---------------------------------------------------------------------------
+
+def rk4_step(f: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+             dt) -> torch.Tensor:
+    """One classical RK-4 step.  Shapes broadcast; works batched.  ``dt``
+    is a number or a 0-d tensor (``integrate`` passes it in x's dtype, as
+    the JAX package's traced step is)."""
+    k1 = f(x)
+    k2 = f(x + (dt / 2) * k1)
+    k3 = f(x + (dt / 2) * k2)
+    k4 = f(x + dt * k3)
+    return x + (dt / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def integrate(system_name: str, x0: torch.Tensor, n_steps: int,
+              dt: float | None = None) -> torch.Tensor:
+    """Integrate ``n_steps`` RK-4 steps.  Returns (n_steps+1, ...) trajectory.
+
+    ``x0`` may be (dim,) or batched (B, dim); the trajectory keeps the batch
+    and x0's dtype and device.
+    """
+    sys_ = get_system(system_name)
+    dt = torch.tensor(sys_.dt if dt is None else dt, dtype=x0.dtype,
+                      device=x0.device)
+    traj = torch.empty((n_steps + 1,) + tuple(x0.shape), dtype=x0.dtype,
+                       device=x0.device)
+    traj[0] = x = x0
+    for t in range(n_steps):
+        x = rk4_step(sys_.f, x, dt)
+        traj[t + 1] = x
+    return traj
+
+
+# ---------------------------------------------------------------------------
+# Op-count models (paper Eq. 4 and Eq. 7 / Table I)
+# ---------------------------------------------------------------------------
+
+def rk4_op_counts(system: ChaoticSystem) -> Tuple[int, int]:
+    """Paper Eq. 4: static + dynamic multiplication/addition counts of RK-4."""
+    n = system.dim
+    n_mul = (3 * n * n + 3 * n) + 4 * system.n_mul_dynamic
+    n_add = (3 * n * n + 4 * n) + 4 * system.n_add_dynamic
+    return n_mul, n_add
+
+
+def ann_op_counts(layer_sizes: Tuple[int, ...]) -> Tuple[int, int]:
+    """Paper Eq. 7 for a feed-forward net given (n_1, ..., n_L) neuron counts.
+
+    For 3-8-3: 48 muls, 59 adds (Table I).
+    """
+    n_mul = sum(layer_sizes[i] * layer_sizes[i - 1]
+                for i in range(1, len(layer_sizes)))
+    n_add = sum(layer_sizes[i] * (layer_sizes[i - 1] + 1)
+                for i in range(1, len(layer_sizes)))
+    return n_mul, n_add
+
+
+# ---------------------------------------------------------------------------
+# Dataset generation (paper section III-A)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChaoticDataset:
+    """Labelled one-step pairs: model learns X_t -> X_{t+1} (paper §III-A).
+    numpy float32 arrays, as in the JAX package."""
+
+    x_train: np.ndarray
+    y_train: np.ndarray
+    x_test: np.ndarray
+    y_test: np.ndarray
+    # Per-dimension affine normalizer mapping the attractor's range into
+    # [-1, 1]; the generated core runs in normalized space.
+    scale: np.ndarray
+    offset: np.ndarray
+    system: str
+    dt: float
+
+
+def normalize(x, scale, offset):
+    return (x - offset) / scale
+
+
+def denormalize(x, scale, offset):
+    return x * scale + offset
+
+
+def make_dataset(system_name: str, n_samples: int = 100_000,
+                 train_frac: float = 0.8, burn_in: int = 2_000,
+                 dt: float | None = None, seed: int = 0,
+                 device="cuda") -> ChaoticDataset:
+    """Generate the paper's dataset: sample a long RK-4 trajectory; each
+    labelled point is (X_t, X_{t+1}) for consecutive time steps.  The
+    trajectory is integrated in float32 on ``device`` (the card unless the
+    caller passes ``"cpu"``); the pairs are numpy arrays on the host."""
+    sys_ = get_system(system_name)
+    dt = sys_.dt if dt is None else dt
+    x0 = torch.tensor(sys_.x0, dtype=torch.float32,
+                      device=resolve_device(device))
+    # Burn in so samples lie on the attractor, then collect n_samples + 1.
+    traj = integrate(system_name, x0, burn_in + n_samples, dt)
+    traj = traj[burn_in:].cpu().numpy().astype(np.float32)  # (n_samples+1, dim)
+
+    lo, hi = traj.min(axis=0), traj.max(axis=0)
+    scale = ((hi - lo) / 2.0).astype(np.float32)
+    scale = np.where(scale == 0, 1.0, scale)
+    offset = ((hi + lo) / 2.0).astype(np.float32)
+    norm = (traj - offset) / scale
+
+    x_all, y_all = norm[:-1], norm[1:]
+    # Shuffle pairs before splitting (trajectory order leaks time otherwise).
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(x_all))
+    x_all, y_all = x_all[perm], y_all[perm]
+    n_train = int(train_frac * len(x_all))
+    return ChaoticDataset(
+        x_train=x_all[:n_train], y_train=y_all[:n_train],
+        x_test=x_all[n_train:], y_test=y_all[n_train:],
+        scale=scale, offset=offset, system=system_name, dt=dt,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Block-coupled oscillator lattices
+# ---------------------------------------------------------------------------
 
 # Diffusive coupling strength of name-addressed lattices ("chen@ring8"):
 # weak against the base dynamics, so the lattice stays chaotic.

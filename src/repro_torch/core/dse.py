@@ -1,12 +1,15 @@
-"""Kernel configuration record, the JAX package's config selection, and
-the gang launch-cost model (port of ``repro/core/dse.py``).
+"""Kernel configuration record, the JAX package's config selection and
+design-space exploration, and the gang launch-cost model (port of
+``repro/core/dse.py``).
 
-``select_config`` and what it reaches (``measure_candidate``,
-``vmem_bytes``, the Eq. 8 fit ``LatencyModel``, ``enumerate_candidates``,
-``_objective_score``) are copied from the JAX package's min_latency
-selection with the TPU v5e constants they read, renamed ``V5E_*``.  They
-are not a model of this card: they are the JAX package's definition of a
-core's *default stream*.  Its ``compute_unit`` (and the dtype) decides
+``select_config``, the paper flow's ``select`` and ``pareto_front``, and
+what they reach (``measure_candidate``, ``vmem_bytes``, the Eq. 8/9 fits
+``LatencyModel`` and ``CostModel``, ``enumerate_candidates``,
+``_objective_score``) are copied from the JAX package with the TPU v5e
+constants they read, renamed ``V5E_*``.  They are not a model of this
+card: they are the JAX package's definition of a core's *default stream*
+and of the solution its flow generates, so the port selects exactly the
+JAX package's ``Candidate``.  Its ``compute_unit`` (and the dtype) decides
 the words, and its ``t_block`` how many rows a draw launches, so a port
 that chose otherwise would serve other words, or buffer another overdraw,
 than the JAX service.  A Hopper tuner (ROADMAP.md queue 1, 'DSE on a
@@ -232,21 +235,113 @@ def enumerate_candidates(i_dim: int, h_dim: int,
     return out
 
 
+@dataclasses.dataclass
+class CostModel:
+    """#VMEM-bytes = c1·I·H + c2·I + c3·H + β, per parallelism level
+    (paper Eq. 9, with a per-P constant table)."""
+
+    coeffs: Dict[Tuple[int, str, int], np.ndarray] = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def fit(p_levels: Sequence[int] = range(0, 6),
+            i_range: Sequence[int] = (2, 3, 4, 6, 8),
+            h_range: Sequence[int] = (4, 8, 12, 16, 24, 32),
+            units: Sequence[str] = ("vpu", "mxu"),
+            dtypes: Sequence[int] = (4, 2)) -> "CostModel":
+        model = CostModel()
+        for p, unit, dt in itertools.product(p_levels, units, dtypes):
+            rows, ys = [], []
+            for i, h in itertools.product(i_range, h_range):
+                c = Candidate(i_dim=i, h_dim=h, p=p, compute_unit=unit, dtype_bytes=dt)
+                rows.append([i * h, i, h, 1.0])
+                ys.append(float(vmem_bytes(c)))
+            sol, *_ = np.linalg.lstsq(np.asarray(rows), np.asarray(ys), rcond=None)
+            model.coeffs[(p, unit, dt)] = sol
+        return model
+
+    def predict(self, i_dim: int, h_dim: int, p: int,
+                compute_unit: str = "vpu", dtype_bytes: int = 4) -> float:
+        c1, c2, c3, beta = self.coeffs[(p, compute_unit, dtype_bytes)]
+        return float(c1 * i_dim * h_dim + c2 * i_dim + c3 * h_dim + beta)
+
+
 def _objective_score(c: Candidate, i_dim: int, h_dim: int,
-                     lm: LatencyModel) -> Tuple[float, float]:
-    """The min_latency selection key: (latency estimate, overhead share).
+                     lm: LatencyModel, cm: Optional[CostModel] = None,
+                     objective: str = "min_latency") -> Tuple[float, ...]:
+    """The shared selection key: (primary estimate, objective-true ties).
+
+    min_latency: (latency estimate, overhead share).  lowest_cost: (cost
+    estimate, the measured VMEM working set, overhead share): the
+    estimator is blind to (t_block, unroll), the real footprint is not.
 
     Lattice candidates (``n_nodes > 1``) score on the extended cycle
-    model directly: the Eq. 8 estimator was fitted on scalar-core sizes
-    (I<=8, H<=32) and normalizes per I*H, so extrapolating it to lattice
-    dims would erase the block-sparse compute-unit tradeoff the lattice
-    arms of ``measure_candidate`` encode.
+    model directly: the Eq. 8/9 estimators were fitted on scalar-core
+    sizes (I<=8, H<=32) and normalize per I*H, so extrapolating them to
+    lattice dims would erase the block-sparse compute-unit tradeoff the
+    lattice arms of ``measure_candidate`` encode.
     """
     if c.n_nodes > 1:
-        primary = measure_candidate(c)["per_stream_latency_cycles"]
-    else:
+        m = measure_candidate(c)
+        if objective == "min_latency":
+            return (m["per_stream_latency_cycles"], _overhead_share(c))
+        if objective == "lowest_cost":
+            return (m["vmem_bytes"], _overhead_share(c))
+        raise ValueError(f"unknown objective {objective!r}")
+    if objective == "min_latency":
         primary = lm.predict(i_dim, h_dim, c.p, c.compute_unit, c.dtype_bytes)
-    return (primary, _overhead_share(c))
+        return (primary, _overhead_share(c))
+    if objective == "lowest_cost":
+        primary = cm.predict(i_dim, h_dim, c.p, c.compute_unit, c.dtype_bytes)
+        return (primary, float(vmem_bytes(c)), _overhead_share(c))
+    raise ValueError(f"unknown objective {objective!r}")
+
+
+def pareto_front(cands: Sequence[Candidate],
+                 latency_model: Optional[LatencyModel] = None,
+                 cost_model: Optional[CostModel] = None
+                 ) -> List[Tuple[Candidate, float, float]]:
+    """Non-dominated (cost, latency) set, using the *estimators* (the
+    paper's DSE runs entirely on Eq. 8/9 estimates).  Candidates tied on
+    (cost, latency) are represented by the lowest-overhead one."""
+    scored = []
+    for c in cands:
+        if latency_model is not None:
+            lat = latency_model.predict(c.i_dim, c.h_dim, c.p, c.compute_unit, c.dtype_bytes)
+            cost = cost_model.predict(c.i_dim, c.h_dim, c.p, c.compute_unit, c.dtype_bytes)
+        else:
+            m = measure_candidate(c)
+            lat, cost = m["per_stream_latency_cycles"], m["vmem_bytes"]
+        scored.append((c, cost, lat))
+    front = []
+    for c, cost, lat in sorted(scored,
+                               key=lambda t: (t[1], t[2], _overhead_share(t[0]))):
+        if all(not (fc <= cost and fl <= lat) for _, fc, fl in front):
+            front.append((c, cost, lat))
+    return front
+
+
+def select(i_dim: int, h_dim: int, mode: str = "pareto",
+           p: Optional[int] = None,
+           latency_model: Optional[LatencyModel] = None,
+           cost_model: Optional[CostModel] = None,
+           n_nodes: int = 1) -> Candidate:
+    """The paper's three user options: 'min_latency', 'lowest_cost', or
+    'pareto' with requested parallelism P."""
+    lm = latency_model or LatencyModel.fit()
+    cm = cost_model or CostModel.fit()
+    cands = enumerate_candidates(i_dim, h_dim, n_nodes=n_nodes)
+    if mode in ("min_latency", "lowest_cost"):
+        return min(cands,
+                   key=lambda c: _objective_score(c, i_dim, h_dim, lm, cm, mode))
+    if mode == "pareto":
+        front = pareto_front(cands, lm, cm)
+        if p is not None:
+            match = [c for c, _, _ in front if c.p == p]
+            if match:
+                return match[0]
+            return min((c for c, _, _ in front), key=lambda c: abs(c.p - p))
+        return front[len(front) // 2][0]
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 _DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}

@@ -14,14 +14,17 @@ the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
 ``chaotic_ann_gang_bits`` / ``chaotic_ann_gang_stacked``:
 ``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``),
 and K3 on the mxu unit (``compute_unit="mxu"`` on ``chaotic_ann_gang_bits``:
-``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).
+``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  The scalar vpu K1 and
+K2 take relu, tanh and sigmoid; every other form takes relu only and
+raises ``NotImplementedError`` naming its ROADMAP.md item (``activation``
+evaluates the kernels' tanh and sigmoid alone, a check hook).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +35,13 @@ from repro_torch.kernels import build, ops, ref
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# The ROADMAP.md item that ports what these kernels refuse.
-TODO_NON_RELU = "queue 2, 'K1-K4: non-relu activations'"
+# chaotic_ann.cu's activation codes (kRelu, kTanh, kSigmoid)
+_ACTIVATION_CODES = {"relu": 0, "tanh": 1, "sigmoid": 2}
+# The ROADMAP.md items that port tanh and sigmoid to the kernel forms that
+# take relu only (the scalar vpu K1 and K2 take all three).
+TODO_NON_RELU = {"gang": "queue 2, 'K3 and K4: tanh and sigmoid'",
+                 "lattice": "queue 2, 'Lattice forms: tanh and sigmoid'",
+                 "mxu": "queue 2, 'mxu forms: tanh and sigmoid'"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,11 +49,14 @@ def _lib() -> ctypes.CDLL:
     """The built library, with every C function's types declared."""
     lib = build.load()
     lib.chaotic_ann_bits_launch.argtypes = (
-        [_c_int] * 4 + [_c_ptr] * 8 + [_c_i64, _c_i64, _c_ptr])
+        [_c_int] * 5 + [_c_ptr] * 8 + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_bits_launch.restype = _c_int
     lib.chaotic_ann_traj_launch.argtypes = (
-        [_c_int] * 4 + [_c_ptr] * 6 + [_c_i64, _c_i64, _c_ptr])
+        [_c_int] * 5 + [_c_ptr] * 6 + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_traj_launch.restype = _c_int
+    lib.chaotic_ann_activation_launch.argtypes = (
+        [_c_int] * 3 + [_c_ptr] * 2 + [_c_i64, _c_ptr])
+    lib.chaotic_ann_activation_launch.restype = _c_int
     lib.chaotic_ann_gang_bits_launch.argtypes = (
         [_c_int] * 4 + [_c_ptr] * 10 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_gang_bits_launch.restype = _c_int
@@ -80,11 +91,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_activation(activation: str) -> None:
-    if activation != "relu":
+def _check_activation(activation: str, form: Optional[str] = None) -> int:
+    """The activation's code for the scalar vpu K1/K2 (``form`` None);
+    the ``form`` kernels ("gang", "lattice", "mxu") take relu only."""
+    if activation not in _ACTIVATION_CODES:
+        raise ValueError(f"activation must be one of "
+                         f"{sorted(_ACTIVATION_CODES)}, got {activation!r}")
+    if form is not None and activation != "relu":
         raise NotImplementedError(
-            f"activation {activation!r}: the kernels are relu only; see "
-            f"ROADMAP.md {TODO_NON_RELU} (backend='ref' runs any activation)")
+            f"activation {activation!r}: the {form} kernels are relu only; "
+            f"non-relu {form} forms: see ROADMAP.md {TODO_NON_RELU[form]} "
+            f"(backend='ref' runs any activation)")
+    return _ACTIVATION_CODES[activation]
 
 
 def _int32_on_card(a: np.ndarray, device) -> torch.Tensor:
@@ -156,9 +174,13 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     ``chaotic_ann_lattice_bits``; ``compute_unit="mxu"`` the mxu unit,
     ``chaotic_ann_mxu_bits`` (a lattice with its dense ``coupling``).
 
+    ``activation`` relu, tanh or sigmoid (the kernel's template
+    parameter; the other forms take relu only).
+
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
     Bound on the H100: operations.  Each word costs 2 steps of
-    (4*I*H + H + I) separate f32 ops, 214 for a 3-8-3 net, against 4
+    (4*I*H + H + I) separate f32 ops, 214 for a 3-8-3 net with relu (tanh
+    and sigmoid add their formulas' ops per hidden unit), against 4
     bytes written.  The design keeps the state and the hidden layer in
     registers for the whole launch, so the trajectory never reaches
     device memory and only the words, offsets and final state move.
@@ -172,7 +194,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         return chaotic_ann_lattice_bits(w1, b1, w2, b2, x0, word_offset,
                                         n_steps=n_steps, lattice=lattice,
                                         activation=activation)
-    _check_activation(activation)
+    act = _check_activation(activation)
     _check_steps(n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
@@ -187,7 +209,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_bits_launch(
-        x0.device.index, code, *w1.shape[-2:],
+        x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
@@ -206,7 +228,8 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      ) -> torch.Tensor:
     """The (n_steps, S, I) float trajectory after x0, in x0's dtype.
     ``lattice`` takes the lattice form, ``chaotic_ann_lattice_traj``;
-    ``compute_unit="mxu"`` the mxu unit, ``chaotic_ann_mxu_traj``.
+    ``compute_unit="mxu"`` the mxu unit, ``chaotic_ann_mxu_traj``;
+    ``activation`` as in ``chaotic_ann_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2).
     Bound on the H100: bytes.  A step costs (4*I*H + H + I) ops per
@@ -224,7 +247,7 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         return chaotic_ann_lattice_traj(w1, b1, w2, b2, x0, n_steps=n_steps,
                                         lattice=lattice,
                                         activation=activation)
-    _check_activation(activation)
+    act = _check_activation(activation)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation)
     weights, code = _operands(w1, b1, w2, b2, x0)
@@ -235,7 +258,7 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         return traj
     lib = _lib()
     rc = lib.chaotic_ann_traj_launch(
-        x0.device.index, code, *w1.shape[-2:],
+        x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), traj.data_ptr(),
         n_lanes, n_steps, torch.cuda.current_stream(x0.device).cuda_stream)
     _raise_on(lib, rc, "chaotic_ann_traj", w1)
@@ -244,6 +267,37 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
 
 chaotic_ann_traj.launches = 0
+
+
+def activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The kernels' activation alone, elementwise: phi(x) in x's dtype, as
+    the scalar vpu K1/K2 step applies it (``ref.ACTIVATIONS``, the JAX
+    package's ``jnp.tanh`` / ``jax.nn.sigmoid`` formulas).  A check hook
+    that holds the device formulas against the plain ones on many inputs;
+    no path calls it.  A contiguous float32 or bfloat16 tensor.
+    """
+    act = _check_activation(name)
+    if x.device.type == "cpu":
+        return ref.ACTIVATIONS[name](x)
+    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"x must be a float32 or bfloat16 CUDA tensor, got "
+                         f"{x.dtype} on {x.device}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _lib()
+    rc = lib.chaotic_ann_activation_launch(
+        x.device.index, _DTYPE_CODES[x.dtype], act, x.data_ptr(),
+        y.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"activation launch failed: "
+                           f"{lib.chaotic_ann_error_string(rc).decode()}")
+    activation.launches += 1
+    return y
+
+
+activation.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +353,7 @@ def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
     by warp shuffles and the lane's fold by an XOR shuffle reduction, so
     nothing but words, offsets and the final state touches device memory.
     """
-    _check_activation(activation)
+    _check_activation(activation, "lattice")
     _check_steps(n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
@@ -341,7 +395,7 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
     ``chaotic_ann_lattice_bits``; the 32 threads of a chen@ring32 lane
     write its 96 values of a step as one contiguous run.
     """
-    _check_activation(activation)
+    _check_activation(activation, "lattice")
     if x0.device.type == "cpu":
         return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation,
                                    lattice)
@@ -427,7 +481,7 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     weight blocks in registers (a scalar core is one node), the chains
     over the node's nonzero terms in the dense order.
     """
-    _check_activation(activation)
+    _check_activation(activation, "mxu")
     _check_steps(n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
@@ -473,7 +527,7 @@ def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
     ``chaotic_ann_mxu_bits``; the threads of a lane write its values of a
     step as one contiguous run.
     """
-    _check_activation(activation)
+    _check_activation(activation, "mxu")
     if x0.device.type == "cpu":
         return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation,
                                    lattice, "mxu", coupling)
@@ -620,12 +674,12 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
             n_steps=n_steps, lattice=lattice, coupling=coupling,
             s_block=s_block, t_block=t_block, unroll=unroll,
             activation=activation)
-    _check_activation(activation)
     if lattice is not None:
         return chaotic_ann_lattice_gang_bits(
             w1, b1, w2, b2, x0, core_map, word_offset, row_map,
             n_steps=n_steps, lattice=lattice, s_block=s_block,
             t_block=t_block, unroll=unroll, activation=activation)
+    _check_activation(activation, "gang")
     n_cores = w1.shape[0]
     cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
                             t_block, unroll)
@@ -685,11 +739,11 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     if compute_unit != "vpu":
         raise ValueError("stacked gang launches support compute_unit='vpu' "
                          "only (the stacked step is the vpu order)")
-    _check_activation(activation)
     if lattice is not None:
         return chaotic_ann_lattice_gang_stacked(
             w1, b1, w2, b2, x0, word_offset, row_map, n_steps=n_steps,
             lattice=lattice, activation=activation)
+    _check_activation(activation, "gang")
     n_cores, n_rows = w1.shape[0], n_steps // 2
     rows = _stacked_rows(x0, row_map, n_cores, n_steps)
     if x0.device.type == "cpu":
@@ -751,7 +805,7 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     128 / n_nodes lanes and ``s_block`` is a multiple of that, so a CTA
     lies inside one lane block and reads that block's core and rows.
     """
-    _check_activation(activation)
+    _check_activation(activation, "lattice")
     n_cores = w1.shape[0]
     cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
                             t_block, unroll)
@@ -810,7 +864,7 @@ def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     core's state in registers, so there is no VMEM cliff, and the only
     limit is the grid's y extent (65,535 cores).
     """
-    _check_activation(activation)
+    _check_activation(activation, "lattice")
     n_cores, n_rows = w1.shape[0], n_steps // 2
     rows = _stacked_rows(x0, row_map, n_cores, n_steps)
     if x0.device.type == "cpu":
@@ -878,7 +932,7 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     block and reads that block's core and rows.  K4 has no mxu form (the
     stacked step is the vpu order), so every mxu gang is this launch.
     """
-    _check_activation(activation)
+    _check_activation(activation, "mxu")
     n_cores = w1.shape[0]
     cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
                             t_block, unroll)

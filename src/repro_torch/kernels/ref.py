@@ -13,6 +13,12 @@ compute unit:
 
 So the CUDA kernels of ``chaotic_ann.cu`` can be held to these versions
 bitwise.
+
+The activations are the formulas the JAX package's ``jnp.tanh`` and
+``jax.nn.sigmoid`` compute (XLA's CPU code), written in basic ops, so the
+CUDA kernels can repeat them op for op.  ``torch.tanh``/``torch.sigmoid``
+are neither: ``torch.tanh`` differs from ``jnp.tanh`` on about half of the
+f32 inputs.
 """
 from __future__ import annotations
 
@@ -24,8 +30,125 @@ import torch
 from repro_torch.core.chaotic import _TOPOLOGY_CODES, _grid_shape
 from repro_torch.kernels import ops
 
-ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
-               "sigmoid": torch.sigmoid}
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (a correctly rounded fused
+    multiply-add of float32 values), elementwise with broadcasting.
+
+    The product of two float32 values is exact in float64, but the f64 sum
+    rounds, and rounding that again to float32 is wrong when the f64 sum
+    lands on a float32 midpoint (a false tie).  So the sum is rounded to
+    odd: an inexact f64 sum ``s`` (TwoSum error ``e != 0``) whose last bit
+    is even moves to its odd neighbour on ``e``'s side.  With 53 >= 24 + 2
+    bits, rounding that to float32 gives the float32 rounding of the exact
+    value.  Inputs may be float32 or already float64 copies of float32
+    values.
+    """
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b                                   # exact
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)               # s + e == p + c exactly
+    keep = (e == 0) | ((s.view(torch.int64) & 1) == 1) | torch.isinf(s)
+    s = torch.where(keep, s, torch.nextafter(s, e * math.inf))
+    return s.float()
+
+
+# f32 ``jnp.tanh``: Eigen's rational approximation, x * P(x^2) / Q(x^2) on
+# x clamped to +-TANH_CLAMP, both polynomials by Horner's rule with fused
+# multiply-adds from the highest coefficient; x itself where |x| < 0.0004.
+TANH_CLAMP = 7.99881172180175781
+TANH_TINY = 0.0004
+TANH_P = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+          5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+          4.89352455891786e-03)
+TANH_Q = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+          4.89352518554385e-03)
+# f32 ``exp`` inside ``jax.nn.sigmoid`` = 1 / (1 + exp(-x)): the Cephes
+# polynomial, x = fx * ln 2 + r with fx = floor(x * log2(e) + 1/2), ln 2 in
+# two parts, Horner in r with fused multiply-adds, y * 2^fx exactly.
+EXP_CLAMP = 88.3762626647949
+EXP_LOG2E = 1.44269504088896341
+EXP_LN2_HI, EXP_LN2_LO = -0.693359375, 2.12194440e-4
+EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+         1.6666665459e-1, 5.0000001201e-1)
+F32_MIN = 1.1754943508222875e-38          # FLT_MIN: results below flush to 0
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """Flush results below FLT_MIN in magnitude to +0, as XLA's CPU code
+    does (its tanh never gets there)."""
+    return torch.where(v.abs() < F32_MIN, torch.zeros_like(v), v)
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``jnp.tanh`` of f32 ``x``, bitwise."""
+    xc = x.clamp(-TANH_CLAMP, TANH_CLAMP)
+    x2 = xc * xc
+    p = _f32(TANH_P[0], x)
+    for k in TANH_P[1:]:
+        p = fma_f32(x2, p, _f32(k, x))
+    q = _f32(TANH_Q[0], x)
+    for k in TANH_Q[1:]:
+        q = fma_f32(x2, q, _f32(k, x))
+    return torch.where(x.abs() < _f32(TANH_TINY, x), x, (xc * p) / q)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 exp of f32 ``x`` as XLA's CPU code computes it, bitwise.  The
+    scaling by 2^fx is exact: a product in f64 with 2^fx built from its
+    exponent bits, then flushed below FLT_MIN and rounded to f32 (exact
+    for the normal results that remain)."""
+    x = x.clamp(-EXP_CLAMP, EXP_CLAMP)
+    fx = torch.floor(fma_f32(x, _f32(EXP_LOG2E, x), _f32(0.5, x)))
+    r = fma_f32(fx, _f32(EXP_LN2_HI, x), x)
+    r = fma_f32(fx, _f32(EXP_LN2_LO, x), r)
+    y = _f32(EXP_P[0], x)
+    for k in EXP_P[1:]:
+        y = fma_f32(y, r, _f32(k, x))
+    y = fma_f32(y, r * r, r) + 1
+    two_fx = ((fx.to(torch.int64) + 1023) << 52).view(torch.float64)
+    return _flush(y.double() * two_fx).float()
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """An f32 value rounded to bf16 and back (round to nearest even)."""
+    return v.to(torch.bfloat16).float()
+
+
+def tanh(x: torch.Tensor, f32_result: bool = False) -> torch.Tensor:
+    """``jnp.tanh`` in x's dtype, bitwise: bf16 is the f32 tanh of the
+    upcast value, rounded once.  ``f32_result`` returns a bf16 input's f32
+    result unrounded (what the mxu step's second dot reads)."""
+    if x.dtype == torch.bfloat16:
+        y = tanh_f32(x.float())
+        return y if f32_result else y.to(torch.bfloat16)
+    return tanh_f32(x)
+
+
+def sigmoid(x: torch.Tensor, f32_result: bool = False) -> torch.Tensor:
+    """``jax.nn.sigmoid`` = 1 / (1 + exp(-x)) in x's dtype, bitwise, the
+    quotient flushed below FLT_MIN.  bf16 rounds after every op:
+    ``bf16(1 / bf16(1 + bf16(exp(-x))))``; ``f32_result`` leaves the last
+    rounding out."""
+    if x.dtype == torch.bfloat16:
+        y = _flush(1 / _bf16(1 + _bf16(exp_f32(-x.float()))))
+        return y if f32_result else y.to(torch.bfloat16)
+    return _flush(1 / (1 + exp_f32(-x)))
+
+
+def relu(x: torch.Tensor, f32_result: bool = False) -> torch.Tensor:
+    """``jax.nn.relu``; exact in either dtype, so ``f32_result`` changes
+    nothing."""
+    return torch.relu(x)
+
+
+ACTIVATIONS = {"relu": relu, "tanh": tanh, "sigmoid": sigmoid}
 
 
 def check_lattice(lattice, i_dim: int) -> None:
@@ -67,42 +190,20 @@ def lattice_delta(x: torch.Tensor, lattice) -> torch.Tensor:
     return (acc.reshape(x.shape) - deg * x) * eps
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once to float32 (a correctly rounded fused
-    multiply-add of float32 values), elementwise with broadcasting.
-
-    The product of two float32 values is exact in float64, but the f64 sum
-    rounds, and rounding that again to float32 is wrong when the f64 sum
-    lands on a float32 midpoint (a false tie).  So the sum is rounded to
-    odd: an inexact f64 sum ``s`` (TwoSum error ``e != 0``) whose last bit
-    is even moves to its odd neighbour on ``e``'s side.  With 53 >= 24 + 2
-    bits, rounding that to float32 gives the float32 rounding of the exact
-    value.  Inputs may be float32 or already float64 copies of float32
-    values.
-    """
-    a, b, c = a.double(), b.double(), c.double()
-    p = a * b                                   # exact
-    s = p + c
-    bb = s - p
-    e = (p - (s - bb)) + (c - bb)               # s + e == p + c exactly
-    keep = (e == 0) | ((s.view(torch.int64) & 1) == 1) | torch.isinf(s)
-    s = torch.where(keep, s, torch.nextafter(s, e * math.inf))
-    return s.float()
-
-
 def mxu_dot(x: torch.Tensor, w: torch.Tensor,
             dtype: torch.dtype) -> torch.Tensor:
     """``jnp.dot`` with f32 accumulation as the mxu unit computes it: for
     (S, K) ``x`` and (K, N) ``w``, each output is the forward chain
     ``acc = fma(x[k], w[k, n], acc)`` over k = 0 .. K-1 from +0 in f32,
-    rounded to ``dtype`` at the end.  A bf16 product is exact in f32, so
-    there a separate multiply and add is that fused op.  Dense over K:
-    zero weights are terms of the chain like any other.
+    rounded to ``dtype`` at the end.  A product of two bf16 values is
+    exact in f32, so there a separate multiply and add is that fused op;
+    an f32 ``x`` (a bf16 step's activation, read unrounded) takes the
+    fused chain.  Dense over K: zero weights are terms of the chain like
+    any other.
     """
     acc = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32,
                       device=x.device)
-    if dtype == torch.float32:
+    if torch.float32 in (x.dtype, w.dtype):
         xd, wd = x.double(), w.double()
         for k in range(w.shape[-2]):
             acc = fma_f32(xd[:, k:k + 1], wd[k], acc)
@@ -151,7 +252,7 @@ def make_step(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
             cpl_t = coupling.to(dtype).t()
 
         def mxu_step(x: torch.Tensor) -> torch.Tensor:
-            h = phi(mxu_dot(x, w1, dtype) + b1)
+            h = phi(mxu_dot(x, w1, dtype) + b1, f32_result=True)
             y = mxu_dot(h, w2, dtype) + b2
             if cpl_t is not None:
                 y = y + mxu_dot(x, cpl_t, dtype)

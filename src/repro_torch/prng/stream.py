@@ -200,6 +200,15 @@ class ChaoticStream:
     counter: int = 0
     device: str = "cuda"
 
+    @classmethod
+    def from_trained(cls, params, **kw) -> "ChaoticStream":
+        """A stream over freshly trained weights (``core.ann
+        .extract_parameters``: numpy arrays, or tensors)."""
+        return cls(params={k: (v.detach().cpu().numpy()
+                               if isinstance(v, torch.Tensor)
+                               else np.asarray(v))
+                           for k, v in params.items()}, **kw)
+
     @functools.cached_property
     def _engine(self) -> ChaoticPRNG:
         return ChaoticPRNG(self.params, n_streams=self.n_streams,

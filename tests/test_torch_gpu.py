@@ -680,3 +680,147 @@ def test_mxu_gang_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="vpu"):
         chaotic_ann.chaotic_ann_gang_stacked(*ws, xs.reshape(4, 64, 3),
                                              n_steps=4, compute_unit="mxu")
+
+
+# ---------------------------------------------------------------------------
+# tanh and sigmoid: the scalar vpu K1 and K2, and the paper flow
+# ---------------------------------------------------------------------------
+
+ACTIVATIONS = ("tanh", "sigmoid")
+
+
+def _activation_edges():
+    """The formulas' edges: the tanh clamp and small-x select, the exp
+    clamp and the sigmoid's flush (results below FLT_MIN), +-0, denormal
+    inputs, each with its float32 neighbours."""
+    edges = np.array([0.0004, 7.99881172180175781, 88.7, 87.34, 87.5, 88.0,
+                      88.5, 103.0, 1e-40, 1.4e-45, 1e-30, 0.0, 1.0],
+                     np.float32)
+    edges = np.concatenate([edges, -edges])
+    return np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                           np.nextafter(edges, np.float32(-np.inf))])
+
+
+def _f32_inputs(seed, n):
+    """``n`` seeded float32 inputs over the activations' whole range, and
+    the edges."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.normal(0.0, 3.0, n // 2), rng.uniform(-110.0, 110.0, n // 4),
+        rng.uniform(-1e-3, 1e-3, n - n // 2 - n // 4)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_device_activation_equals_plain_on_card(activation):
+    """The kernels' tanh and sigmoid (the check hook) equal the plain
+    formulas on every finite bf16 pattern and on 2**24 f32 inputs."""
+    _need_card()
+    pat = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    xb = pat.view(torch.bfloat16).cuda()
+    xb = xb[torch.isfinite(xb.float())]
+    got = chaotic_ann.activation(xb, activation)
+    assert torch.equal(got.view(torch.int16),
+                       ref.ACTIVATIONS[activation](xb).view(torch.int16))
+    x = torch.from_numpy(np.concatenate(
+        [_f32_inputs(7, 1 << 24), _activation_edges()])).cuda()
+    n0 = chaotic_ann.activation.launches
+    got = chaotic_ann.activation(x, activation)
+    assert chaotic_ann.activation.launches == n0 + 1
+    assert torch.equal(got.view(torch.int32),
+                       ref.ACTIVATIONS[activation](x).view(torch.int32))
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("system", ["chen", "hyperlorenz"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_kernels_bitwise_vs_plain_on_card(system, dtype,
+                                                     activation):
+    """tanh/sigmoid K1 and K2 (scalar vpu) equal their plain versions:
+    words, final state and trajectory."""
+    _need_card()
+    w, x0, off = _inputs(system, 1000 + 37, dtype, seed=41)
+    n0 = (chaotic_ann.chaotic_ann_bits.launches,
+          chaotic_ann.chaotic_ann_traj.launches)
+    words, state = chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=64,
+                                                activation=activation)
+    traj = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=64,
+                                        activation=activation)
+    assert (chaotic_ann.chaotic_ann_bits.launches,
+            chaotic_ann.chaotic_ann_traj.launches) == (n0[0] + 1, n0[1] + 1)
+    rt = ref.chaotic_ann_ref(*w, x0, 64, activation)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(traj.view(bits), rt.view(bits))
+    assert torch.equal(ops.from_uint32(words),
+                       ops.from_uint32(ops.pack_words(rt, off)))
+    assert torch.equal(state.view(bits), rt[-1].view(bits))
+    relu = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=64)
+    assert not torch.equal(relu, traj)
+
+
+def test_paper_flow_on_card_never_reaches_the_plain_version(monkeypatch,
+                                                            tmp_path):
+    """A generated tanh core (the DSE's lowest-cost solution, vpu bf16)
+    and a ``ChaoticStream.from_trained`` on the card launch the kernels
+    only; the core's testbench passes on the card."""
+    _need_card()
+    import importlib
+    import sys
+    from repro_torch.core.codegen import generate_core
+    from repro_torch.core.dse import select
+    from repro_torch.prng.stream import ChaoticStream
+    p = default_params()
+    cand = select(3, 8, "lowest_cost")
+    generate_core("gpu_tanh_core", tmp_path, params=p, candidate=cand,
+                  activation="tanh")
+    sys.path.insert(0, str(tmp_path))
+    try:
+        core = importlib.import_module("gpu_tanh_core")
+        tb = importlib.import_module("gpu_tanh_core.testbench")
+        assert tb.run(verbose=False, device="cuda")
+        x0 = np.random.default_rng(5).uniform(
+            -0.5, 0.5, (core.S_BLOCK, 3)).astype(np.float32)
+        want_t = core.generate(x0, 16, backend="ref")
+        want_w, want_s = core.generate_bits(x0, 16, 5, backend="ref")
+
+        def forbidden(*a, **k):
+            raise AssertionError("plain version reached on a CUDA tensor")
+
+        monkeypatch.setattr(ref, "chaotic_ann_bits_ref", forbidden)
+        monkeypatch.setattr(ref, "chaotic_ann_ref", forbidden)
+        n0 = (chaotic_ann.chaotic_ann_bits.launches,
+              chaotic_ann.chaotic_ann_traj.launches)
+        assert torch.equal(core.generate(x0, 16).view(torch.int16),
+                           want_t.view(torch.int16))
+        words, state = core.generate_bits(x0, 16, 5)
+        assert torch.equal(ops.from_uint32(words), ops.from_uint32(want_w))
+        assert torch.equal(state.view(torch.int16), want_s.view(torch.int16))
+        stream = ChaoticStream.from_trained(p, activation="sigmoid")
+        assert stream.bits(1000).shape == (1000,)
+        assert (chaotic_ann.chaotic_ann_bits.launches - n0[0],
+                chaotic_ann.chaotic_ann_traj.launches - n0[1]) == (3, 1)
+    finally:
+        sys.path.remove(str(tmp_path))
+        for name in ("gpu_tanh_core.testbench", "gpu_tanh_core"):
+            sys.modules.pop(name, None)
+
+
+def test_activation_wrappers_reject_what_the_kernels_do_not_take():
+    """tanh/sigmoid run on the scalar vpu K1/K2 only: every other form
+    names its ROADMAP.md item; an unknown activation is a ValueError."""
+    _need_card()
+    w, x0, off = _inputs("chen", 256, torch.float32, seed=5)
+    with pytest.raises(NotImplementedError, match="mxu forms"):
+        chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=4,
+                                     activation="tanh", compute_unit="mxu")
+    with pytest.raises(NotImplementedError, match="K3 and K4"):
+        chaotic_ann.chaotic_ann_gang_bits(
+            *[t[None] for t in w], x0, [0], n_steps=4, s_block=256,
+            activation="sigmoid")
+    lw, lattice, lx, _ = _lattice_inputs("chen@ring8", 64, torch.float32, 4)
+    with pytest.raises(NotImplementedError, match="Lattice forms"):
+        chaotic_ann.chaotic_ann_traj(*lw, lx, n_steps=4, lattice=lattice,
+                                     activation="tanh")
+    with pytest.raises(ValueError, match="activation"):
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="gelu")
+    with pytest.raises(ValueError, match="CUDA"):
+        chaotic_ann.activation(x0.half(), "tanh")

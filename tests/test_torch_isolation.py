@@ -22,12 +22,16 @@ def _module_names():
 
 
 def test_scan_covers_every_port_module():
-    """The scans below glob the package, so a new module (the numpy-only
-    lattice copy ``core/chaotic.py`` among them) is covered as it lands."""
+    """The scans below glob the package, so a new module (the paper
+    flow's ``core/codegen.py`` and ``train/optimizer.py`` among them) is
+    covered as it lands."""
     mods = set(_module_names())
     assert {"repro_torch.core.chaotic", "repro_torch.core.ann",
+            "repro_torch.core.codegen", "repro_torch.train",
+            "repro_torch.train.optimizer",
             "repro_torch.kernels.chaotic_ann"} <= mods
     assert PORT / "core" / "chaotic.py" in PORT_FILES
+    assert PORT / "core" / "codegen.py" in PORT_FILES
 
 
 def test_port_imports_with_jax_blocked():

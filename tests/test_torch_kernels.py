@@ -161,12 +161,22 @@ def test_wrappers_on_cpu_take_plain_version_without_counting():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
+    """tanh and sigmoid run on the scalar vpu K1/K2 (the plain version on
+    the CPU, tests/test_torch_activation.py); the mxu forms still name
+    their ROADMAP.md item, and an unknown activation is refused."""
     w = torch_weights(default_params())
     x0 = torch.zeros(4, 3)
+    words, state = chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4,
+                                                activation="tanh")
+    assert torch.equal(state, ref.chaotic_ann_ref(*w, x0, 4, "tanh")[-1])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4, activation="tanh")
+        chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4, activation="tanh",
+                                     compute_unit="mxu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="sigmoid")
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="sigmoid",
+                                     compute_unit="mxu")
+    with pytest.raises(ValueError, match="activation"):
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="gelu")
     with pytest.raises(ValueError):
         chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=3)
     with pytest.raises(ValueError, match="CUDA"):     # no silent fallback

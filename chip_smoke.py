@@ -120,6 +120,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    plain versions at each core's ``s_block`` and at the served shape
    (65,536 lanes, 1,024 steps), timed there beside relu's K1 and the
    bounds.  tanh's test MSE must be below sigmoid's (Table II's order).
+11. The farm of generated tanh and sigmoid cores.  Phase 10's chen nets
+   and, trained here on the card per activation (60 epochs, lr 3e-3,
+   batch 256; MSE and R2 printed), chua, lorenz and rossler 3-8-3 nets on
+   one ``make_dataset(system, 20_000)`` a system.  First the tanh/sigmoid
+   K3 (ragged rows) and K4 (a frozen core) against their plain versions,
+   bitwise, in both dtypes, on those four nets and on two seeded 4-16-4
+   nets, K4 also at F1's shape with unequal demands; each net's words
+   must differ from relu's.  Then into a temporary directory:
+   ``generate_farm`` (relu, every registered system, "pareto") and a
+   ``generate_core`` for each trained net as ``<system>_<activation>`` on
+   ``select(3, 8, "pareto")``, every ``Candidate`` held to the JAX
+   package's.  Per dtype (bf16 ``from_generated``; f32 the same cores at
+   ``dtype_bytes=4`` through ``add_core``): one gang group per
+   activation and hyperlorenz alone; 128 clients x 128 lanes a core;
+   three flushes as phase 5's, the launch counters zeroed just before
+   each and read just after (F1 uniform: one K4 launch an activation and
+   hyperlorenz's K1; F2 the chen cores skewed; F3 one more client on each
+   lorenz core: one K3 launch an activation), each held against a
+   ``gang=False`` farm; every gang launch of the flushes against the
+   plain gang scan on its inputs, bitwise, and timed at its shape beside
+   relu's launch of the same flush and its bound.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -146,6 +167,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # accumulators) do not do, so the scalar rates bound the work.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 133.8e12}
 PEAK_HBM_BYTES = 3.35e12
+# a device spin of about 25 ms at the H100's 1.98 GHz boost clock, long
+# enough for the host to queue a timed loop's calls behind it
+QUEUE_SPIN_CYCLES = 50_000_000
 
 CHECK_LANES = 65_536 + 37      # ragged: not a multiple of the block size
 CHECK_STEPS = 512
@@ -240,6 +264,31 @@ ACT_F32_INPUTS = 1 << 24
 # + 1 1, 2^fx 1, the f64 scaling 1, flush 1), 1 + e 1, divide 1, flush 1.
 # These are f32 ops in both state dtypes (bf16 takes the f32 formula).
 ACT_OPS = {"relu": 0, "tanh": 25, "sigmoid": 30}
+# phase 11, a farm of generated tanh and sigmoid cores: ``generate_farm``'s
+# relu cores (every registered system) beside a tanh and a sigmoid core of
+# each 3-8-3 system; chen's nets are phase 10's, the others are trained
+# here per activation (PAPER_EPOCHS, lr 3e-3, batch 256) on one dataset a
+# system, cut to 20,000 samples from the quickstart's 50,000
+GEN_SYSTEMS = ("chen", "chua", "lorenz", "rossler")
+GEN_SAMPLES = 20_000
+# repro.core.dse.select(i, h, "pareto") for each registered shape (a CPU
+# run of the JAX package); from_generated clamps p to a client's 128 lanes
+GEN_SELECT = {(3, 8): dict(i_dim=3, h_dim=8, p=3, compute_unit="vpu",
+                           dtype_bytes=2, unroll=8, t_block=256, n_nodes=1),
+              (4, 16): dict(i_dim=4, h_dim=16, p=3, compute_unit="vpu",
+                            dtype_bytes=2, unroll=8, t_block=256, n_nodes=1)}
+# F2 skews the chen cores (HOT_WORDS a client, the rest COLD_WORDS); F3
+# adds one client to each lorenz core
+GEN_HOT, GEN_F3 = "chen", "lorenz"
+# tanh/sigmoid K3/K4 checks beside the farm: the four trained 3-8-3 nets
+# and two seeded 4-16-4 nets, K3 in 64 blocks of 128 lanes with ragged
+# rows, K4 with a ragged lane count and a frozen core; K4 also at F1's
+# shape (4 x 16,384 lanes) with unequal demands
+GEN_CHECK_BLOCKS, GEN_CHECK_STEPS = 64, 256
+GEN_K3_ROW_MAP = np.resize([0, 3, 128, 17, 64, 9, 200, 1], GEN_CHECK_BLOCKS)
+GEN_STACK_LANES = 4_096 + 37
+GEN_K4_ROW_MAP = [0, 13, 200, 64]
+GEN_F1_ROW_MAP = [128, 8, 77, 0]
 
 
 class SmokeFailure(Exception):
@@ -270,10 +319,16 @@ def register_report(log: str) -> str:
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events.
+    The calls are queued behind a spin of the device (QUEUE_SPIN_CYCLES),
+    so the host's work in each call (the wrapper's checks, its small
+    copies) overlaps the device's and no idle gap between two launches
+    is counted, as it was where the host took longer than a sub-ms
+    kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1606,7 +1661,8 @@ def phase_paper_flow(torch, device, card, errs):
     core and its testbench for each, 2**20 words from
     ``ChaoticStream.from_trained``, and the NIST subset; then the scalar
     vpu K1/K2 with that activation against their plain versions and timed.
-    Returns ({(kernel, activation, tag): path launches}, {...: times})."""
+    Returns ({(kernel, activation, tag): path launches}, {...: times},
+    {activation: (the trained net's numpy bundle, scale, offset)})."""
     import importlib
     import tempfile
     from repro_torch.core.ann import (AnnConfig, extract_parameters,
@@ -1641,7 +1697,7 @@ def phase_paper_flow(torch, device, card, errs):
         print(f"paper flow: select(3, 8, {mode!r}) = {cands[mode]}")
         check(cands[mode] == Candidate(**want),
               f"select {mode}: {cands[mode]} is not the JAX package's")
-    launches, times, mse = {}, {}, {}
+    launches, times, mse, nets = {}, {}, {}, {}
     tmp = tempfile.TemporaryDirectory(prefix="paper_flow_")
     sys.path.insert(0, tmp.name)
     try:
@@ -1662,6 +1718,7 @@ def phase_paper_flow(torch, device, card, errs):
             check(np.isfinite(list(m.values())).all() and m["r2"] > 0.99,
                   f"{act} training: {m}")
             bundle = extract_parameters(params)
+            nets[act] = (bundle, ds.scale, ds.offset)
             pkgs = [generate_core(f"chen_383_{act}_{mode}", tmp.name,
                                   params=bundle, candidate=cand,
                                   system="chen", activation=act,
@@ -1773,7 +1830,7 @@ def phase_paper_flow(torch, device, card, errs):
           f"{mse['sigmoid']:.4g} (the JAX test's ordering: tanh < sigmoid)")
     check(mse["tanh"] < mse["sigmoid"],
           f"Table II ordering tanh < sigmoid fails: {mse}")
-    return launches, times
+    return launches, times, nets
 
 
 def paper_kernel_times(torch, device, w, act, dtype, tag, card, errs):
@@ -1836,6 +1893,447 @@ def paper_kernel_times(torch, device, w, act, dtype, tag, card, errs):
           f"{t['traj_bound'][1]}); plain {t['traj_plain_ms']:.1f} ms; "
           f"card {card}")
     return t
+
+
+def train_gen_nets(torch, device, card, chen_nets):
+    """The 3-8-3 tanh and sigmoid nets of phase 11: chen's from phase 10
+    (``chen_nets``), the others trained on the card per activation, on
+    one ``make_dataset(system, GEN_SAMPLES)`` a system.  Returns
+    {(system, activation): (numpy bundle, scale, offset)}."""
+    from repro_torch.core.ann import AnnConfig, extract_parameters, train
+    from repro_torch.core.chaotic import make_dataset
+    nets = {("chen", act): chen_nets[act] for act in PAPER_ACTIVATIONS}
+    for system in GEN_SYSTEMS[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = make_dataset(system, n_samples=GEN_SAMPLES, device=device)
+        print(f"generated farm: {system} dataset, {GEN_SAMPLES} samples, "
+              f"RK-4 on the card {time.perf_counter() - t0:.2f} s")
+        for act in PAPER_ACTIVATIONS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, hist = train(AnnConfig(dim=3, hidden=8, activation=act),
+                                 ds, epochs=PAPER_EPOCHS, batch_size=256,
+                                 lr=3e-3, device=device)
+            torch.cuda.synchronize()
+            m = hist["test_metrics"]
+            print(f"generated farm: {system} {act} trained {PAPER_EPOCHS} "
+                  f"epochs on the card in {time.perf_counter() - t0:.1f} s; "
+                  f"MSE={m['mse']:.4g} R2={m['r2']:.6f}; card {card}")
+            check(np.isfinite(list(m.values())).all(),
+                  f"{system} {act} training: {m}")
+            nets[(system, act)] = (extract_parameters(params), ds.scale,
+                                   ds.offset)
+    return nets
+
+
+def write_gen_dir(farm_dir, nets) -> None:
+    """``generate_farm`` (relu, every registered system, "pareto") and a
+    ``generate_core`` for each trained net as ``<system>_<activation>``
+    on ``select(3, 8, "pareto")``; every ``Candidate`` printed and held to
+    the JAX package's (GEN_SELECT)."""
+    from repro_torch.core.codegen import generate_core, generate_farm
+    from repro_torch.core.dse import Candidate, select
+    for name, pkg in generate_farm(farm_dir).items():
+        cand = Candidate(**json.loads(
+            (pkg / "solution.json").read_text())["candidate"])
+        print(f"generated farm: generate_farm {name}: {cand}")
+        check(cand == Candidate(**GEN_SELECT[(cand.i_dim, cand.h_dim)]),
+              f"generate_farm {name}: {cand} is not the JAX package's")
+    cand = select(3, 8, "pareto")
+    print(f"generated farm: select(3, 8, 'pareto') = {cand}")
+    check(cand == Candidate(**GEN_SELECT[(3, 8)]),
+          f"select(3, 8, 'pareto'): {cand} is not the JAX package's")
+    for (system, act), (bundle, scale, offset) in sorted(nets.items()):
+        generate_core(f"{system}_{act}", farm_dir, params=bundle,
+                      candidate=cand, system=system, activation=act,
+                      scale=scale, offset=offset)
+
+
+def gen_farm(torch, device, farm_dir, tag, gang=True):
+    """The generated farm: bf16 through ``from_generated``; f32 as the
+    same cores and (clamped) solutions at dtype_bytes=4 through
+    ``add_core``."""
+    from repro_torch.serve.farm import OscillatorFarm
+    farm = OscillatorFarm.from_generated(farm_dir, gang=gang, profile=True,
+                                         device=device)
+    if tag == "bf16":
+        return farm
+    f32 = OscillatorFarm(gang=gang, profile=True, device=device)
+    for name, svc in farm.services.items():
+        with np.load(pathlib.Path(farm_dir) / name / "weights.npz") as npz:
+            weights = dict(npz)
+        f32.add_core(name, weights, config=dataclasses.replace(
+            svc.config, dtype_bytes=4), dtype=torch.float32,
+            activation=svc.activation)
+    return f32
+
+
+class GangRecorder:
+    """Wraps ``ops.chaotic_bits_gang`` / ``_stacked`` (what the farm calls)
+    while active: each call on the card is recorded with its inputs, its
+    outputs, its activation, and the launches its wrapper counted for it.
+    ``replay`` then holds every recorded launch against the plain gang
+    scan on the same inputs, bitwise, and times it."""
+
+    NAMES = {"chaotic_bits_gang": "chaotic_ann_gang_bits",
+             "chaotic_bits_gang_stacked": "chaotic_ann_gang_stacked"}
+
+    def __init__(self, torch):
+        from repro_torch.kernels import chaotic_ann, ops
+        self.torch, self.ops, self.chaotic_ann = torch, ops, chaotic_ann
+        self.orig = {f: getattr(ops, f) for f in self.NAMES}
+        self.calls = []
+
+    def __enter__(self):
+        for f, kernel in self.NAMES.items():
+            setattr(self.ops, f, self._wrap(f, kernel))
+        return self
+
+    def __exit__(self, *exc):
+        for f, fn in self.orig.items():
+            setattr(self.ops, f, fn)
+
+    def _wrap(self, f, kernel):
+        def call(params, x0, n_steps, word_offset=0, **kw):
+            counter = getattr(self.chaotic_ann, kernel)
+            n0 = counter.launches
+            x_in = x0.clone()
+            out = self.orig[f](params, x0, n_steps, word_offset, **kw)
+            self.calls.append(dict(
+                kernel=kernel, f=f, params=params, x0=x_in,
+                n_steps=n_steps, word_offset=word_offset, kw=kw, out=out,
+                activation=kw.get("activation", "relu"),
+                launches=counter.launches - n0))
+            return out
+        return call
+
+    def rows(self, rec):
+        """The word rows each lane (K3: (S,)) or core (K4: (C, 1))
+        computes, as an int64 tensor on the card."""
+        torch, chaotic_ann = self.torch, self.chaotic_ann
+        n_rows, rm = rec["n_steps"] // 2, rec["kw"].get("row_map")
+        if rec["f"] == "chaotic_bits_gang_stacked":
+            n_cores = rec["x0"].shape[0]
+            rows = (np.full(n_cores, n_rows) if rm is None
+                    else np.minimum(rm, n_rows))
+            return torch.as_tensor(rows.astype(np.int64),
+                                   device=rec["x0"].device)[:, None]
+        cfg = rec["kw"]["config"]
+        n_blocks = len(rec["kw"]["core_map"])
+        rows = (np.full(n_blocks, n_rows) if rm is None else
+                chaotic_ann.gang_effective_rows(rm, rec["n_steps"],
+                                                cfg.t_block, cfg.unroll))
+        return torch.as_tensor(np.repeat(rows, cfg.s_block).astype(np.int64),
+                               device=rec["x0"].device)
+
+    def replay(self, rec, tag):
+        """``rec``'s words (the rows asked for) and state against the
+        plain gang scan, bitwise; the kernel's and the plain scan's device
+        times and the launch's bound.  Returns (err, times)."""
+        torch = self.torch
+        orig = self.orig[rec["f"]]
+        args = (rec["params"], rec["x0"], rec["n_steps"], rec["word_offset"])
+        plain_kw = dict(rec["kw"], backend="ref")
+        (words_p, state_p), plain_ms = timed_once(
+            torch, lambda: orig(*args, **plain_kw))
+        words_k, state_k = rec["out"]
+        lane_rows = self.rows(rec)
+        e = max(masked_err(torch, words_k, words_p, lane_rows),
+                max_abs_err(torch, state_k, state_p))
+        del words_p, state_p
+        t = {"ms": cuda_ms(torch, lambda: orig(*args, **rec["kw"]), reps=10,
+                           warmup=2), "plain_ms": plain_ms}
+        x0 = rec["x0"]
+        n_cores, i_dim, h_dim = rec["params"]["w1"].shape
+        n_lanes = x0.numel() // i_dim
+        # K3's rows are per lane; K4's per core, for each of its lanes
+        n_words = int(lane_rows.sum()) * (x0.shape[1] if x0.ndim == 3 else 1)
+        item = x0.element_size()
+        n_maps = n_cores if x0.ndim == 3 else 2 * len(rec["kw"]["core_map"])
+        # x0 read, state written, offsets, weights and maps read, the words
+        # computed written
+        n_bytes = (2 * n_lanes * i_dim * item + n_lanes * 4
+                   + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
+                   + n_maps * 4 + n_words * 4)
+        extra = h_dim * ACT_OPS[rec["activation"]]
+        t["bound"] = bound(n_words * 2 * step_flops(i_dim, h_dim), n_bytes,
+                           tag, f32_flops=n_words * 2 * extra)
+        t["ops_step"] = step_flops(i_dim, h_dim) + extra
+        t["words"] = n_words
+        return e, t
+
+
+def check_gen_gang_kernels(torch, device, nets, errs) -> None:
+    """tanh/sigmoid K3 (ragged rows) and K4 (a frozen core, a ragged lane
+    count) against their plain versions, bitwise, in both dtypes: on the
+    four trained 3-8-3 nets of an activation and on two seeded 4-16-4
+    nets; K4 also at F1's shape with unequal demands.  Each net's words
+    must differ from relu's."""
+    from repro_torch.kernels import chaotic_ann, ref
+    keys = ("w1", "b1", "w2", "b2")
+    rng = np.random.default_rng(12)
+    seeded = [rng.normal(0.0, s, (2,) + shape).astype(np.float32)
+              for s, shape in ((0.5, (4, 16)), (0.1, (16,)),
+                               (0.5, (16, 4)), (0.1, (4,)))]
+    steps = GEN_CHECK_STEPS
+    t0 = time.perf_counter()
+    for act in PAPER_ACTIVATIONS:
+        gangs = {"3-8": [np.stack([np.asarray(nets[(s, act)][0][k],
+                                              np.float32)
+                                   for s in GEN_SYSTEMS]) for k in keys],
+                 "4-16": seeded}
+        for gang, ws in gangs.items():
+            w = [torch.as_tensor(a, device=device) for a in ws]
+            n_cores, i_dim = w[0].shape[:2]
+            n_lanes = GEN_CHECK_BLOCKS * GANG_S_BLOCK
+            core_map = np.arange(GEN_CHECK_BLOCKS) % n_cores
+            x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+            off = torch.as_tensor(rng.integers(0, 1 << 32, n_lanes,
+                                               dtype=np.int64), device=device)
+            xs_np = rng.uniform(-0.9, 0.9, (n_cores, GEN_STACK_LANES, i_dim)
+                                ).astype(np.float32)
+            offs = torch.as_tensor(rng.integers(
+                0, 1 << 32, (n_cores, GEN_STACK_LANES), dtype=np.int64),
+                device=device)
+            rows = chaotic_ann.gang_effective_rows(
+                GEN_K3_ROW_MAP, steps, FARM_T_BLOCK, FARM_UNROLL)
+            lane_rows = torch.as_tensor(
+                np.repeat(rows, GANG_S_BLOCK).astype(np.int64), device=device)
+            srow_map = GEN_K4_ROW_MAP[:n_cores]
+            core_rows = torch.as_tensor(np.minimum(srow_map, steps // 2),
+                                        device=device)[:, None]
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+                xs = torch.as_tensor(xs_np, device=device).to(dtype)
+                kw = dict(n_steps=steps, s_block=GANG_S_BLOCK,
+                          t_block=FARM_T_BLOCK, unroll=FARM_UNROLL)
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, GEN_K3_ROW_MAP, activation=act,
+                    **kw)
+                relu_k, _ = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, GEN_K3_ROW_MAP, **kw)
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0, core_map, steps, off, rows, act)
+                e3 = max(masked_err(torch, words_k, words_p, lane_rows),
+                         max_abs_err(torch, state_k, state_p))
+                differs = masked_err(torch, words_k, relu_k, lane_rows) > 0
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                    *w, xs, offs, srow_map, n_steps=steps, activation=act)
+                words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                    *w, xs, steps, offs, srow_map, act)
+                e4 = max(masked_err(torch, words_k, words_p, core_rows),
+                         max_abs_err(torch, state_k, state_p))
+                torch.cuda.synchronize()
+                print(f"check gang {act} {gang} {tag}: chaotic_ann_gang_bits "
+                      f"(C={n_cores}, {GEN_CHECK_BLOCKS} blocks x "
+                      f"{GANG_S_BLOCK} lanes, rows {sorted(set(rows.tolist()))}"
+                      f") max_abs_err={e3}, words differ from relu's: "
+                      f"{differs}; chaotic_ann_gang_stacked (C={n_cores} x "
+                      f"{GEN_STACK_LANES} lanes, rows "
+                      f"{np.minimum(srow_map, steps // 2).tolist()}) "
+                      f"max_abs_err={e4}")
+                check(e3 == 0.0 and e4 == 0.0,
+                      f"{act} K3/K4 != plain ({gang}, {tag})")
+                check(differs, f"{act} K3 words equal relu's ({gang}, {tag})"
+                               f": the check cannot see a silent relu")
+                for name, e in (("chaotic_ann_gang_bits", e3),
+                                ("chaotic_ann_gang_stacked", e4)):
+                    errs[(name, act, tag)] = max(
+                        errs.get((name, act, tag), 0.0), e)
+        # K4 at F1's shape (4 x 16,384 lanes, 128 rows) with unequal
+        # demands: a frozen core's threads stop at its rows
+        w = [torch.as_tensor(a, device=device) for a in gangs["3-8"]]
+        n_lanes = FARM_CLIENTS * LANES_PER_CLIENT
+        xs_np = rng.uniform(-0.9, 0.9, (4, n_lanes, 3)).astype(np.float32)
+        offs = torch.as_tensor(rng.integers(0, 1 << 32, (4, n_lanes),
+                                            dtype=np.int64), device=device)
+        f1_steps = 2 * FARM_WORDS // LANES_PER_CLIENT
+        core_rows = torch.as_tensor(np.minimum(GEN_F1_ROW_MAP, f1_steps // 2),
+                                    device=device)[:, None]
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            xs = torch.as_tensor(xs_np, device=device).to(dtype)
+            words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                *w, xs, offs, GEN_F1_ROW_MAP, n_steps=f1_steps,
+                activation=act)
+            words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                *w, xs, f1_steps, offs, GEN_F1_ROW_MAP, act)
+            e = max(masked_err(torch, words_k, words_p, core_rows),
+                    max_abs_err(torch, state_k, state_p))
+            torch.cuda.synchronize()
+            print(f"check gang {act} 3-8 {tag} at F1's shape: "
+                  f"chaotic_ann_gang_stacked (4 x {n_lanes} lanes, rows "
+                  f"{GEN_F1_ROW_MAP}) max_abs_err={e}")
+            check(e == 0.0, f"{act} K4 != plain at F1's shape ({tag})")
+            key = ("chaotic_ann_gang_stacked", act, tag)
+            errs[key] = max(errs.get(key, 0.0), e)
+    print(f"tanh/sigmoid gang kernel checks: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
+    """Phase 11 for one dtype: the generated farm (relu, tanh and sigmoid
+    3-8-3 cores on one config, hyperlorenz alone), 128 clients x 128 lanes
+    a core; three flushes (F1 uniform: one K4 launch a group; F2 skewed:
+    the chen cores hot; F3 one more client on each lorenz core: one K3
+    launch a group), each with the launch counters zeroed just before it
+    and read just after, held against a gang=False farm (solo K1 per
+    core); every gang launch of the flushes against the plain gang scan
+    on its inputs, bitwise; one gang group per activation.  Returns
+    ({(kernel, activation): launches}, {(kernel, activation, flush):
+    times}, flush walls)."""
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.serve.farm import _compat_key
+    farm = gen_farm(torch, device, farm_dir, tag)
+    solo = gen_farm(torch, device, farm_dir, tag, gang=False)
+    cores = farm.cores
+    groups = {}
+    for c in cores:
+        groups.setdefault(_compat_key(farm.services[c]), []).append(c)
+    by_act = {farm.services[g[0]].activation: sorted(g)
+              for g in groups.values() if len(g) > 1}
+    solos = sorted(g[0] for g in groups.values() if len(g) == 1)
+    print(f"generated farm {tag}: {len(cores)} cores; gang groups "
+          f"{by_act}; alone {solos}; config "
+          f"{farm.services[GEN_HOT].config}")
+    check(sorted(by_act) == ["relu", "sigmoid", "tanh"]
+          and all(len(g) == len(GEN_SYSTEMS) for g in by_act.values())
+          and all(farm.services[c].activation == a
+                  for a, g in by_act.items() for c in g)
+          and solos == ["hyperlorenz"],
+          f"generated farm {tag}: expected one group of "
+          f"{len(GEN_SYSTEMS)} per activation and hyperlorenz alone")
+    clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
+    t_register = register_all(torch, (farm, solo), clients, 7000)
+    hot = {c: HOT_WORDS if c.startswith(GEN_HOT) else COLD_WORDS
+           for c in cores}
+    flushes = (("F1", {c: FARM_WORDS for c in cores}), ("F2", hot),
+               ("F3", {c: FARM_WORDS for c in cores}))
+    path, times, walls = {}, {}, {}
+    for label, words in flushes:
+        if label == "F3":                  # unequal pools: one more client
+            for f in (farm, solo):
+                for c in cores:
+                    if c.startswith(GEN_F3):
+                        f.register(c, f"c{FARM_CLIENTS}", seed=99)
+        request_all((farm, solo), words)
+        with GangRecorder(torch) as rec:
+            _, got, decisions, _, n_launched, walls[label] = counted_flush(
+                torch, farm, solo, f"generated farm {tag} {label}", card)
+        acts = {}
+        for r in rec.calls:
+            acts.setdefault(r["kernel"], []).append(r["activation"])
+            key = (r["kernel"], r["activation"])
+            path[key] = path.get(key, 0) + r["launches"]
+        print(f"generated farm {tag} {label}: gang launches by activation "
+              f"{ {k: sorted(v) for k, v in acts.items()} }")
+        check(all(r["launches"] == 1 for r in rec.calls)
+              and sum(got[k] for k in GangRecorder.NAMES.values())
+              == len(rec.calls),
+              f"generated farm {tag} {label}: each gang call must count one "
+              f"launch ({got}, {len(rec.calls)} calls)")
+        check(got["chaotic_ann_mxu_gang_bits"] + got["chaotic_ann_mxu_bits"]
+              + got["chaotic_ann_lattice_gang_bits"]
+              + got["chaotic_ann_lattice_gang_stacked"] == 0,
+              f"generated farm {tag} {label}: a lattice or mxu kernel "
+              f"launched ({got})")
+        one_each = ["relu", "sigmoid", "tanh"]
+        if label == "F1":
+            check(decisions == {"padded": 3}
+                  and sorted(acts.get("chaotic_ann_gang_stacked", []))
+                  == one_each
+                  and got["chaotic_ann_gang_bits"] == 0
+                  and got["chaotic_ann_bits"] == 1 and n_launched == 4,
+                  f"generated farm {tag} F1: expected one padded K4 launch "
+                  f"an activation and one K1 launch, got {decisions} {got}")
+        elif label == "F2":
+            check("padded" not in decisions and got["chaotic_ann_gang_bits"]
+                  + got["chaotic_ann_gang_stacked"] + got["chaotic_ann_bits"]
+                  > 0, f"generated farm {tag} F2: expected ragged or split, "
+                       f"got {decisions} {got}")
+        else:
+            check(decisions == {"padded": 3}
+                  and sorted(acts.get("chaotic_ann_gang_bits", []))
+                  == one_each
+                  and got["chaotic_ann_gang_stacked"] == 0
+                  and got["chaotic_ann_bits"] == 1,
+                  f"generated farm {tag} F3: expected one padded K3 launch "
+                  f"an activation and one K1 launch, got {decisions} {got}")
+        # every gang launch of the flush against the plain gang scan on
+        # the card, and timed at the flush's own shape (not counted as
+        # path launches)
+        for r in rec.calls:
+            e, t = rec.replay(r, tag)
+            name, act = r["kernel"], r["activation"]
+            rows = rec.rows(r)
+            print(f"check generated farm {tag} {label}: {name} {act} "
+                  f"(x0 {tuple(r['x0'].shape)}, rows "
+                  f"{sorted(set(rows.flatten().tolist()))}) against the "
+                  f"plain gang scan: max_abs_err={e}"
+                  + (f"; {t['ms']:.4f} ms (bound {t['bound'][0]:.4f} ms by "
+                     f"{t['bound'][1]}, {t['ops_step']} ops a step, "
+                     f"{t['words']} words; plain {t['plain_ms']:.1f} ms); "
+                     f"card {card}"))
+            check(e == 0.0, f"generated farm {tag} {label}: {name} {act} "
+                            f"!= plain")
+            errs[(name, act, tag)] = max(errs.get((name, act, tag), 0.0), e)
+            times[(name, act, label)] = t
+        del rec
+    for name in GangRecorder.NAMES.values():
+        for act in ("relu",) + PAPER_ACTIVATIONS:
+            check(path.get((name, act), 0) > 0,
+                  f"{name} {act} not launched on the {tag} generated farm")
+    print(f"generated farm {tag}: {len(cores)} cores x {FARM_CLIENTS} "
+          f"clients x {LANES_PER_CLIENT} lanes; register {t_register:.3f} s "
+          f"per farm; every flush bitwise equal to the gang=False farm; "
+          f"walls ms " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                   for k, v in walls.items()))
+    return path, times, walls
+
+
+def phase_generated_farm(torch, device, card, chen_nets, errs):
+    """Phase 11: the nets, the farm directory, the tanh/sigmoid K3/K4
+    checks, then the farm path per dtype.  Returns the ``kernels`` rows
+    of tanh and sigmoid K3/K4."""
+    import tempfile
+    nets = train_gen_nets(torch, device, card, chen_nets)
+    check_gen_gang_kernels(torch, device, nets, errs)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="generated_farm_") as tmp:
+        write_gen_dir(tmp, nets)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            path, times, walls = phase_gen_farm(torch, device, dtype, tag,
+                                                card, tmp, errs)
+            # K4 at F1 and K3 at F3 (each padded, one launch a group, as
+            # the flush checks hold), and whichever ran at F2 (ragged)
+            for name, flush in (("chaotic_ann_gang_stacked", "F1"),
+                                ("chaotic_ann_gang_bits", "F3")):
+                for act in PAPER_ACTIVATIONS:
+                    t = times[(name, act, flush)]
+                    row = {
+                        "name": f"{name}/{act}/{tag}", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+                        "replaces": REPLACES[name], "path": "generated-farm",
+                        "launches": path[(name, act)],
+                        "max_abs_err": errs[(name, act, tag)],
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                        "library_ms": None, "shape": f"{flush} padded",
+                        "ops_step": t["ops_step"],
+                        "relu_ms": times[(name, "relu", flush)]["ms"],
+                        "flush_wall_ms": {k: v * 1e3
+                                          for k, v in walls.items()},
+                        "form": (f"vpu scalar, {act} (_activation, "
+                                 f"src/repro/kernels/chaotic_ann.py:44-45)"),
+                    }
+                    f2 = times.get((name, act, "F2"))
+                    if f2:
+                        row.update(
+                            ms_f2=f2["ms"], plain_ms_f2=f2["plain_ms"],
+                            bound_ms_f2=f2["bound"][0],
+                            relu_ms_f2=times[(name, "relu", "F2")]["ms"])
+                    rows.append(row)
+    return rows
 
 
 def nist3(words: np.ndarray):
@@ -1999,7 +2497,7 @@ def main() -> int:
     phase_done("mxu farm path")
     phase_activation_hook(torch, device)
     phase_done("activation check")
-    launches, times = phase_paper_flow(torch, device, card, errs)
+    launches, times, chen_nets = phase_paper_flow(torch, device, card, errs)
     for (name, act, tag), n in sorted(launches.items()):
         key = "bits" if name == "chaotic_ann_bits" else "traj"
         t = times[(act, tag)]
@@ -2017,6 +2515,8 @@ def main() -> int:
                      f"src/repro/kernels/chaotic_ann.py:44-45)"),
         })
     phase_done("paper flow")
+    rows += phase_generated_farm(torch, device, card, chen_nets, errs)
+    phase_done("generated farm")
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
     print(f"card: {card}")

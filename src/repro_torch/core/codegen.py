@@ -19,12 +19,15 @@ solution.  ``generate_core`` emits, per solution, a Python package:
   <name>/solution.json the selected ``candidate``, ``system`` and
                        ``activation``
 
+``generate_farm`` emits one such core per registered system (the JAX
+package's heterogeneous farm), the input of
+``serve.farm.OscillatorFarm.from_generated``.
+
 The JAX package's ``solution.json`` also carries ``estimated`` and
 ``measured_model``: the v5e cycle and VMEM model's numbers for the
 solution.  They describe no property of this card, so the port leaves
 them out.  A generated package imports only numpy, torch and
-``repro_torch``.  ``generate_farm`` (a core per registered system) is not
-ported (ROADMAP.md queue 2, 'K3 and K4: tanh and sigmoid').
+``repro_torch``.
 """
 from __future__ import annotations
 
@@ -32,11 +35,14 @@ import dataclasses
 import json
 import os
 import pathlib
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
-from repro_torch.core.dse import Candidate
+from repro_torch.core.ann import lattice_meta_tuple
+from repro_torch.core.chaotic import SYSTEMS
+from repro_torch.core.dse import Candidate, CostModel, LatencyModel, select
+from repro_torch.prng.stream import trained_oscillator
 
 _CORE_TEMPLATE = '''"""Auto-generated by repro_torch.core.codegen: do not edit.
 
@@ -224,3 +230,43 @@ def generate_core(name: str, out_dir, *, params: Dict[str, np.ndarray],
         "activation": activation,
     }, indent=2))
     return out
+
+
+def generate_farm(out_dir, systems=None, *, mode: str = "pareto",
+                  p: Optional[int] = None,
+                  overrides: Optional[Dict[str, Dict]] = None,
+                  latency_model: Optional[LatencyModel] = None,
+                  cost_model: Optional[CostModel] = None
+                  ) -> Dict[str, pathlib.Path]:
+    """Emit one relu core per chaotic system: the heterogeneous farm.
+
+    For each system: the committed weights and normalizer
+    (``prng.stream.trained_oscillator``), the solution ``select`` picks for
+    the system's (I, H) (``n_nodes`` threaded through for a lattice), and
+    ``generate_core`` under the system's name.  ``systems`` defaults to
+    every registered system; a lattice spec (``"chen@ring8"``) is emitted
+    as ``chen_ring8``, its weights carrying ``coupling`` and
+    ``lattice_meta``.  ``mode``/``p`` are the ``select`` option for every
+    system, ``overrides`` a per-system ``{"mode": ..., "p": ...}``.  The
+    two models are fitted once and shared by every system's selection.
+    Returns {system name: generated package path}.
+    """
+    systems = tuple(SYSTEMS) if systems is None else tuple(systems)
+    lm = latency_model or LatencyModel.fit()
+    cm = cost_model or CostModel.fit()
+    cores: Dict[str, pathlib.Path] = {}
+    for name in systems:
+        bundle = trained_oscillator(name)
+        params = {k: bundle[k] for k in ("w1", "b1", "w2", "b2", "coupling",
+                                         "lattice_meta") if k in bundle}
+        i_dim, h_dim = params["w1"].shape
+        n_nodes = 1
+        if "lattice_meta" in params:
+            n_nodes = lattice_meta_tuple(params["lattice_meta"])[0]
+        o = (overrides or {}).get(name, {})
+        cand = select(i_dim, h_dim, o.get("mode", mode), p=o.get("p", p),
+                      latency_model=lm, cost_model=cm, n_nodes=n_nodes)
+        cores[name] = generate_core(
+            name.replace("@", "_"), out_dir, params=params, candidate=cand,
+            system=name, scale=bundle["scale"], offset=bundle["offset"])
+    return cores

@@ -457,7 +457,10 @@ class GangCostModel:
     The ragged stacked (freeze) layout is still charged the group's max
     rows, as on the TPU, though the CUDA K4 stops a frozen core's threads
     at its demand; ``fit`` (ROADMAP.md queue 1, 'DSE on a Hopper model')
-    is where measured launches will correct these inputs.
+    is where measured launches will correct these inputs.  Like the JAX
+    model, it does not price the activation: a tanh or sigmoid group is
+    priced at relu's ``step_ops`` (107 ops a 3-8-3 step, against 307 /
+    347).  A plan shapes launches only; it never changes words.
     """
 
     launch_overhead_cycles: float = GANG_LAUNCH_OVERHEAD_CYCLES

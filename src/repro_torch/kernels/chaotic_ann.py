@@ -14,10 +14,11 @@ the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
 ``chaotic_ann_gang_bits`` / ``chaotic_ann_gang_stacked``:
 ``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``),
 and K3 on the mxu unit (``compute_unit="mxu"`` on ``chaotic_ann_gang_bits``:
-``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  The scalar vpu K1 and
-K2 take relu, tanh and sigmoid; every other form takes relu only and
-raises ``NotImplementedError`` naming its ROADMAP.md item (``activation``
-evaluates the kernels' tanh and sigmoid alone, a check hook).
+``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  The scalar vpu K1,
+K2, K3 and K4 take relu, tanh and sigmoid; the lattice and mxu forms take
+relu only and raise ``NotImplementedError`` naming their ROADMAP.md item
+(``activation`` evaluates the kernels' tanh and sigmoid alone, a check
+hook).
 """
 from __future__ import annotations
 
@@ -38,9 +39,8 @@ _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # chaotic_ann.cu's activation codes (kRelu, kTanh, kSigmoid)
 _ACTIVATION_CODES = {"relu": 0, "tanh": 1, "sigmoid": 2}
 # The ROADMAP.md items that port tanh and sigmoid to the kernel forms that
-# take relu only (the scalar vpu K1 and K2 take all three).
-TODO_NON_RELU = {"gang": "queue 2, 'K3 and K4: tanh and sigmoid'",
-                 "lattice": "queue 2, 'Lattice forms: tanh and sigmoid'",
+# take relu only (the scalar vpu K1-K4 take all three).
+TODO_NON_RELU = {"lattice": "queue 2, 'Lattice forms: tanh and sigmoid'",
                  "mxu": "queue 2, 'mxu forms: tanh and sigmoid'"}
 
 
@@ -57,11 +57,12 @@ def _lib() -> ctypes.CDLL:
     lib.chaotic_ann_activation_launch.argtypes = (
         [_c_int] * 3 + [_c_ptr] * 2 + [_c_i64, _c_ptr])
     lib.chaotic_ann_activation_launch.restype = _c_int
+    # (device, dtype, activation, i_dim, h_dim) as in the K1/K2 entries
     lib.chaotic_ann_gang_bits_launch.argtypes = (
-        [_c_int] * 4 + [_c_ptr] * 10 + [_c_i64] * 3 + [_c_ptr])
+        [_c_int] * 5 + [_c_ptr] * 10 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_gang_bits_launch.restype = _c_int
     lib.chaotic_ann_gang_stacked_launch.argtypes = (
-        [_c_int] * 4 + [_c_ptr] * 9 + [_c_i64] * 3 + [_c_ptr])
+        [_c_int] * 5 + [_c_ptr] * 9 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_gang_stacked_launch.restype = _c_int
     lib.chaotic_ann_lattice_bits_launch.argtypes = (
         [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 8
@@ -92,8 +93,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_activation(activation: str, form: Optional[str] = None) -> int:
-    """The activation's code for the scalar vpu K1/K2 (``form`` None);
-    the ``form`` kernels ("gang", "lattice", "mxu") take relu only."""
+    """The activation's code for the scalar vpu K1-K4 (``form`` None);
+    the ``form`` kernels ("lattice", "mxu") take relu only."""
     if activation not in _ACTIVATION_CODES:
         raise ValueError(f"activation must be one of "
                          f"{sorted(_ACTIVATION_CODES)}, got {activation!r}")
@@ -175,7 +176,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     ``chaotic_ann_mxu_bits`` (a lattice with its dense ``coupling``).
 
     ``activation`` relu, tanh or sigmoid (the kernel's template
-    parameter; the other forms take relu only).
+    parameter; the lattice and mxu forms take relu only).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
     Bound on the H100: operations.  Each word costs 2 steps of
@@ -271,7 +272,7 @@ chaotic_ann_traj.launches = 0
 
 def activation(x: torch.Tensor, name: str) -> torch.Tensor:
     """The kernels' activation alone, elementwise: phi(x) in x's dtype, as
-    the scalar vpu K1/K2 step applies it (``ref.ACTIVATIONS``, the JAX
+    the scalar vpu K1-K4 step applies it (``ref.ACTIVATIONS``, the JAX
     package's ``jnp.tanh`` / ``jax.nn.sigmoid`` formulas).  A check hook
     that holds the device formulas against the plain ones on many inputs;
     no path calls it.  A contiguous float32 or bfloat16 tensor.
@@ -656,11 +657,15 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     descriptor for every core) takes the lattice form,
     ``chaotic_ann_lattice_gang_bits``; ``compute_unit="mxu"`` the mxu
     unit, ``chaotic_ann_mxu_gang_bits`` (a lattice group with its one
-    shared dense ``coupling``).
+    shared dense ``coupling``).  ``activation`` relu, tanh or sigmoid on
+    the scalar vpu form (the kernel's template parameter, as K1's); the
+    lattice and mxu forms take relu only.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
     (K3).  Bound on the H100: operations, as K1: 2 steps of
-    (4*I*H + H + I) separate ops per word, summed over the rows each block
+    (4*I*H + H + I) separate ops per word, plus H times the activation's
+    formula ops a step (tanh 25, sigmoid 30 per hidden unit: 307 / 347
+    ops a 3-8-3 step against relu's 107), summed over the rows each block
     really computes, against 4 bytes written per word.  Design: K1's
     thread per lane; a 128-lane CTA lies inside one lane block (``s_block``
     is a multiple of 128), reads its block's core and rows, and stages
@@ -679,7 +684,7 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
             w1, b1, w2, b2, x0, core_map, word_offset, row_map,
             n_steps=n_steps, lattice=lattice, s_block=s_block,
             t_block=t_block, unroll=unroll, activation=activation)
-    _check_activation(activation, "gang")
+    act = _check_activation(activation)
     n_cores = w1.shape[0]
     cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
                             t_block, unroll)
@@ -701,7 +706,7 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_gang_bits_launch(
-        x0.device.index, code, *w1.shape[-2:],
+        x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), maps[0].data_ptr(),
         maps[1].data_ptr(), offsets.data_ptr(), words.data_ptr(),
         state.data_ptr(), n_lanes, s_block, n_rows,
@@ -726,15 +731,17 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     ``min(row_map[c], n_steps // 2)`` rows, with no rounding; later rows
     are unwritten.  Returns (n_steps // 2, C, S) uint32 words and the
     (C, S, I) state.  ``lattice`` takes the lattice form,
-    ``chaotic_ann_lattice_gang_stacked``.
+    ``chaotic_ann_lattice_gang_stacked`` (relu only); ``activation`` as in
+    ``chaotic_ann_gang_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_pallas``
-    (K4).  Bound on the H100: operations, as K1, summed over the rows each
-    core really computes.  Design: a 2-D grid, ``blockIdx.y`` the core,
-    whose weights the CTA stages in shared memory; each thread runs one
-    lane of that core.  The TPU's sublane stacking (one vreg sweep
-    advancing all C cores) has no counterpart: C cores are C times the
-    threads.  A frozen core's threads stop at its rows.
+    (K4).  Bound on the H100: operations, as K3 (the activation's formula
+    ops included), summed over the rows each core really computes.
+    Design: a 2-D grid, ``blockIdx.y`` the core, whose weights the CTA
+    stages in shared memory; each thread runs one lane of that core.  The
+    TPU's sublane stacking (one vreg sweep advancing all C cores) has no
+    counterpart: C cores are C times the threads.  A frozen core's threads
+    stop at its rows.
     """
     if compute_unit != "vpu":
         raise ValueError("stacked gang launches support compute_unit='vpu' "
@@ -743,7 +750,7 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
         return chaotic_ann_lattice_gang_stacked(
             w1, b1, w2, b2, x0, word_offset, row_map, n_steps=n_steps,
             lattice=lattice, activation=activation)
-    _check_activation(activation, "gang")
+    act = _check_activation(activation)
     n_cores, n_rows = w1.shape[0], n_steps // 2
     rows = _stacked_rows(x0, row_map, n_cores, n_steps)
     if x0.device.type == "cpu":
@@ -765,7 +772,7 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_gang_stacked_launch(
-        x0.device.index, code, *w1.shape[-2:],
+        x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), rows_d.data_ptr(),
         offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_cores,
         n_lanes, n_rows, torch.cuda.current_stream(x0.device).cuda_stream)

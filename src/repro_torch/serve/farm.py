@@ -16,6 +16,13 @@ each service through its ``prepare_rows()/absorb()`` halves.  Lanes
 evolve independently and word emission is defined in absolute word-row
 space, so per-client words are bit-identical to the per-core path.
 
+**Activations**: the activation is part of the key, so tanh cores gang
+with tanh cores and sigmoid with sigmoid (a directory of generated relu,
+tanh and sigmoid cores on one config makes one group per activation).  A
+scalar vpu group runs K3/K4 with its activation, as the JAX farm does;
+the lattice and mxu gang forms are relu only and raise
+``NotImplementedError`` for another activation.
+
 **Lattice cores** (``lattice_meta`` in their params) gang only with
 lattice cores of the same descriptor (n_nodes, base_dim, topology,
 strength), never with scalar cores; a vpu lattice group runs the lattice

@@ -24,6 +24,7 @@ import torch
 from repro.core.dse import Candidate as JaxCandidate
 from repro.core.dse import GangCostModel as JaxGangCostModel
 from repro.kernels import chaotic_ann as jax_ann
+from repro_torch.core.ann import lattice_meta_tuple
 from repro_torch.core.dse import Candidate, GangCostModel
 from repro_torch.kernels import chaotic_ann, ops, ref
 from repro_torch.prng.stream import default_params
@@ -319,9 +320,33 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
         assert torch.equal(ops.from_uint32(mxu_w[:, 16 * c:16 * (c + 1)]),
                            ops.from_uint32(want_w))
         assert torch.equal(mxu_s[16 * c:16 * (c + 1)], want_s)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1], n_steps=4,
-                                          s_block=128, activation="tanh")
+    # the scalar vpu gang takes tanh: each block's words and state are solo
+    # K1 tanh's; the lattice and mxu gang forms still name their items
+    tanh_w, tanh_s = chaotic_ann.chaotic_ann_gang_bits(
+        *w, xm, [0, 1], n_steps=4, s_block=16, activation="tanh")
+    for c in range(2):
+        want_w, want_s = chaotic_ann.chaotic_ann_bits(
+            *[t[c] for t in w], xm[16 * c:16 * (c + 1)], n_steps=4,
+            activation="tanh")
+        assert torch.equal(ops.from_uint32(tanh_w[:, 16 * c:16 * (c + 1)]),
+                           ops.from_uint32(want_w))
+        assert torch.equal(tanh_s[16 * c:16 * (c + 1)], want_s)
+    with pytest.raises(NotImplementedError, match="mxu forms"):
+        chaotic_ann.chaotic_ann_gang_bits(*w, xm, [0, 1], n_steps=4,
+                                          s_block=16, activation="tanh",
+                                          compute_unit="mxu")
+    ring = default_params(system="chen@ring8")
+    lw = [torch.from_numpy(np.stack([ring[k]] * 2)) for k in KEYS]
+    lattice = lattice_meta_tuple(ring["lattice_meta"])
+    lx = torch.zeros(2 * 16, 24)
+    with pytest.raises(NotImplementedError, match="Lattice forms"):
+        chaotic_ann.chaotic_ann_gang_bits(*lw, lx, [0, 1], n_steps=4,
+                                          s_block=16, lattice=lattice,
+                                          activation="sigmoid")
+    with pytest.raises(NotImplementedError, match="Lattice forms"):
+        chaotic_ann.chaotic_ann_gang_stacked(*lw, lx.reshape(2, 16, 24),
+                                             n_steps=4, lattice=lattice,
+                                             activation="tanh")
     xs = x0.reshape(2, 128, 3)
     with pytest.raises(ValueError, match="vpu"):
         chaotic_ann.chaotic_ann_gang_stacked(*w, xs, n_steps=4,

@@ -757,6 +757,60 @@ def test_activation_kernels_bitwise_vs_plain_on_card(system, dtype,
     assert not torch.equal(relu, traj)
 
 
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("gang", sorted(GANGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_gang_kernels_bitwise_vs_plain_on_card(gang, dtype,
+                                                          activation):
+    """tanh/sigmoid K3 (ragged rows) and K4 (a frozen and a clamped core)
+    equal their plain versions: the words each block or core asked for,
+    and the final states; the words differ from relu's."""
+    _need_card()
+    w = _gang_weights(gang)
+    n_cores, i_dim = w[0].shape[0], w[0].shape[1]
+    rng = np.random.default_rng(45)
+    n_steps, s_block, n_blocks = 64, 256, 6
+    core_map = np.arange(n_blocks) % n_cores
+    row_map = np.array([0, 3, 32, 17, 40, 9])
+    x0 = torch.from_numpy(_x0_np(rng, (n_blocks * s_block, i_dim))).to(
+        "cuda", dtype)
+    off = torch.from_numpy(_off_np(rng, n_blocks * s_block)).cuda()
+    kw = dict(n_steps=n_steps, s_block=s_block, t_block=256, unroll=8)
+    n0 = chaotic_ann.chaotic_ann_gang_bits.launches
+    words, state = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, off, row_map, activation=activation, **kw)
+    relu, _ = chaotic_ann.chaotic_ann_gang_bits(*w, x0, core_map, off,
+                                                row_map, **kw)
+    assert chaotic_ann.chaotic_ann_gang_bits.launches == n0 + 2
+    rows = chaotic_ann.gang_effective_rows(row_map, n_steps, 256, 8)
+    rw, rs = ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps, off,
+                                           rows, activation)
+    torch.cuda.synchronize()
+    for g, r in enumerate(rows):
+        lanes = slice(g * s_block, (g + 1) * s_block)
+        _assert_bitwise(words[:r, lanes], rw[:r, lanes])
+        if r:
+            assert not torch.equal(ops.from_uint32(words[:r, lanes]),
+                                   ops.from_uint32(relu[:r, lanes]))
+    _assert_bitwise(state, rs)
+    n_lanes = 300 + 37
+    xs = torch.from_numpy(_x0_np(rng, (n_cores, n_lanes, i_dim))).to(
+        "cuda", dtype)
+    offs = torch.from_numpy(_off_np(rng, (n_cores, n_lanes))).cuda()
+    srows = [0, 40, 13, 32][:n_cores]
+    n0 = chaotic_ann.chaotic_ann_gang_stacked.launches
+    words, state = chaotic_ann.chaotic_ann_gang_stacked(
+        *w, xs, offs, srows, n_steps=n_steps, activation=activation)
+    assert chaotic_ann.chaotic_ann_gang_stacked.launches == n0 + 1
+    rw, rs = ref.chaotic_ann_gang_stacked_ref(*w, xs, n_steps, offs, srows,
+                                              activation)
+    torch.cuda.synchronize()
+    for c in range(n_cores):
+        _assert_bitwise(words[:min(srows[c], n_steps // 2), c],
+                        rw[:min(srows[c], n_steps // 2), c])
+    _assert_bitwise(state, rs)
+
+
 def test_paper_flow_on_card_never_reaches_the_plain_version(monkeypatch,
                                                             tmp_path):
     """A generated tanh core (the DSE's lowest-cost solution, vpu bf16)
@@ -805,17 +859,18 @@ def test_paper_flow_on_card_never_reaches_the_plain_version(monkeypatch,
 
 
 def test_activation_wrappers_reject_what_the_kernels_do_not_take():
-    """tanh/sigmoid run on the scalar vpu K1/K2 only: every other form
-    names its ROADMAP.md item; an unknown activation is a ValueError."""
+    """tanh/sigmoid run on the scalar vpu K1-K4 only: the lattice and mxu
+    forms name their ROADMAP.md items; an unknown activation is a
+    ValueError."""
     _need_card()
     w, x0, off = _inputs("chen", 256, torch.float32, seed=5)
     with pytest.raises(NotImplementedError, match="mxu forms"):
         chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=4,
                                      activation="tanh", compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="K3 and K4"):
+    with pytest.raises(NotImplementedError, match="mxu forms"):
         chaotic_ann.chaotic_ann_gang_bits(
             *[t[None] for t in w], x0, [0], n_steps=4, s_block=256,
-            activation="sigmoid")
+            activation="sigmoid", compute_unit="mxu")
     lw, lattice, lx, _ = _lattice_inputs("chen@ring8", 64, torch.float32, 4)
     with pytest.raises(NotImplementedError, match="Lattice forms"):
         chaotic_ann.chaotic_ann_traj(*lw, lx, n_steps=4, lattice=lattice,

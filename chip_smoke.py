@@ -141,6 +141,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``gang=False`` farm; every gang launch of the flushes against the
    plain gang scan on its inputs, bitwise, and timed at its shape beside
    relu's launch of the same flush and its bound.
+12. Lattices of tanh and sigmoid nets: phase 10's chen nets and phase
+   11's chua, lorenz and rossler nets expanded to 8-node rings (coupling
+   0.05), chen's also to the 8-node torus; nothing is trained again.
+   First the tanh/sigmoid lattice K1, K2, K3 (ragged rows) and K4
+   (unequal demands) against their plain versions, bitwise, in both
+   dtypes, at chen@ring8, grid8, ring32 and grid32; each kernel's words
+   must differ from relu's.  Then, each part with the launch counters
+   zeroed just before it and read just after: the no-config f32
+   ``ChaoticStream.from_trained`` of the chen@ring8 lattice (its config
+   held to the JAX package's vpu choice; lattice K1; 2**20 words, the
+   first 2**17 bitwise against ``backend="ref"``; NIST printed, not
+   gated), the lattice iterated on the card (lattice K2, f32), and
+   ``generate_core`` for chen_ring8/chen_grid8 tanh and sigmoid on
+   ``select(24, 64, "pareto", n_nodes=8)`` (held to the JAX package's),
+   each ``testbench.py cuda`` in its own process, each core's
+   ``generate`` (lattice K2) and ``generate_bits`` (lattice K1) bitwise
+   against ``backend="ref"``.  Then a farm directory of ``generate_farm``
+   for the four ring8 lattices (relu) beside ``<system>_ring8_tanh`` /
+   ``_sigmoid``, served per dtype as phase 11's (128 clients x 128 lanes,
+   F1 uniform: one lattice K4 an activation; F2 the chen cores hot; F3
+   one more client on each lorenz core: one lattice K3 an activation),
+   each flush bitwise against ``gang=False`` and every gang launch
+   replayed against the plain gang scan and timed beside relu's.  Last,
+   lattice K1/K2 at chen@ring8, 65,536 lanes x 256 steps, bitwise against
+   plain and timed beside relu's, and timed at chen@ring32.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -289,6 +314,29 @@ GEN_K3_ROW_MAP = np.resize([0, 3, 128, 17, 64, 9, 200, 1], GEN_CHECK_BLOCKS)
 GEN_STACK_LANES = 4_096 + 37
 GEN_K4_ROW_MAP = [0, 13, 200, 64]
 GEN_F1_ROW_MAP = [128, 8, 77, 0]
+# phase 12, lattices of tanh and sigmoid nets: phase 10's chen nets and
+# phase 11's chua, lorenz and rossler nets expanded to 8-node rings
+# (coupling 0.05), chen's also to the 8-node torus.  The lattice K1-K4
+# checks run at every LATTICE_SHAPES entry on expansions of the four nets
+# of an activation (K1/K2 on chen's), with the lattice gang checks'
+# blocks, lanes and demands; the plain dense loop at 32 nodes is 4x the
+# ops of 8, so those run fewer steps
+LAT_ACT_SHAPES = ("chen@ring8", "chen@grid8", "chen@ring32", "chen@grid32")
+LAT_ACT_STEPS = {8: 64, 32: 16}                  # by n_nodes
+# the JAX package's choices at 8 nodes (a CPU run of repro.core.dse):
+# select_config(24, 64, s_total=256, float32, n_nodes=8), the no-config
+# stream's, and select(24, 64, "pareto", n_nodes=8), the generated cores'
+LAT_STREAM_CONFIG = dict(i_dim=24, h_dim=64, p=1, compute_unit="vpu",
+                         dtype_bytes=4, unroll=8, t_block=256, n_nodes=8)
+LAT_SELECT = dict(i_dim=24, h_dim=64, p=3, compute_unit="vpu",
+                  dtype_bytes=2, unroll=8, t_block=256, n_nodes=8)
+LAT_CORES = ("chen@ring8", "chen@grid8")        # generated, with testbench
+# the stream's words held bitwise against the plain path: its first 512
+# word rows (the plain loop's launches, not its lanes, set its time)
+LAT_STREAM_CHECK_WORDS = 1 << 17
+LAT_ATTRACTOR_STEPS = 1_000
+# lattice K1/K2 timed at lattice K1's served shape (the lattice path's)
+LAT_TIME_LANES, LAT_TIME_STEPS = 65_536, 256
 
 
 class SmokeFailure(Exception):
@@ -367,15 +415,24 @@ def step_flops(i_dim: int, h_dim: int) -> int:
     return 4 * i_dim * h_dim + h_dim + i_dim
 
 
-def lattice_step_flops(lattice, h_dim: int) -> int:
+def act_flops(h_dim: int, activation: str) -> int:
+    """Ops the activation's formula adds to a step over ``h_dim`` hidden
+    units (0 for relu), f32 ops in both state dtypes."""
+    return h_dim * ACT_OPS[activation]
+
+
+def lattice_step_flops(lattice, h_dim: int, activation: str = "relu") -> int:
     """Ops of one lattice step (``h_dim`` the lattice-expanded hidden
-    width), block-sparse work only: each node's base step, plus the
-    coupling's ops per state component (ring: neighbour sum 1, deg*x,
-    difference, scale, add into y; torus: 3 sums)."""
+    width, n_nodes x HB), block-sparse work only: each node's base step,
+    plus the coupling's ops per state component (ring: neighbour sum 1,
+    deg*x, difference, scale, add into y; torus: 3 sums), plus with tanh
+    or sigmoid the formula's ops on every hidden unit of every node
+    (``act_flops``; 976 / 2,576 / 2,896 ops at chen@ring8 for relu /
+    tanh / sigmoid, 3,904 / 10,304 / 11,584 at chen@ring32)."""
     n_nodes, base_dim, topology, _ = lattice
     per_component = 5 if topology == "ring" else 7
     return (n_nodes * step_flops(base_dim, h_dim // n_nodes)
-            + per_component * n_nodes * base_dim)
+            + per_component * n_nodes * base_dim + act_flops(h_dim, activation))
 
 
 def mxu_step_flops(i_dim: int, h_dim: int, lattice) -> int:
@@ -1733,14 +1790,8 @@ def phase_paper_flow(torch, device, card, errs):
             # and read just after: the stream (K1 f32), the trained net
             # iterated on the card (K2 f32), the min-latency core (bf16)
             def counted(fn, name, tag):
-                zero_launches(chaotic_ann)
-                out = fn()
-                torch.cuda.synchronize()
-                got = read_launches(chaotic_ann)
-                check(got[name] > 0 and sum(got.values()) == got[name],
-                      f"{act} {tag}: the path must launch {name} only, "
-                      f"got {got}")
-                launches[(name, act, tag)] = got[name]
+                out, launches[(name, act, tag)] = counted_path(
+                    torch, fn, name, f"{act} {tag}")
                 return out
 
             stream = ChaoticStream.from_trained(bundle, activation=act,
@@ -1978,6 +2029,10 @@ class GangRecorder:
 
     NAMES = {"chaotic_bits_gang": "chaotic_ann_gang_bits",
              "chaotic_bits_gang_stacked": "chaotic_ann_gang_stacked"}
+    # the wrappers that count a group of lattice cores' launches
+    LATTICE_NAMES = {
+        "chaotic_bits_gang": "chaotic_ann_lattice_gang_bits",
+        "chaotic_bits_gang_stacked": "chaotic_ann_lattice_gang_stacked"}
 
     def __init__(self, torch):
         from repro_torch.kernels import chaotic_ann, ops
@@ -1986,16 +2041,18 @@ class GangRecorder:
         self.calls = []
 
     def __enter__(self):
-        for f, kernel in self.NAMES.items():
-            setattr(self.ops, f, self._wrap(f, kernel))
+        for f in self.NAMES:
+            setattr(self.ops, f, self._wrap(f))
         return self
 
     def __exit__(self, *exc):
         for f, fn in self.orig.items():
             setattr(self.ops, f, fn)
 
-    def _wrap(self, f, kernel):
+    def _wrap(self, f):
         def call(params, x0, n_steps, word_offset=0, **kw):
+            kernel = (self.LATTICE_NAMES if "lattice_meta" in params
+                      else self.NAMES)[f]
             counter = getattr(self.chaotic_ann, kernel)
             n0 = counter.launches
             x_in = x0.clone()
@@ -2056,10 +2113,17 @@ class GangRecorder:
         n_bytes = (2 * n_lanes * i_dim * item + n_lanes * 4
                    + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
                    + n_maps * 4 + n_words * 4)
-        extra = h_dim * ACT_OPS[rec["activation"]]
-        t["bound"] = bound(n_words * 2 * step_flops(i_dim, h_dim), n_bytes,
-                           tag, f32_flops=n_words * 2 * extra)
-        t["ops_step"] = step_flops(i_dim, h_dim) + extra
+        act = rec["activation"]
+        if "lattice_meta" in rec["params"]:
+            from repro_torch.core.ann import lattice_meta_tuple
+            ops_step = lattice_step_flops(
+                lattice_meta_tuple(rec["params"]["lattice_meta"]), h_dim, act)
+        else:
+            ops_step = step_flops(i_dim, h_dim) + act_flops(h_dim, act)
+        extra = act_flops(h_dim, act)
+        t["bound"] = bound(n_words * 2 * (ops_step - extra), n_bytes, tag,
+                           f32_flops=n_words * 2 * extra)
+        t["ops_step"] = ops_step
         t["words"] = n_words
         return e, t
 
@@ -2171,7 +2235,7 @@ def check_gen_gang_kernels(torch, device, nets, errs) -> None:
     print(f"tanh/sigmoid gang kernel checks: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
+def phase_gen_farm(torch, device, tag, card, farm_dir, errs, lattice=False):
     """Phase 11 for one dtype: the generated farm (relu, tanh and sigmoid
     3-8-3 cores on one config, hyperlorenz alone), 128 clients x 128 lanes
     a core; three flushes (F1 uniform: one K4 launch a group; F2 skewed:
@@ -2179,11 +2243,17 @@ def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
     launch a group), each with the launch counters zeroed just before it
     and read just after, held against a gang=False farm (solo K1 per
     core); every gang launch of the flushes against the plain gang scan
-    on its inputs, bitwise; one gang group per activation.  Returns
-    ({(kernel, activation): launches}, {(kernel, activation, flush):
-    times}, flush walls)."""
-    from repro_torch.kernels import chaotic_ann
+    on its inputs, bitwise; one gang group per activation.  With
+    ``lattice`` phase 12's farm of ring8 lattice cores likewise, through
+    the lattice forms (no solo core; F2's chen cores draw LATTICE_WORDS).
+    Returns ({(kernel, activation): launches}, {(kernel, activation,
+    flush): times}, flush walls, {flush: profile split ms})."""
     from repro_torch.serve.farm import _compat_key
+    names = GangRecorder.LATTICE_NAMES if lattice else GangRecorder.NAMES
+    k3, k4 = names["chaotic_bits_gang"], names["chaotic_bits_gang_stacked"]
+    k1 = kernel_names(lattice)[0]
+    what = "lattice generated farm" if lattice else "generated farm"
+    solo_want = [] if lattice else ["hyperlorenz"]
     farm = gen_farm(torch, device, farm_dir, tag)
     solo = gen_farm(torch, device, farm_dir, tag, gang=False)
     cores = farm.cores
@@ -2193,23 +2263,24 @@ def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
     by_act = {farm.services[g[0]].activation: sorted(g)
               for g in groups.values() if len(g) > 1}
     solos = sorted(g[0] for g in groups.values() if len(g) == 1)
-    print(f"generated farm {tag}: {len(cores)} cores; gang groups "
+    print(f"{what} {tag}: {len(cores)} cores; gang groups "
           f"{by_act}; alone {solos}; config "
-          f"{farm.services[GEN_HOT].config}")
+          f"{farm.services[cores[0]].config}")
     check(sorted(by_act) == ["relu", "sigmoid", "tanh"]
           and all(len(g) == len(GEN_SYSTEMS) for g in by_act.values())
           and all(farm.services[c].activation == a
                   for a, g in by_act.items() for c in g)
-          and solos == ["hyperlorenz"],
-          f"generated farm {tag}: expected one group of "
-          f"{len(GEN_SYSTEMS)} per activation and hyperlorenz alone")
+          and solos == solo_want,
+          f"{what} {tag}: expected one group of {len(GEN_SYSTEMS)} per "
+          f"activation and {solo_want} alone")
     clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
     t_register = register_all(torch, (farm, solo), clients, 7000)
-    hot = {c: HOT_WORDS if c.startswith(GEN_HOT) else COLD_WORDS
+    hot_words = LATTICE_WORDS if lattice else HOT_WORDS
+    hot = {c: hot_words if c.startswith(GEN_HOT) else COLD_WORDS
            for c in cores}
     flushes = (("F1", {c: FARM_WORDS for c in cores}), ("F2", hot),
                ("F3", {c: FARM_WORDS for c in cores}))
-    path, times, walls = {}, {}, {}
+    path, times, walls, splits = {}, {}, {}, {}
     for label, words in flushes:
         if label == "F3":                  # unequal pools: one more client
             for f in (farm, solo):
@@ -2217,48 +2288,48 @@ def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
                     if c.startswith(GEN_F3):
                         f.register(c, f"c{FARM_CLIENTS}", seed=99)
         request_all((farm, solo), words)
+        prof0 = farm.profile_stats
         with GangRecorder(torch) as rec:
             _, got, decisions, _, n_launched, walls[label] = counted_flush(
-                torch, farm, solo, f"generated farm {tag} {label}", card)
+                torch, farm, solo, f"{what} {tag} {label}", card)
+        splits[label] = {k: (v - prof0[k]) * 1e3
+                         for k, v in farm.profile_stats.items()
+                         if k != "flushes"}
         acts = {}
         for r in rec.calls:
             acts.setdefault(r["kernel"], []).append(r["activation"])
             key = (r["kernel"], r["activation"])
             path[key] = path.get(key, 0) + r["launches"]
-        print(f"generated farm {tag} {label}: gang launches by activation "
+        print(f"{what} {tag} {label}: gang launches by activation "
               f"{ {k: sorted(v) for k, v in acts.items()} }")
         check(all(r["launches"] == 1 for r in rec.calls)
-              and sum(got[k] for k in GangRecorder.NAMES.values())
-              == len(rec.calls),
-              f"generated farm {tag} {label}: each gang call must count one "
+              and got[k3] + got[k4] == len(rec.calls),
+              f"{what} {tag} {label}: each gang call must count one "
               f"launch ({got}, {len(rec.calls)} calls)")
-        check(got["chaotic_ann_mxu_gang_bits"] + got["chaotic_ann_mxu_bits"]
-              + got["chaotic_ann_lattice_gang_bits"]
-              + got["chaotic_ann_lattice_gang_stacked"] == 0,
-              f"generated farm {tag} {label}: a lattice or mxu kernel "
+        check(all(v == 0 for k, v in got.items() if k not in (k3, k4, k1)),
+              f"{what} {tag} {label}: a kernel of another form "
               f"launched ({got})")
         one_each = ["relu", "sigmoid", "tanh"]
         if label == "F1":
             check(decisions == {"padded": 3}
-                  and sorted(acts.get("chaotic_ann_gang_stacked", []))
-                  == one_each
-                  and got["chaotic_ann_gang_bits"] == 0
-                  and got["chaotic_ann_bits"] == 1 and n_launched == 4,
-                  f"generated farm {tag} F1: expected one padded K4 launch "
-                  f"an activation and one K1 launch, got {decisions} {got}")
+                  and sorted(acts.get(k4, [])) == one_each and got[k3] == 0
+                  and got[k1] == len(solo_want)
+                  and n_launched == 3 + len(solo_want),
+                  f"{what} {tag} F1: expected one padded K4 launch an "
+                  f"activation and {len(solo_want)} K1, got {decisions} "
+                  f"{got}")
         elif label == "F2":
-            check("padded" not in decisions and got["chaotic_ann_gang_bits"]
-                  + got["chaotic_ann_gang_stacked"] + got["chaotic_ann_bits"]
-                  > 0, f"generated farm {tag} F2: expected ragged or split, "
-                       f"got {decisions} {got}")
+            check("padded" not in decisions
+                  and got[k3] + got[k4] + got[k1] > 0,
+                  f"{what} {tag} F2: expected ragged or split, got "
+                  f"{decisions} {got}")
         else:
             check(decisions == {"padded": 3}
-                  and sorted(acts.get("chaotic_ann_gang_bits", []))
-                  == one_each
-                  and got["chaotic_ann_gang_stacked"] == 0
-                  and got["chaotic_ann_bits"] == 1,
-                  f"generated farm {tag} F3: expected one padded K3 launch "
-                  f"an activation and one K1 launch, got {decisions} {got}")
+                  and sorted(acts.get(k3, [])) == one_each and got[k4] == 0
+                  and got[k1] == len(solo_want),
+                  f"{what} {tag} F3: expected one padded K3 launch an "
+                  f"activation and {len(solo_want)} K1, got {decisions} "
+                  f"{got}")
         # every gang launch of the flush against the plain gang scan on
         # the card, and timed at the flush's own shape (not counted as
         # path launches)
@@ -2266,7 +2337,7 @@ def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
             e, t = rec.replay(r, tag)
             name, act = r["kernel"], r["activation"]
             rows = rec.rows(r)
-            print(f"check generated farm {tag} {label}: {name} {act} "
+            print(f"check {what} {tag} {label}: {name} {act} "
                   f"(x0 {tuple(r['x0'].shape)}, rows "
                   f"{sorted(set(rows.flatten().tolist()))}) against the "
                   f"plain gang scan: max_abs_err={e}"
@@ -2274,65 +2345,516 @@ def phase_gen_farm(torch, device, dtype, tag, card, farm_dir, errs):
                      f"{t['bound'][1]}, {t['ops_step']} ops a step, "
                      f"{t['words']} words; plain {t['plain_ms']:.1f} ms); "
                      f"card {card}"))
-            check(e == 0.0, f"generated farm {tag} {label}: {name} {act} "
-                            f"!= plain")
+            check(e == 0.0, f"{what} {tag} {label}: {name} {act} != plain")
             errs[(name, act, tag)] = max(errs.get((name, act, tag), 0.0), e)
             times[(name, act, label)] = t
         del rec
-    for name in GangRecorder.NAMES.values():
+    for name in (k3, k4):
         for act in ("relu",) + PAPER_ACTIVATIONS:
             check(path.get((name, act), 0) > 0,
-                  f"{name} {act} not launched on the {tag} generated farm")
-    print(f"generated farm {tag}: {len(cores)} cores x {FARM_CLIENTS} "
+                  f"{name} {act} not launched on the {tag} {what}")
+    print(f"{what} {tag}: {len(cores)} cores x {FARM_CLIENTS} "
           f"clients x {LANES_PER_CLIENT} lanes; register {t_register:.3f} s "
           f"per farm; every flush bitwise equal to the gang=False farm; "
           f"walls ms " + ", ".join(f"{k} {v * 1e3:.1f}"
                                    for k, v in walls.items()))
-    return path, times, walls
+    return path, times, walls, splits
+
+
+def gang_act_rows(names, tag, path_name, path, times, walls, splits, errs,
+                  form):
+    """The ``kernels`` rows of tanh/sigmoid K4 (at F1) and K3 (at F3, each
+    padded, one launch a group), with F2's (ragged) times where K3/K4 ran
+    there, each beside relu's launch of the same flush."""
+    rows = []
+    for name, flush in ((names["chaotic_bits_gang_stacked"], "F1"),
+                        (names["chaotic_bits_gang"], "F3")):
+        for act in PAPER_ACTIVATIONS:
+            t = times[(name, act, flush)]
+            row = {
+                "name": f"{name}/{act}/{tag}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+                "replaces": REPLACES[name], "path": path_name,
+                "launches": path[(name, act)],
+                "max_abs_err": errs[(name, act, tag)],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": None, "shape": f"{flush} padded",
+                "ops_step": t["ops_step"],
+                "relu_ms": times[(name, "relu", flush)]["ms"],
+                "flush_wall_ms": {k: v * 1e3 for k, v in walls.items()},
+                "flush_split_ms": splits, "form": form(act),
+            }
+            f2 = times.get((name, act, "F2"))
+            if f2:
+                row.update(ms_f2=f2["ms"], plain_ms_f2=f2["plain_ms"],
+                           bound_ms_f2=f2["bound"][0],
+                           relu_ms_f2=times[(name, "relu", "F2")]["ms"])
+            rows.append(row)
+    return rows
 
 
 def phase_generated_farm(torch, device, card, chen_nets, errs):
     """Phase 11: the nets, the farm directory, the tanh/sigmoid K3/K4
     checks, then the farm path per dtype.  Returns the ``kernels`` rows
-    of tanh and sigmoid K3/K4."""
+    of tanh and sigmoid K3/K4, and the 3-8-3 nets {(system, activation):
+    (numpy bundle, scale, offset)}."""
     import tempfile
     nets = train_gen_nets(torch, device, card, chen_nets)
     check_gen_gang_kernels(torch, device, nets, errs)
     rows = []
     with tempfile.TemporaryDirectory(prefix="generated_farm_") as tmp:
         write_gen_dir(tmp, nets)
-        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            path, times, walls = phase_gen_farm(torch, device, dtype, tag,
-                                                card, tmp, errs)
-            # K4 at F1 and K3 at F3 (each padded, one launch a group, as
-            # the flush checks hold), and whichever ran at F2 (ragged)
-            for name, flush in (("chaotic_ann_gang_stacked", "F1"),
-                                ("chaotic_ann_gang_bits", "F3")):
-                for act in PAPER_ACTIVATIONS:
-                    t = times[(name, act, flush)]
-                    row = {
-                        "name": f"{name}/{act}/{tag}", "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
-                        "replaces": REPLACES[name], "path": "generated-farm",
-                        "launches": path[(name, act)],
-                        "max_abs_err": errs[(name, act, tag)],
-                        "ms": t["ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-                        "library_ms": None, "shape": f"{flush} padded",
-                        "ops_step": t["ops_step"],
-                        "relu_ms": times[(name, "relu", flush)]["ms"],
-                        "flush_wall_ms": {k: v * 1e3
-                                          for k, v in walls.items()},
-                        "form": (f"vpu scalar, {act} (_activation, "
-                                 f"src/repro/kernels/chaotic_ann.py:44-45)"),
-                    }
-                    f2 = times.get((name, act, "F2"))
-                    if f2:
-                        row.update(
-                            ms_f2=f2["ms"], plain_ms_f2=f2["plain_ms"],
-                            bound_ms_f2=f2["bound"][0],
-                            relu_ms_f2=times[(name, "relu", "F2")]["ms"])
-                    rows.append(row)
+        for tag in ("f32", "bf16"):
+            path, times, walls, splits = phase_gen_farm(
+                torch, device, tag, card, tmp, errs)
+            rows += gang_act_rows(
+                GangRecorder.NAMES, tag, "generated-farm", path, times,
+                walls, splits, errs,
+                lambda act: (f"vpu scalar, {act} (_activation, "
+                             f"src/repro/kernels/chaotic_ann.py:44-45)"))
+    return rows, nets
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: lattices of tanh and sigmoid nets
+# ---------------------------------------------------------------------------
+
+def expand_net(net, system):
+    """A trained 3-8-3 net ``(numpy bundle, scale, offset)`` as the lattice
+    ``system`` (``<base>@<ring|grid><n>``): ``expand_lattice_params`` at
+    the default coupling, and the normalizer tiled per node."""
+    from repro_torch.core.ann import expand_lattice_params
+    from repro_torch.core.chaotic import (DEFAULT_LATTICE_COUPLING,
+                                          parse_lattice_name)
+    bundle, scale, offset = net
+    _, topology, n_nodes = parse_lattice_name(system)
+    return (expand_lattice_params(bundle, n_nodes=n_nodes,
+                                  coupling=DEFAULT_LATTICE_COUPLING,
+                                  topology=topology),
+            np.tile(scale, n_nodes), np.tile(offset, n_nodes))
+
+
+def check_lattice_act_kernels(torch, device, nets, errs) -> None:
+    """tanh/sigmoid lattice K1, K2 (on chen's expansion), K3 (ragged rows)
+    and K4 (a ragged lane count, unequal demands) against their plain
+    versions, bitwise, in both dtypes, at every LATTICE_SHAPES entry, on
+    expansions of the four trained nets of an activation; each kernel's
+    words must differ from relu's on the same weights."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.core.chaotic import parse_lattice_name
+    from repro_torch.kernels import chaotic_ann, ops, ref
+    keys = ("w1", "b1", "w2", "b2")
+    rng = np.random.default_rng(13)
+    n_lanes = LATTICE_GANG_BLOCKS * LATTICE_GANG_S_BLOCK
+    core_map = np.arange(LATTICE_GANG_BLOCKS) % len(GEN_SYSTEMS)
+    t0 = time.perf_counter()
+    for act in PAPER_ACTIVATIONS:
+        for system in LAT_ACT_SHAPES:
+            n_nodes = parse_lattice_name(system)[2]
+            per_core = [expand_net(nets[(s, act)], system)[0]
+                        for s in GEN_SYSTEMS]
+            w = [torch.as_tensor(np.stack([p[k] for p in per_core]),
+                                 device=device) for k in keys]
+            lattice = lattice_meta_tuple(per_core[0]["lattice_meta"])
+            i_dim = w[0].shape[1]
+            steps = LAT_ACT_STEPS[n_nodes]
+            rows = chaotic_ann.gang_effective_rows(
+                LATTICE_K3_ROW_MAP, steps, FARM_T_BLOCK, FARM_UNROLL)
+            lane_rows = torch.as_tensor(np.repeat(
+                rows, LATTICE_GANG_S_BLOCK).astype(np.int64), device=device)
+            srows = np.minimum(LATTICE_K4_ROW_MAP, steps // 2)
+            core_rows = torch.as_tensor(srows.astype(np.int64),
+                                        device=device)[:, None]
+            x1_np = rng.uniform(-0.9, 0.9, (LATTICE_CHECK_LANES, i_dim)
+                                ).astype(np.float32)
+            off1 = torch.as_tensor(rng.integers(
+                0, 1 << 32, LATTICE_CHECK_LANES, dtype=np.int64),
+                device=device)
+            x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+            off = torch.as_tensor(rng.integers(0, 1 << 32, n_lanes,
+                                               dtype=np.int64), device=device)
+            xs_np = rng.uniform(-0.9, 0.9, (4, LATTICE_STACK_LANES, i_dim)
+                                ).astype(np.float32)
+            offs = torch.as_tensor(rng.integers(
+                0, 1 << 32, (4, LATTICE_STACK_LANES), dtype=np.int64),
+                device=device)
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                e, differs = {}, {}
+                x1 = torch.as_tensor(x1_np, device=device).to(dtype)
+                w1 = [a[0] for a in w]
+                kw = dict(n_steps=steps, lattice=lattice)
+                words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                    *w1, x1, off1, activation=act, **kw)
+                traj_k = chaotic_ann.chaotic_ann_traj(*w1, x1,
+                                                      activation=act, **kw)
+                relu_k, _ = chaotic_ann.chaotic_ann_bits(*w1, x1, off1, **kw)
+                traj_p = ref.chaotic_ann_ref(*w1, x1, steps, act, lattice)
+                e["chaotic_ann_lattice_bits"] = max(
+                    max_abs_err(torch, words_k, ops.pack_words(traj_p, off1)),
+                    max_abs_err(torch, state_k, traj_p[-1]))
+                e["chaotic_ann_lattice_traj"] = max_abs_err(torch, traj_k,
+                                                            traj_p)
+                differs["K1"] = max_abs_err(torch, words_k, relu_k) > 0
+                del traj_k, traj_p
+                x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+                gkw = dict(n_steps=steps, s_block=LATTICE_GANG_S_BLOCK,
+                           t_block=FARM_T_BLOCK, unroll=FARM_UNROLL,
+                           lattice=lattice)
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, LATTICE_K3_ROW_MAP,
+                    activation=act, **gkw)
+                relu_k, _ = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, LATTICE_K3_ROW_MAP, **gkw)
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0, core_map, steps, off, rows, act, lattice)
+                e["chaotic_ann_lattice_gang_bits"] = max(
+                    masked_err(torch, words_k, words_p, lane_rows),
+                    max_abs_err(torch, state_k, state_p))
+                differs["K3"] = masked_err(torch, words_k, relu_k,
+                                           lane_rows) > 0
+                xs = torch.as_tensor(xs_np, device=device).to(dtype)
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                    *w, xs, offs, LATTICE_K4_ROW_MAP, n_steps=steps,
+                    lattice=lattice, activation=act)
+                relu_k, _ = chaotic_ann.chaotic_ann_gang_stacked(
+                    *w, xs, offs, LATTICE_K4_ROW_MAP, n_steps=steps,
+                    lattice=lattice)
+                words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                    *w, xs, steps, offs, LATTICE_K4_ROW_MAP, act, lattice)
+                e["chaotic_ann_lattice_gang_stacked"] = max(
+                    masked_err(torch, words_k, words_p, core_rows),
+                    max_abs_err(torch, state_k, state_p))
+                differs["K4"] = masked_err(torch, words_k, relu_k,
+                                           core_rows) > 0
+                torch.cuda.synchronize()
+                print(f"check lattice {act} {system} {tag} (steps={steps}; "
+                      f"K1/K2 S={LATTICE_CHECK_LANES}; K3 C=4, "
+                      f"{LATTICE_GANG_BLOCKS} blocks x "
+                      f"{LATTICE_GANG_S_BLOCK} lanes, rows "
+                      f"{sorted(set(rows.tolist()))}; K4 C=4 x "
+                      f"{LATTICE_STACK_LANES} lanes, rows {srows.tolist()}): "
+                      + ", ".join(f"{k} max_abs_err={v}" for k, v in e.items())
+                      + f"; words differ from relu's: {differs}")
+                for name, err in e.items():
+                    check(err == 0.0, f"{act} {name} != plain ({system}, "
+                                      f"{tag})")
+                    errs[(name, act, tag)] = max(
+                        errs.get((name, act, tag), 0.0), err)
+                check(all(differs.values()),
+                      f"{act} lattice words equal relu's ({system}, {tag}, "
+                      f"{differs}): the check cannot see a silent relu")
+    print(f"tanh/sigmoid lattice kernel checks: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def counted_path(torch, fn, name, what):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after: it must launch ``name`` and no other kernel.  Returns (its
+    result, the launches)."""
+    from repro_torch.kernels import chaotic_ann
+    zero_launches(chaotic_ann)
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_launches(chaotic_ann)
+    check(got[name] > 0 and sum(got.values()) == got[name],
+          f"{what}: the path must launch {name} only, got {got}")
+    return out, got[name]
+
+
+def lattice_act_paths(torch, device, nets):
+    """Phase 12's paths for one activation each: the no-config f32
+    ``ChaoticStream`` of the chen@ring8 lattice (lattice K1; its config
+    held to the JAX package's; 2**20 words, the first
+    LAT_STREAM_CHECK_WORDS bitwise against ``backend="ref"``; the NIST
+    subset printed), the lattice iterated on the card (lattice K2, f32),
+    and the generated chen@ring8 / chen@grid8 cores on the "pareto"
+    candidate (held to the JAX one): each testbench on the card in its
+    own process, each core's ``generate`` (lattice K2) and
+    ``generate_bits`` (lattice K1), bf16, bitwise against ``backend="ref"``
+    on the card.  Returns {(kernel, activation, dtype tag): launches}."""
+    import importlib
+    import tempfile
+    from repro_torch.core.ann import params_from_numpy
+    from repro_torch.core.codegen import generate_core
+    from repro_torch.core.dse import Candidate, select
+    from repro_torch.kernels import ops
+    from repro_torch.prng.stream import ChaoticStream
+
+    launches, path_out = {}, {}
+    cand = select(24, 64, "pareto", n_nodes=8)
+    print(f"lattice cores: select(24, 64, 'pareto', n_nodes=8) = {cand}")
+    check(cand == Candidate(**LAT_SELECT),
+          f"select(24, 64, 'pareto', n_nodes=8): {cand} is not the JAX "
+          f"package's")
+    tmp = tempfile.TemporaryDirectory(prefix="lattice_cores_")
+    sys.path.insert(0, tmp.name)
+    try:
+        pkgs = []
+        for act in PAPER_ACTIVATIONS:
+            for system in LAT_CORES:
+                params, scale, offset = expand_net(nets[("chen", act)],
+                                                   system)
+                pkgs.append(generate_core(
+                    f"{system.replace('@', '_')}_{act}", tmp.name,
+                    params=params, candidate=cand, system=system,
+                    activation=act, scale=scale, offset=offset))
+        t0 = time.perf_counter()
+        run_testbenches(pkgs)
+        print(f"lattice cores: {len(pkgs)} testbenches "
+              f"{time.perf_counter() - t0:.1f} s")
+        for act in PAPER_ACTIVATIONS:
+            params = expand_net(nets[("chen", act)], "chen@ring8")[0]
+            stream = ChaoticStream.from_trained(params, activation=act,
+                                                device=device)
+            cfg = stream._engine.config
+            print(f"lattice stream {act}: chen@ring8 with no config -> "
+                  f"{cfg}")
+            check(cfg == Candidate(**LAT_STREAM_CONFIG),
+                  f"lattice stream {act}: config {cfg} is not the JAX "
+                  f"package's select_config")
+            words, launches[("chaotic_ann_lattice_bits", act, "f32")] = \
+                counted_path(torch, lambda: stream.bits(NIST_WORDS).numpy(),
+                             "chaotic_ann_lattice_bits",
+                             f"lattice stream {act}")
+            plain = ChaoticStream.from_trained(
+                params, activation=act, device=device, backend="ref")
+            path_out[(act, "stream words")] = (
+                words[:LAT_STREAM_CHECK_WORDS],
+                plain.bits(LAT_STREAM_CHECK_WORDS).numpy())
+            p, failed = nist3(words)
+            print(f"nist lattice {act} chen@ring8 on {words.size} words of "
+                  f"ChaoticStream.from_trained (not gated): "
+                  + ", ".join(f"{k} p={v:.4g}" for k, v in p.items())
+                  + f"; under alpha {NIST_ALPHA}: {failed}")
+            p_dev = params_from_numpy(params, device=device)
+            x_att = torch.as_tensor(np.random.default_rng(14).uniform(
+                -0.5, 0.5, (ATTRACTOR_LANES, 24)).astype(np.float32),
+                device=device)
+            traj, launches[("chaotic_ann_lattice_traj", act, "f32")] = \
+                counted_path(torch, lambda: ops.chaotic_trajectory(
+                    p_dev, x_att, LAT_ATTRACTOR_STEPS, activation=act),
+                    "chaotic_ann_lattice_traj", f"lattice {act} iterated")
+            amax = float(traj.abs().max())
+            print(f"lattice {act}: chen@ring8 iterated {LAT_ATTRACTOR_STEPS} "
+                  f"steps on {ATTRACTOR_LANES} lanes: max|x| {amax:.4g}, std "
+                  f"of the last 500 {float(traj[-500:].std()):.4g}")
+            check(bool(torch.isfinite(traj).all()) and amax < 10.0,
+                  f"lattice {act}: the expanded net leaves the attractor box")
+            path_out[(act, "iterated lattice")] = (
+                traj, ops.chaotic_trajectory(p_dev, x_att,
+                                             LAT_ATTRACTOR_STEPS,
+                                             activation=act, backend="ref"))
+            for system in LAT_CORES:
+                name = f"{system.replace('@', '_')}_{act}"
+                core = importlib.import_module(name)
+                x0 = np.random.default_rng(15).uniform(
+                    -0.5, 0.5, (core.S_BLOCK, 24)).astype(np.float32)
+                got, n = counted_path(
+                    torch, lambda: core.generate(x0, PAPER_CORE_STEPS,
+                                                 device=device),
+                    "chaotic_ann_lattice_traj", f"core {name} generate")
+                key = ("chaotic_ann_lattice_traj", act, "bf16")
+                launches[key] = launches.get(key, 0) + n
+                path_out[(act, f"{name} generate")] = (got, core.generate(
+                    x0, PAPER_CORE_STEPS, backend="ref", device=device))
+                got, n = counted_path(
+                    torch, lambda: core.generate_bits(
+                        x0, 2 * PAPER_CORE_STEPS, device=device),
+                    "chaotic_ann_lattice_bits", f"core {name} generate_bits")
+                key = ("chaotic_ann_lattice_bits", act, "bf16")
+                launches[key] = launches.get(key, 0) + n
+                path_out[(act, f"{name} generate_bits")] = (
+                    got, core.generate_bits(x0, 2 * PAPER_CORE_STEPS,
+                                            backend="ref", device=device))
+                sys.modules.pop(name, None)
+        for (act, what), (got, want) in path_out.items():
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            e = max(max_abs_err(torch, torch.as_tensor(g), torch.as_tensor(w))
+                    for g, w in zip(got, want))
+            print(f"check lattice {act} path: {what} "
+                  f"{tuple(np.shape(got[0]))} against the plain path: "
+                  f"max_abs_err={e}")
+            check(e == 0.0, f"lattice {act} path: {what} != plain")
+    finally:
+        sys.path.remove(tmp.name)
+        tmp.cleanup()
+    return launches
+
+
+def lattice_act_times(torch, device, card, nets, errs):
+    """tanh/sigmoid lattice K1 and K2 at chen@ring8, LAT_TIME_LANES x
+    LAT_TIME_STEPS, against one plain run, bitwise, then their device
+    times beside relu's on the same weights and inputs, the plain times
+    and the bounds; at chen@ring32 the kernels' times alone (relu beside
+    them), beside the lattice path's ring32 times.  Returns {(act,
+    system, tag): times}."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.kernels import chaotic_ann, ops, ref
+    keys = ("w1", "b1", "w2", "b2")
+    n, steps = LAT_TIME_LANES, LAT_TIME_STEPS
+    rng = np.random.default_rng(16)
+    off_np = rng.integers(0, 1 << 32, n, dtype=np.int64)
+    off_np[:64] = (1 << 32) - 1 - 3 * np.arange(64)     # wrap mid-run
+    off = torch.as_tensor(off_np, device=device)
+    out = {}
+    for act in PAPER_ACTIVATIONS:
+        for system in ("chen@ring8", "chen@ring32"):
+            params = expand_net(nets[("chen", act)], system)[0]
+            w = [torch.as_tensor(params[k], device=device) for k in keys]
+            lattice = lattice_meta_tuple(params["lattice_meta"])
+            i_dim, h_dim = params["w1"].shape
+            x_np = rng.uniform(-0.9, 0.9, (n, i_dim)).astype(np.float32)
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                x = torch.as_tensor(x_np, device=device).to(dtype)
+                kw = dict(n_steps=steps, lattice=lattice)
+                t = {}
+                if system == "chen@ring8":
+                    traj_p, t["traj_plain_ms"] = timed_once(
+                        torch, lambda: ref.chaotic_ann_ref(*w, x, steps, act,
+                                                           lattice))
+                    words_p, pack_ms = timed_once(
+                        torch, lambda: ops.pack_words(traj_p, off))
+                    t["bits_plain_ms"] = t["traj_plain_ms"] + pack_ms
+                    words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                        *w, x, off, activation=act, **kw)
+                    e_bits = max(max_abs_err(torch, words_k, words_p),
+                                 max_abs_err(torch, state_k, traj_p[-1]))
+                    e_traj = max_abs_err(torch, chaotic_ann.chaotic_ann_traj(
+                        *w, x, activation=act, **kw), traj_p)
+                    del traj_p, words_p, words_k
+                    print(f"check lattice {act} {system} {tag} S={n} "
+                          f"steps={steps}: chaotic_ann_lattice_bits "
+                          f"max_abs_err={e_bits} chaotic_ann_lattice_traj "
+                          f"max_abs_err={e_traj}")
+                    check(e_bits == 0.0 and e_traj == 0.0,
+                          f"{act} lattice K1/K2 != plain at {system} ({tag})")
+                    for name, e in (("chaotic_ann_lattice_bits", e_bits),
+                                    ("chaotic_ann_lattice_traj", e_traj)):
+                        errs[(name, act, tag)] = max(
+                            errs.get((name, act, tag), 0.0), e)
+                t["bits_ms"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+                    *w, x, off, activation=act, **kw), reps=5, warmup=2)
+                t["relu_bits_ms"] = cuda_ms(
+                    torch, lambda: chaotic_ann.chaotic_ann_bits(
+                        *w, x, off, **kw), reps=5, warmup=2)
+                t["traj_ms"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_traj(
+                    *w, x, activation=act, **kw), reps=3, warmup=1)
+                t["relu_traj_ms"] = cuda_ms(
+                    torch, lambda: chaotic_ann.chaotic_ann_traj(*w, x, **kw),
+                    reps=3, warmup=1)
+                item = x.element_size()
+                ops_step = lattice_step_flops(lattice, h_dim, act)
+                extra = act_flops(h_dim, act)
+                # the block-sparse weights (each node's blocks) read once
+                weight_bytes = (2 * i_dim * h_dim // lattice[0] + h_dim
+                                + i_dim) * item
+                n_out = steps // 2 * n
+                t["bits_bound"] = bound(
+                    n_out * 2 * (ops_step - extra),
+                    2 * n * i_dim * item + n * 4 + weight_bytes + n_out * 4,
+                    tag, f32_flops=n_out * 2 * extra)
+                t["traj_bound"] = bound(
+                    steps * n * (ops_step - extra),
+                    n * i_dim * item + weight_bytes
+                    + steps * n * i_dim * item, tag,
+                    f32_flops=steps * n * extra)
+                t["ops_step"] = ops_step
+                out[(act, system, tag)] = t
+                print(f"device times lattice {act} {system} {tag} (S={n}, "
+                      f"n_steps={steps}, {ops_step} ops a step): "
+                      f"chaotic_ann_lattice_bits {t['bits_ms']:.4f} ms "
+                      f"(relu's {t['relu_bits_ms']:.4f} ms in this call; "
+                      f"bound {t['bits_bound'][0]:.4f} ms by "
+                      f"{t['bits_bound'][1]}); chaotic_ann_lattice_traj "
+                      f"{t['traj_ms']:.4f} ms (relu's {t['relu_traj_ms']:.4f}"
+                      f" ms; bound {t['traj_bound'][0]:.4f} ms by "
+                      f"{t['traj_bound'][1]})"
+                      + (f"; plain {t['bits_plain_ms']:.1f} / "
+                         f"{t['traj_plain_ms']:.1f} ms"
+                         if "bits_plain_ms" in t else "")
+                      + f"; card {card}")
+    return out
+
+
+def write_lat_dir(farm_dir, nets) -> None:
+    """``generate_farm`` of the four ring8 lattices (relu, registry
+    weights) and ``<system>_ring8_<activation>`` for each trained net
+    expanded to chen@ring8's descriptor, on ``select(24, 64, "pareto",
+    n_nodes=8)``; every ``Candidate`` held to the JAX package's."""
+    from repro_torch.core.codegen import generate_core, generate_farm
+    from repro_torch.core.dse import Candidate, select
+    for name, pkg in generate_farm(
+            farm_dir, [f"{s}@ring8" for s in GEN_SYSTEMS]).items():
+        cand = Candidate(**json.loads(
+            (pkg / "solution.json").read_text())["candidate"])
+        print(f"lattice generated farm: generate_farm {name}: {cand}")
+        check(cand == Candidate(**LAT_SELECT),
+              f"generate_farm {name}: {cand} is not the JAX package's")
+    cand = select(24, 64, "pareto", n_nodes=8)
+    for (system, act), net in sorted(nets.items()):
+        params, scale, offset = expand_net(net, f"{system}@ring8")
+        generate_core(f"{system}_ring8_{act}", farm_dir, params=params,
+                      candidate=cand, system=f"{system}@ring8",
+                      activation=act, scale=scale, offset=offset)
+
+
+def phase_lattice_activations(torch, device, card, nets, errs):
+    """Phase 12: the tanh/sigmoid lattice K1-K4 checks, the stream, the
+    iterated lattice and the generated cores, the lattice farm of
+    generated relu, tanh and sigmoid ring8 cores per dtype, and the
+    lattice K1/K2 times.  Returns the ``kernels`` rows of tanh and sigmoid
+    lattice K1-K4."""
+    import tempfile
+    t0 = time.perf_counter()
+    check_lattice_act_kernels(torch, device, nets, errs)
+    t1 = time.perf_counter()
+    launches = lattice_act_paths(torch, device, nets)
+    t2 = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="lattice_farm_") as tmp:
+        write_lat_dir(tmp, nets)
+        for tag in ("f32", "bf16"):
+            path, times, walls, splits = phase_gen_farm(
+                torch, device, tag, card, tmp, errs, lattice=True)
+            rows += gang_act_rows(
+                GangRecorder.LATTICE_NAMES, tag, "lattice-generated-farm",
+                path, times, walls, splits, errs,
+                lambda act: (f"chen@ring8 vpu lattice, {act} (_activation "
+                             f"src/repro/kernels/chaotic_ann.py:44-45 with "
+                             f"K5 :61)"))
+    t3 = time.perf_counter()
+    times = lattice_act_times(torch, device, card, nets, errs)
+    for (name, act, tag), n in sorted(launches.items()):
+        key = "bits" if name == "chaotic_ann_lattice_bits" else "traj"
+        t, t32 = times[(act, "chen@ring8", tag)], times[(act, "chen@ring32",
+                                                          tag)]
+        rows.append({
+            "name": f"{name}/{act}/{tag}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+            "replaces": REPLACES[f"chaotic_ann_{key}"],
+            "path": ("lattice-stream" if tag == "f32" and key == "bits"
+                     else "lattice-iterated" if tag == "f32"
+                     else "lattice-generated-cores"),
+            "launches": n, "max_abs_err": errs[(name, act, tag)],
+            "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+            "bound_ms": t[f"{key}_bound"][0],
+            "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+            "shape": f"chen@ring8, {LAT_TIME_LANES} lanes x "
+                     f"{LAT_TIME_STEPS} steps",
+            "ops_step": t["ops_step"], "relu_ms": t[f"relu_{key}_ms"],
+            "ring32_ms": t32[f"{key}_ms"],
+            "ring32_relu_ms": t32[f"relu_{key}_ms"],
+            "ring32_bound_ms": t32[f"{key}_bound"][0],
+            "form": (f"vpu lattice, {act} (_activation "
+                     f"src/repro/kernels/chaotic_ann.py:44-45 with K5 :61)"),
+        })
+    print(f"lattice activations: kernel checks {t1 - t0:.1f} s, paths "
+          f"{t2 - t1:.1f} s, farms {t3 - t2:.1f} s, times "
+          f"{time.perf_counter() - t3:.1f} s")
     return rows
 
 
@@ -2515,8 +3037,12 @@ def main() -> int:
                      f"src/repro/kernels/chaotic_ann.py:44-45)"),
         })
     phase_done("paper flow")
-    rows += phase_generated_farm(torch, device, card, chen_nets, errs)
+    gen_rows, gen_nets = phase_generated_farm(torch, device, card, chen_nets,
+                                              errs)
+    rows += gen_rows
     phase_done("generated farm")
+    rows += phase_lattice_activations(torch, device, card, gen_nets, errs)
+    phase_done("lattice activations")
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
     print(f"card: {card}")

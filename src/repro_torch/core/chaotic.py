@@ -13,13 +13,15 @@ attractor box (``scale``/``offset``), not sample by sample.
 
 A lattice couples ``n_nodes`` copies of a base oscillator diffusively on a
 ring or a P x Q torus; it is addressed everywhere as
-``<base>@<ring|grid><n>`` (e.g. ``chen@ring32``).  ``lattice()`` as an ODE
-system is not ported (ROADMAP.md queue 1, 'Paper flow').
+``<base>@<ring|grid><n>`` (e.g. ``chen@ring32``), and ``get_system`` of
+such a name is ``lattice()`` of its base, so ``integrate``,
+``make_dataset`` and ``rk4_op_counts`` take it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+import functools
+from typing import Callable, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,11 +129,10 @@ SYSTEMS = {s.name: s for s in (_chen(), _lorenz(), _rossler(), _chua(),
 
 
 def get_system(name: str) -> ChaoticSystem:
+    """A registered system, or ``lattice()`` of its base for a lattice name
+    ``<base>@<ring|grid><n>``."""
     if "@" in name:
-        raise NotImplementedError(
-            f"{name!r}: a lattice as an ODE system is not ported (ROADMAP.md "
-            f"queue 1, 'Paper flow'); its weights derive from the base "
-            f"system's (prng.stream.trained_oscillator)")
+        return _lattice_by_name(name)
     try:
         return SYSTEMS[name]
     except KeyError:
@@ -322,3 +323,46 @@ def parse_lattice_name(name: str) -> Tuple[str, str, int]:
             f"bad lattice system {name!r}; want <base>@<ring|grid><n>, "
             f"e.g. 'chen@ring8'")
     return base_name, topo, int(tail)
+
+
+def lattice(base_system: Union[str, ChaoticSystem], n_nodes: int,
+            coupling: float = DEFAULT_LATTICE_COUPLING,
+            topology: str = "ring") -> ChaoticSystem:
+    """``n_nodes`` copies of a base system coupled into one chaotic system
+    of dim ``n_nodes * base.dim``, nearest neighbours on a ring or torus:
+
+        dX_n/dt = f_base(X_n) + coupling * sum_{m ~ n} (X_m - X_n)
+
+    ``f`` adds ``x @ C^T`` for the dense coupling operator ``C``
+    (``lattice_coupling_matrix``, cast to x's dtype and device).  Each
+    node's seed is the base seed perturbed by its index (identical seeds
+    would start the lattice synchronized); the Eq. 4 counts are the
+    block-sparse ones: per-node dynamics plus one scale and ``deg``
+    neighbour adds per component.
+    """
+    base = get_system(base_system) if isinstance(base_system, str) \
+        else base_system
+    cpl_t = torch.from_numpy(
+        lattice_coupling_matrix(n_nodes, base.dim, coupling, topology).T
+        .copy())
+    dim = n_nodes * base.dim
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        nodes = x.reshape(x.shape[:-1] + (n_nodes, base.dim))
+        dyn = base.f(nodes).reshape(x.shape)
+        return dyn + x @ cpl_t.to(device=x.device, dtype=x.dtype)
+
+    x0 = tuple(v * (1.0 + 0.03 * n) + 0.01 * n
+               for n in range(n_nodes) for v in base.x0)
+    deg = 2 if topology == "ring" else 4
+    return ChaoticSystem(
+        name=f"{base.name}@{topology}{n_nodes}", dim=dim, f=f,
+        n_mul_dynamic=n_nodes * base.n_mul_dynamic + dim,
+        n_add_dynamic=n_nodes * base.n_add_dynamic + dim * deg,
+        x0=x0, dt=base.dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _lattice_by_name(name: str) -> ChaoticSystem:
+    base_name, topo, n_nodes = parse_lattice_name(name)
+    return lattice(get_system(base_name), n_nodes, topology=topo)

@@ -14,11 +14,11 @@ the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
 ``chaotic_ann_gang_bits`` / ``chaotic_ann_gang_stacked``:
 ``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``),
 and K3 on the mxu unit (``compute_unit="mxu"`` on ``chaotic_ann_gang_bits``:
-``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  The scalar vpu K1,
-K2, K3 and K4 take relu, tanh and sigmoid; the lattice and mxu forms take
-relu only and raise ``NotImplementedError`` naming their ROADMAP.md item
-(``activation`` evaluates the kernels' tanh and sigmoid alone, a check
-hook).
+``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  The vpu K1, K2, K3
+and K4, scalar and lattice, take relu, tanh and sigmoid; the mxu forms
+take relu only and raise ``NotImplementedError`` naming their ROADMAP.md
+item (``activation`` evaluates the kernels' tanh and sigmoid alone, a
+check hook).
 """
 from __future__ import annotations
 
@@ -38,10 +38,9 @@ _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # chaotic_ann.cu's activation codes (kRelu, kTanh, kSigmoid)
 _ACTIVATION_CODES = {"relu": 0, "tanh": 1, "sigmoid": 2}
-# The ROADMAP.md items that port tanh and sigmoid to the kernel forms that
-# take relu only (the scalar vpu K1-K4 take all three).
-TODO_NON_RELU = {"lattice": "queue 2, 'Lattice forms: tanh and sigmoid'",
-                 "mxu": "queue 2, 'mxu forms: tanh and sigmoid'"}
+# The ROADMAP.md item that ports tanh and sigmoid to the kernel forms that
+# take relu only (the vpu K1-K4, scalar and lattice, take all three).
+TODO_NON_RELU = {"mxu": "queue 2, 'mxu forms: tanh and sigmoid'"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,18 +63,19 @@ def _lib() -> ctypes.CDLL:
     lib.chaotic_ann_gang_stacked_launch.argtypes = (
         [_c_int] * 5 + [_c_ptr] * 9 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_gang_stacked_launch.restype = _c_int
+    # (device, dtype, activation, base_i, base_h, n_nodes, topology, eps)
     lib.chaotic_ann_lattice_bits_launch.argtypes = (
-        [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 8
+        [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 8
         + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_lattice_bits_launch.restype = _c_int
     lib.chaotic_ann_lattice_traj_launch.argtypes = (
-        [_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * 6
+        [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 6
         + [_c_i64, _c_i64, _c_ptr])
     lib.chaotic_ann_lattice_traj_launch.restype = _c_int
     for name, n_ptr in (("chaotic_ann_lattice_gang_bits_launch", 10),
                         ("chaotic_ann_lattice_gang_stacked_launch", 9)):
         fn = getattr(lib, name)
-        fn.argtypes = ([_c_int] * 6 + [ctypes.c_float] + [_c_ptr] * n_ptr
+        fn.argtypes = ([_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * n_ptr
                        + [_c_i64] * 3 + [_c_ptr])
         fn.restype = _c_int
     for name, n_ptr in (("chaotic_ann_mxu_bits_launch", 9),
@@ -93,8 +93,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_activation(activation: str, form: Optional[str] = None) -> int:
-    """The activation's code for the scalar vpu K1-K4 (``form`` None);
-    the ``form`` kernels ("lattice", "mxu") take relu only."""
+    """The activation's code for the vpu K1-K4, scalar and lattice
+    (``form`` None); the ``form`` kernels ("mxu") take relu only."""
     if activation not in _ACTIVATION_CODES:
         raise ValueError(f"activation must be one of "
                          f"{sorted(_ACTIVATION_CODES)}, got {activation!r}")
@@ -176,7 +176,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     ``chaotic_ann_mxu_bits`` (a lattice with its dense ``coupling``).
 
     ``activation`` relu, tanh or sigmoid (the kernel's template
-    parameter; the lattice and mxu forms take relu only).
+    parameter, the lattice form's too; the mxu forms take relu only).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
     Bound on the H100: operations.  Each word costs 2 steps of
@@ -345,16 +345,20 @@ def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
 
     Replaces the vpu lattice form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1 with K5's
-    ``_lattice_delta``).  Bound on the H100: operations.  A word costs 2
-    steps of n_nodes x (4*D*HB + HB + D) block-sparse ops plus the
-    coupling's 5 (ring) or 7 (torus) ops per component (7,808 ops at
-    chen@ring32)
-    against 4 bytes written.  Design: one thread per (lane, node), the
-    node's weight blocks and state in registers; neighbours' state comes
-    by warp shuffles and the lane's fold by an XOR shuffle reduction, so
-    nothing but words, offsets and the final state touches device memory.
+    ``_lattice_delta``), with relu, tanh or sigmoid (``activation``, the
+    kernel's template parameter).  Bound on the H100: operations.  A word
+    costs 2 steps of n_nodes x (4*D*HB + HB + D) block-sparse ops plus the
+    coupling's 5 (ring) or 7 (torus) ops per component, plus with tanh or
+    sigmoid the formula's 25 / 30 f32 ops on each of the n_nodes x HB
+    hidden units (a step: 976 / 2,576 / 2,896 ops at chen@ring8 for relu
+    / tanh / sigmoid, 3,904 / 10,304 / 11,584 at chen@ring32), against 4
+    bytes written.  Design: one thread per (lane, node), the node's weight
+    blocks and state in registers, phi on the node's own HB hidden units;
+    neighbours' state comes by warp shuffles and the lane's fold by an XOR
+    shuffle reduction, so nothing but words, offsets and the final state
+    touches device memory.
     """
-    _check_activation(activation, "lattice")
+    act = _check_activation(activation)
     _check_steps(n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
@@ -370,7 +374,7 @@ def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_lattice_bits_launch(
-        x0.device.index, code, *shape, eps,
+        x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
@@ -386,17 +390,20 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
                              w2: torch.Tensor, b2: torch.Tensor,
                              x0: torch.Tensor, *, n_steps: int, lattice,
                              activation: str = "relu") -> torch.Tensor:
-    """K2's lattice form: the (n_steps, S, I) trajectory of a lattice core.
+    """K2's lattice form: the (n_steps, S, I) trajectory of a lattice core,
+    with ``activation`` as in ``chaotic_ann_lattice_bits``.
 
     Replaces the vpu lattice form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2 with K5).
-    Bound on the H100: bytes.  A step at chen@ring32 is 3,904 ops against
-    384 f32 or 192 bf16 bytes written, 10 or 20 ops per byte, below the
-    card's 20 (f32) or 40 (bf16) ops per byte of bandwidth.  Same design as
-    ``chaotic_ann_lattice_bits``; the 32 threads of a chen@ring32 lane
-    write its 96 values of a step as one contiguous run.
+    Bound on the H100 with relu: bytes.  A step at chen@ring32 is 3,904 ops
+    against 384 f32 or 192 bf16 bytes written, 10 or 20 ops per byte,
+    below the card's 20 (f32) or 40 (bf16) ops per byte of bandwidth; with
+    tanh or sigmoid operations (10,304 / 11,584 ops a step, the formulas'
+    at the f32 rate).  Same design as ``chaotic_ann_lattice_bits``; the 32
+    threads of a chen@ring32 lane write its 96 values of a step as one
+    contiguous run.
     """
-    _check_activation(activation, "lattice")
+    act = _check_activation(activation)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation,
                                    lattice)
@@ -409,7 +416,7 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
         return traj
     lib = _lib()
     rc = lib.chaotic_ann_lattice_traj_launch(
-        x0.device.index, code, *shape, eps,
+        x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), traj.data_ptr(),
         n_lanes, n_steps, torch.cuda.current_stream(x0.device).cuda_stream)
     _raise_on_lattice(lib, rc, "chaotic_ann_lattice_traj", shape)
@@ -658,8 +665,8 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     ``chaotic_ann_lattice_gang_bits``; ``compute_unit="mxu"`` the mxu
     unit, ``chaotic_ann_mxu_gang_bits`` (a lattice group with its one
     shared dense ``coupling``).  ``activation`` relu, tanh or sigmoid on
-    the scalar vpu form (the kernel's template parameter, as K1's); the
-    lattice and mxu forms take relu only.
+    the vpu forms, scalar and lattice (the kernel's template parameter, as
+    K1's); the mxu form takes relu only.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
     (K3).  Bound on the H100: operations, as K1: 2 steps of
@@ -731,7 +738,7 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     ``min(row_map[c], n_steps // 2)`` rows, with no rounding; later rows
     are unwritten.  Returns (n_steps // 2, C, S) uint32 words and the
     (C, S, I) state.  ``lattice`` takes the lattice form,
-    ``chaotic_ann_lattice_gang_stacked`` (relu only); ``activation`` as in
+    ``chaotic_ann_lattice_gang_stacked``; ``activation`` as in
     ``chaotic_ann_gang_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_pallas``
@@ -804,15 +811,17 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
 
     Replaces the vpu lattice form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas`` (K3 with
-    K5's ``_lattice_delta``).  Bound on the H100: operations, as
-    ``chaotic_ann_lattice_bits`` (7,808 ops a word at chen@ring32), summed
-    over the rows each block really computes, against 4 bytes a word.
-    Design: the lattice K1's thread per (lane, node), weight blocks and
-    state in registers, neighbours by warp shuffles; a CTA holds
+    K5's ``_lattice_delta``), with the group's one ``activation`` (relu,
+    tanh or sigmoid).  Bound on the H100: operations, as
+    ``chaotic_ann_lattice_bits`` (2 steps of 976 / 2,576 / 2,896 ops a word
+    at chen@ring8 for relu / tanh / sigmoid), summed over the rows each
+    block really computes, against 4 bytes a word.  Design: the lattice
+    K1's thread per (lane, node), weight blocks and state in registers,
+    neighbours by warp shuffles; a CTA holds
     128 / n_nodes lanes and ``s_block`` is a multiple of that, so a CTA
     lies inside one lane block and reads that block's core and rows.
     """
-    _check_activation(activation, "lattice")
+    act = _check_activation(activation)
     n_cores = w1.shape[0]
     cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
                             t_block, unroll)
@@ -837,7 +846,7 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_lattice_gang_bits_launch(
-        x0.device.index, code, *shape, eps,
+        x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), maps[0].data_ptr(),
         maps[1].data_ptr(), offsets.data_ptr(), words.data_ptr(),
         state.data_ptr(), n_lanes, s_block, n_rows,
@@ -862,16 +871,17 @@ def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
 
     Replaces the vpu lattice form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_pallas`` (K4
-    with K5's ``_lattice_delta``).  Bound on the H100: operations, as
-    ``chaotic_ann_lattice_bits``, summed over the rows each core really
-    computes.  Design: ``blockIdx.y`` the core, the lattice K1's thread per
+    with K5's ``_lattice_delta``), with the group's one ``activation``.
+    Bound on the H100: operations, as ``chaotic_ann_lattice_bits`` (the
+    activation's formula ops included), summed over the rows each core
+    really computes.  Design: ``blockIdx.y`` the core, the lattice K1's thread per
     (lane, node) within it; a thread's lane is counted inside its core, so
     a ragged edge mirrors the core's own last lane.  The TPU's sublane
     stack of C lattice periods has no counterpart: each CTA holds one
     core's state in registers, so there is no VMEM cliff, and the only
     limit is the grid's y extent (65,535 cores).
     """
-    _check_activation(activation, "lattice")
+    act = _check_activation(activation)
     n_cores, n_rows = w1.shape[0], n_steps // 2
     rows = _stacked_rows(x0, row_map, n_cores, n_steps)
     if x0.device.type == "cpu":
@@ -893,7 +903,7 @@ def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_lattice_gang_stacked_launch(
-        x0.device.index, code, *shape, eps,
+        x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), rows_d.data_ptr(),
         offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_cores,
         n_lanes, n_rows, torch.cuda.current_stream(x0.device).cuda_stream)

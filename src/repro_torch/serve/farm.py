@@ -19,9 +19,9 @@ space, so per-client words are bit-identical to the per-core path.
 **Activations**: the activation is part of the key, so tanh cores gang
 with tanh cores and sigmoid with sigmoid (a directory of generated relu,
 tanh and sigmoid cores on one config makes one group per activation).  A
-scalar vpu group runs K3/K4 with its activation, as the JAX farm does;
-the lattice and mxu gang forms are relu only and raise
-``NotImplementedError`` for another activation.
+vpu group, scalar or lattice, runs K3/K4 (or their lattice forms) with
+its activation, as the JAX farm does; the mxu gang form is relu only and
+raises ``NotImplementedError`` for another activation.
 
 **Lattice cores** (``lattice_meta`` in their params) gang only with
 lattice cores of the same descriptor (n_nodes, base_dim, topology,

@@ -320,8 +320,9 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
         assert torch.equal(ops.from_uint32(mxu_w[:, 16 * c:16 * (c + 1)]),
                            ops.from_uint32(want_w))
         assert torch.equal(mxu_s[16 * c:16 * (c + 1)], want_s)
-    # the scalar vpu gang takes tanh: each block's words and state are solo
-    # K1 tanh's; the lattice and mxu gang forms still name their items
+    # the vpu gangs, scalar and lattice, take tanh and sigmoid: each block's
+    # words and state are solo K1's with that activation; the mxu gang form
+    # still names its item
     tanh_w, tanh_s = chaotic_ann.chaotic_ann_gang_bits(
         *w, xm, [0, 1], n_steps=4, s_block=16, activation="tanh")
     for c in range(2):
@@ -338,15 +339,26 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
     ring = default_params(system="chen@ring8")
     lw = [torch.from_numpy(np.stack([ring[k]] * 2)) for k in KEYS]
     lattice = lattice_meta_tuple(ring["lattice_meta"])
-    lx = torch.zeros(2 * 16, 24)
-    with pytest.raises(NotImplementedError, match="Lattice forms"):
-        chaotic_ann.chaotic_ann_gang_bits(*lw, lx, [0, 1], n_steps=4,
-                                          s_block=16, lattice=lattice,
-                                          activation="sigmoid")
-    with pytest.raises(NotImplementedError, match="Lattice forms"):
-        chaotic_ann.chaotic_ann_gang_stacked(*lw, lx.reshape(2, 16, 24),
-                                             n_steps=4, lattice=lattice,
-                                             activation="tanh")
+    lx = torch.from_numpy(_x0(np.random.default_rng(6), (2 * 16, 24)))
+    sig_w, sig_s = chaotic_ann.chaotic_ann_gang_bits(
+        *lw, lx, [0, 1], n_steps=4, s_block=16, lattice=lattice,
+        activation="sigmoid")
+    tanh_w, tanh_s = chaotic_ann.chaotic_ann_gang_stacked(
+        *lw, lx.reshape(2, 16, 24), n_steps=4, lattice=lattice,
+        activation="tanh")
+    relu_w, _ = chaotic_ann.chaotic_ann_gang_stacked(
+        *lw, lx.reshape(2, 16, 24), n_steps=4, lattice=lattice)
+    assert not torch.equal(ops.from_uint32(tanh_w), ops.from_uint32(relu_w))
+    for c in range(2):
+        lanes = slice(16 * c, 16 * (c + 1))
+        for act, words, state in (("sigmoid", sig_w[:, lanes], sig_s[lanes]),
+                                  ("tanh", tanh_w[:, c], tanh_s[c])):
+            want_w, want_s = chaotic_ann.chaotic_ann_bits(
+                *[t[c] for t in lw], lx[lanes], n_steps=4, lattice=lattice,
+                activation=act)
+            assert torch.equal(ops.from_uint32(words),
+                               ops.from_uint32(want_w))
+            assert torch.equal(state, want_s)
     xs = x0.reshape(2, 128, 3)
     with pytest.raises(ValueError, match="vpu"):
         chaotic_ann.chaotic_ann_gang_stacked(*w, xs, n_steps=4,

@@ -859,9 +859,9 @@ def test_paper_flow_on_card_never_reaches_the_plain_version(monkeypatch,
 
 
 def test_activation_wrappers_reject_what_the_kernels_do_not_take():
-    """tanh/sigmoid run on the scalar vpu K1-K4 only: the lattice and mxu
-    forms name their ROADMAP.md items; an unknown activation is a
-    ValueError."""
+    """tanh/sigmoid run on the vpu K1-K4, scalar and lattice: the mxu
+    forms, a lattice's too, name their ROADMAP.md item; an unknown
+    activation is a ValueError."""
     _need_card()
     w, x0, off = _inputs("chen", 256, torch.float32, seed=5)
     with pytest.raises(NotImplementedError, match="mxu forms"):
@@ -872,10 +872,98 @@ def test_activation_wrappers_reject_what_the_kernels_do_not_take():
             *[t[None] for t in w], x0, [0], n_steps=4, s_block=256,
             activation="sigmoid", compute_unit="mxu")
     lw, lattice, lx, _ = _lattice_inputs("chen@ring8", 64, torch.float32, 4)
-    with pytest.raises(NotImplementedError, match="Lattice forms"):
+    cpl = torch.from_numpy(default_params(system="chen@ring8")["coupling"]
+                           ).cuda()
+    with pytest.raises(NotImplementedError, match="mxu forms"):
         chaotic_ann.chaotic_ann_traj(*lw, lx, n_steps=4, lattice=lattice,
-                                     activation="tanh")
+                                     activation="tanh", compute_unit="mxu",
+                                     coupling=cpl)
     with pytest.raises(ValueError, match="activation"):
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="gelu")
     with pytest.raises(ValueError, match="CUDA"):
         chaotic_ann.activation(x0.half(), "tanh")
+
+
+# ---------------------------------------------------------------------------
+# tanh and sigmoid: the vpu lattice K1-K4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("system", ["chen@ring8", "chen@grid8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_lattice_kernels_bitwise_vs_plain_on_card(system, dtype,
+                                                             activation):
+    """tanh/sigmoid lattice K1 and K2 against the plain dense versions:
+    words, final state and trajectory, at a ragged lane count; the words
+    differ from relu's."""
+    _need_card()
+    w, lattice, x0, off = _lattice_inputs(system, 100 + 3, dtype, seed=46)
+    n0 = (chaotic_ann.chaotic_ann_lattice_bits.launches,
+          chaotic_ann.chaotic_ann_lattice_traj.launches)
+    kw = dict(lattice=lattice, activation=activation)
+    words, state = chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=32, **kw)
+    traj = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=32, **kw)
+    relu, _ = chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=32,
+                                           lattice=lattice)
+    assert (chaotic_ann.chaotic_ann_lattice_bits.launches,
+            chaotic_ann.chaotic_ann_lattice_traj.launches) == (n0[0] + 2,
+                                                               n0[1] + 1)
+    rt = ref.chaotic_ann_ref(*w, x0, 32, **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise(words, ops.pack_words(rt, off))
+    _assert_bitwise(state, rt[-1])
+    _assert_bitwise(traj, rt)
+    assert not torch.equal(ops.from_uint32(words), ops.from_uint32(relu))
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("topology", ["ring8", "grid8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_lattice_gang_kernels_bitwise_vs_plain_on_card(
+        topology, dtype, activation):
+    """tanh/sigmoid lattice K3 (ragged rows, s_block 48) and K4 (137 lanes
+    a core, one core frozen early, one at 0 rows) against their plain
+    versions: the words each block or core asked for, and the final
+    states; K3's words differ from relu's."""
+    _need_card()
+    w, lattice = _lattice_gang(topology)
+    i_dim = w[0].shape[1]
+    rng = np.random.default_rng(47)
+    n_steps, s_block = 32, 48
+    core_map = np.array([2, 0, 3, 1, 1, 0])
+    row_map = np.array([16, 3, 0, 9, 40, 1])
+    x0 = torch.from_numpy(_x0_np(rng, (6 * s_block, i_dim))).to("cuda", dtype)
+    off = torch.from_numpy(_off_np(rng, 6 * s_block)).to("cuda")
+    kw = dict(n_steps=n_steps, s_block=s_block, t_block=8, unroll=2,
+              lattice=lattice)
+    n0 = (chaotic_ann.chaotic_ann_lattice_gang_bits.launches,
+          chaotic_ann.chaotic_ann_lattice_gang_stacked.launches)
+    words, state = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, off, row_map, activation=activation, **kw)
+    relu, _ = chaotic_ann.chaotic_ann_gang_bits(*w, x0, core_map, off,
+                                                row_map, **kw)
+    rows = chaotic_ann.gang_effective_rows(row_map, n_steps, 8, 2)
+    rw, rs = ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps, off,
+                                           rows, activation, lattice)
+    lane_rows = torch.from_numpy(np.repeat(rows, s_block)).cuda()
+    xs = torch.from_numpy(_x0_np(rng, (4, 137, i_dim))).to("cuda", dtype)
+    offs = torch.from_numpy(_off_np(rng, (4, 137))).to("cuda")
+    srows = [16, 5, 0, 16]
+    sw, ss = chaotic_ann.chaotic_ann_gang_stacked(
+        *w, xs, offs, srows, n_steps=n_steps, lattice=lattice,
+        activation=activation)
+    rsw, rss = ref.chaotic_ann_gang_stacked_ref(*w, xs, n_steps, offs, srows,
+                                                activation, lattice)
+    torch.cuda.synchronize()
+    assert (chaotic_ann.chaotic_ann_lattice_gang_bits.launches,
+            chaotic_ann.chaotic_ann_lattice_gang_stacked.launches) == (
+                n0[0] + 2, n0[1] + 1)
+    assert torch.equal(_masked_rows(words, lane_rows),
+                       _masked_rows(rw, lane_rows))
+    assert not torch.equal(_masked_rows(words, lane_rows),
+                           _masked_rows(relu, lane_rows))
+    _assert_bitwise(state, rs)
+    core_rows = torch.tensor(srows, device="cuda")[:, None]
+    assert torch.equal(_masked_rows(sw, core_rows),
+                       _masked_rows(rsw, core_rows))
+    _assert_bitwise(ss, rss)

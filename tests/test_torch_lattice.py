@@ -280,8 +280,9 @@ def test_ops_and_module_route_lattices():
 
 
 def test_unported_lattice_forms_raise():
-    """A lattice gang with a non-relu activation names its ROADMAP.md item;
-    an mxu lattice is routed with its coupling operand and refused without
+    """A vpu lattice gang with tanh equals per-core lattice K1 with tanh,
+    and an mxu lattice with tanh names its ROADMAP.md item; an mxu lattice
+    is routed with its coupling operand and refused without
     it, in a lattice gang too (K3's mxu form, its shared operand taken from
     the params), and the stacked gang refuses the mxu unit as JAX does; the
     plain dense loop refuses a descriptor that does not fit."""
@@ -312,11 +313,24 @@ def test_unported_lattice_forms_raise():
     assert torch.equal(g_state, want_s)
     with pytest.raises(ValueError, match="compute_unit='vpu' only"):
         ops.chaotic_bits_gang_stacked(gang, x0[None], 4, compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="non-relu"):
-        ops.chaotic_bits_gang(gang, x0, 4, core_map=[0], s_block=256,
-                              activation="tanh")
-    with pytest.raises(NotImplementedError, match="non-relu"):
-        ops.chaotic_bits_gang_stacked(gang, x0[None], 4, activation="tanh")
+    # a vpu lattice gang takes tanh: each core's words and state are its
+    # own lattice K1's with tanh (seeded states, so they differ from relu's)
+    xs = torch.from_numpy(seeds(np.random.default_rng(37), 256, 24))
+    want_w, want_s = ops.chaotic_bits(p, xs, 4, activation="tanh")
+    relu_w, _ = ops.chaotic_bits(p, xs, 4)
+    assert not torch.equal(ops.from_uint32(want_w), ops.from_uint32(relu_w))
+    g_words, g_state = ops.chaotic_bits_gang(gang, xs, 4, core_map=[0],
+                                             s_block=256, activation="tanh")
+    assert torch.equal(ops.from_uint32(g_words), ops.from_uint32(want_w))
+    assert torch.equal(g_state, want_s)
+    g_words, g_state = ops.chaotic_bits_gang_stacked(gang, xs[None], 4,
+                                                     activation="tanh")
+    assert torch.equal(ops.from_uint32(g_words[:, 0]),
+                       ops.from_uint32(want_w))
+    assert torch.equal(g_state[0], want_s)
+    # the mxu lattice forms still name their item
+    with pytest.raises(NotImplementedError, match="mxu forms"):
+        ops.chaotic_bits(p, xs, 4, activation="tanh", compute_unit="mxu")
     with pytest.raises(ValueError, match="i_dim"):
         ref.chaotic_ann_ref(*[p[k] for k in KEYS], x0, 2,
                             lattice=(4, 3, "ring", 0.05))

@@ -70,7 +70,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    default stream of chen@ring32 (its ``select_config`` picks the mxu
    unit), 4,096 words per client per flush (32 word rows), through the
    mxu forms of K1 (served) and K2 (unfused), held bitwise against one
-   plain run at that flush's shape; NIST printed, not gated.
+   plain run at that flush's shape on its first 1,024 lanes; NIST
+   printed, not gated.
 8. The lattice farm path, per dtype: ``OscillatorFarm`` with
    chen/chua/lorenz/rossler@ring32 on ``default_config(96, 256, dtype,
    n_nodes=32)`` beside the scalar chen on its own vpu config, 128
@@ -115,7 +116,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    gated), the trained net iterated 2,000 steps on the card (K2, f32;
    bounded), the min-latency core's ``generate`` and ``generate_bits``
    (K2, K1, bf16); each part's output is then held bitwise against the
-   same call on the plain path (``backend="ref"``) on the card.  Then the
+   same call on the plain path (``backend="ref"``) on the card (the
+   stream's first 2**17 words).  Then the
    tanh/sigmoid K1 and K2 bitwise against their
    plain versions at each core's ``s_block`` and at the served shape
    (65,536 lanes, 1,024 steps), timed there beside relu's K1 and the
@@ -123,7 +125,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 11. The farm of generated tanh and sigmoid cores.  Phase 10's chen nets
    and, trained here on the card per activation (60 epochs, lr 3e-3,
    batch 256; MSE and R2 printed), chua, lorenz and rossler 3-8-3 nets on
-   one ``make_dataset(system, 20_000)`` a system.  First the tanh/sigmoid
+   one ``make_dataset(system, 8_000)`` a system.  First the tanh/sigmoid
    K3 (ragged rows) and K4 (a frozen core) against their plain versions,
    bitwise, in both dtypes, on those four nets and on two seeded 4-16-4
    nets, K4 also at F1's shape with unequal demands; each net's words
@@ -139,8 +141,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    hyperlorenz's K1; F2 the chen cores skewed; F3 one more client on each
    lorenz core: one K3 launch an activation), each held against a
    ``gang=False`` farm; every gang launch of the flushes against the
-   plain gang scan on its inputs, bitwise, and timed at its shape beside
-   relu's launch of the same flush and its bound.
+   plain gang scan on each core's first and last lane block (lanes are
+   independent) over its first 32 word rows, bitwise, and timed at its
+   shape beside relu's launch of the same flush and its bound.
 12. Lattices of tanh and sigmoid nets: phase 10's chen nets and phase
    11's chua, lorenz and rossler nets expanded to 8-node rings (coupling
    0.05), chen's also to the 8-node torus; nothing is trained again.
@@ -163,9 +166,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    F1 uniform: one lattice K4 an activation; F2 the chen cores hot; F3
    one more client on each lorenz core: one lattice K3 an activation),
    each flush bitwise against ``gang=False`` and every gang launch
-   replayed against the plain gang scan and timed beside relu's.  Last,
-   lattice K1/K2 at chen@ring8, 65,536 lanes x 256 steps, bitwise against
-   plain and timed beside relu's, and timed at chen@ring32.
+   replayed against the plain gang scan on each core's first and last
+   lane block over its first 32 word rows and timed beside relu's.  Last,
+   lattice K1/K2 at chen@ring8,
+   65,536 lanes x 256 steps, bitwise against plain and timed beside
+   relu's, and timed at chen@ring32.
+13. tanh and sigmoid in the mxu forms of K1-K3, on phases 10 and 11's
+   nets (nothing trained again).  First the tanh/sigmoid mxu K1, K2 (the
+   chen net or its expansion, a ragged lane count) and K3 (the four nets
+   of an activation, phase 2's 32 blocks x 128 lanes and steps, padded
+   and ragged) against their plain versions, bitwise, in both dtypes, at
+   every MXU_SHAPES entry (3-8, 4-16 on two seeded nets, chen@ring8,
+   grid8, ring32, grid32); each kernel's words must differ from relu's.
+   Then, each part with the launch counters zeroed just before it and
+   read just after: the no-config streams of chen's net expanded to
+   chen@ring32 (f32 ``ChaoticStream.from_trained``, bf16 ``ChaoticPRNG``)
+   and to chen@ring8 (bf16), each config held to the JAX package's mxu
+   choice, 2**20 words through mxu K1, the first 2**13 bitwise against
+   ``backend="ref"``, NIST printed and not gated; each lattice iterated
+   through mxu K2 and held against ``backend="ref"``; chen_ring8 /
+   chen_grid8 tanh and sigmoid cores on ``select(24, 64, "min_latency",
+   n_nodes=8)`` (mxu bf16 p 5, held to the JAX package's), each
+   ``testbench.py cuda`` in its own process, each core's ``generate``
+   (mxu K2) and ``generate_bits`` (mxu K1) bitwise against
+   ``backend="ref"``.  Then per dtype a farm of the four ring32 registry
+   cores (relu) beside ``<system>@ring32_<activation>`` (the trained
+   nets expanded), all with NO config: three mxu K3 groups, 128 clients
+   x 128 lanes a core, 4,096 words a client; F1 uniform (one padded mxu
+   K3 an activation, no K4 of any form), F2 the chen cores hot (the rest
+   at 256 words), F3 one more client on each lorenz core; each flush
+   bitwise against ``gang=False``, every gang launch against the plain
+   gang scan on each core's first and last lane block over its first 4
+   word rows, and timed.  Last, mxu K1/K2 with tanh and sigmoid at
+   chen@ring32, 65,536 lanes x 64 steps, timed beside relu's, held
+   bitwise against plain on the first 1,024 lanes.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -253,11 +287,13 @@ LATTICE_FARM = ("chen@ring32", "chua@ring32", "lorenz@ring32",
 # 128 lanes (a CTA's worth for a scalar core), LATTICE_K3_ROW_MAP's ragged
 # rows; the plain f32 FMA chains of a lattice are bound by op launches
 # (4 cores x 112 chains a step at 8 nodes, x 448 at 32), so those checks
-# run fewer steps (the farm phase checks 64 steps at 32 nodes)
+# run fewer steps (the farm phase checks 64 steps at 32 nodes); phase 13
+# runs them again with tanh and sigmoid (since then 32 / 16 steps at 1 / 8
+# nodes, from 64 / 32: the run's time)
 MXU_GANG_CHECKS = ("3-8", "4-16", "chen@ring8", "chen@grid8", "chen@ring32",
                    "chen@grid32")
 MXU_GANG_BLOCKS, MXU_GANG_S_BLOCK = 32, 128
-MXU_GANG_STEPS = {1: 64, 8: 32, 32: 8}           # by n_nodes
+MXU_GANG_STEPS = {1: 32, 8: 16, 32: 8}           # by n_nodes
 MXU_GANG_T_BLOCK, MXU_GANG_UNROLL = 8, 2         # row granularity 2
 # the mxu farm: the four ring32 cores with NO config (the JAX farm's
 # default lattice gang, mxu) beside the four 3-8-3 registry nets on the
@@ -280,6 +316,9 @@ PAPER_SELECT = {
                         dtype_bytes=2, unroll=1, t_block=32, n_nodes=1)}
 PAPER_CHECK_LANES, PAPER_CHECK_STEPS = 65_536, 1_024
 PAPER_CORE_STEPS = 512
+# the stream's words held bitwise against the plain path: its first 512
+# word rows (the plain loop's launches, not its lanes, set its time)
+PAPER_STREAM_CHECK_WORDS = 1 << 17
 ATTRACTOR_LANES, ATTRACTOR_STEPS = 16, 2_000
 ACT_F32_INPUTS = 1 << 24
 # ops per hidden unit that tanh and sigmoid add to a step (relu's select
@@ -293,9 +332,10 @@ ACT_OPS = {"relu": 0, "tanh": 25, "sigmoid": 30}
 # relu cores (every registered system) beside a tanh and a sigmoid core of
 # each 3-8-3 system; chen's nets are phase 10's, the others are trained
 # here per activation (PAPER_EPOCHS, lr 3e-3, batch 256) on one dataset a
-# system, cut to 20,000 samples from the quickstart's 50,000
+# system, cut to 8,000 samples from the quickstart's 50,000 (the run's
+# time: RK-4 on the card is dispatch-bound, about 0.65 ms a sample)
 GEN_SYSTEMS = ("chen", "chua", "lorenz", "rossler")
-GEN_SAMPLES = 20_000
+GEN_SAMPLES = 8_000
 # repro.core.dse.select(i, h, "pareto") for each registered shape (a CPU
 # run of the JAX package); from_generated clamps p to a client's 128 lanes
 GEN_SELECT = {(3, 8): dict(i_dim=3, h_dim=8, p=3, compute_unit="vpu",
@@ -314,6 +354,10 @@ GEN_K3_ROW_MAP = np.resize([0, 3, 128, 17, 64, 9, 200, 1], GEN_CHECK_BLOCKS)
 GEN_STACK_LANES = 4_096 + 37
 GEN_K4_ROW_MAP = [0, 13, 200, 64]
 GEN_F1_ROW_MAP = [128, 8, 77, 0]
+# the farms' gang launches (phases 11 and 12) replayed on each core's first
+# and last lane block over their first word rows: a plain gang scan's time
+# is its launches, a few per op of each step, whatever its lanes
+GEN_REPLAY_ROWS = 32
 # phase 12, lattices of tanh and sigmoid nets: phase 10's chen nets and
 # phase 11's chua, lorenz and rossler nets expanded to 8-node rings
 # (coupling 0.05), chen's also to the 8-node torus.  The lattice K1-K4
@@ -334,9 +378,39 @@ LAT_CORES = ("chen@ring8", "chen@grid8")        # generated, with testbench
 # the stream's words held bitwise against the plain path: its first 512
 # word rows (the plain loop's launches, not its lanes, set its time)
 LAT_STREAM_CHECK_WORDS = 1 << 17
+# the generated lattice cores' generate / generate_bits steps (the plain
+# dense loop's launches set the checks' time)
+LAT_CORE_STEPS = 128
 LAT_ATTRACTOR_STEPS = 1_000
 # lattice K1/K2 timed at lattice K1's served shape (the lattice path's)
 LAT_TIME_LANES, LAT_TIME_STEPS = 65_536, 256
+
+# phase 13, tanh and sigmoid in the mxu forms: phases 10 and 11's nets.
+# K1/K2 checked at every MXU_SHAPES entry at (lanes, steps) by n_nodes
+# (the plain f32 FMA chains' launches set their time), K3 at
+# phase_mxu_gang_kernels' blocks, steps and rows
+MXU_ACT_CHECKS = {1: (8_192 + 37, 128), 8: (2_048 + 37, 32),
+                  32: (1_024 + 37, 8)}
+# the JAX package's choices (a CPU run of repro.core.dse): the no-config
+# streams' select_config(3n, 8n, s_total=256, dtype, n_nodes=n), mxu at
+# chen@ring32 in both dtypes and at bf16 chen@ring8, and select(24, 64,
+# "min_latency", n_nodes=8), the generated cores'
+MXU_STREAMS = (("chen@ring32", "f32"), ("chen@ring32", "bf16"),
+               ("chen@ring8", "bf16"))
+MXU_STREAM_CONFIG = dict(p=1, compute_unit="mxu", unroll=8, t_block=256)
+MXU_SELECT = dict(i_dim=24, h_dim=64, p=5, compute_unit="mxu",
+                  dtype_bytes=2, unroll=8, t_block=128, n_nodes=8)
+# each stream's first words held against the plain path (6-9 s of plain
+# f32 chains at ring32), the lattices iterated (steps by n_nodes),
+# and the generated cores' generate / generate_bits steps
+MXU_STREAM_CHECK_WORDS = 1 << 13
+MXU_ATTRACTOR_STEPS = {32: 32, 8: 128}
+MXU_CORE_STEPS = 64
+# the farm's gang launches replayed on their first word rows (a ring32
+# plain f32 gang scan costs about 0.1 s a core a step)
+MXU_REPLAY_ROWS = 4
+# mxu K1/K2 timed at the mxu path's shape; the plain run on the first lanes
+MXU_TIME_LANES, MXU_TIME_STEPS, MXU_TIME_PLAIN_LANES = 65_536, 64, 1_024
 
 
 class SmokeFailure(Exception):
@@ -968,21 +1042,29 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
     }
     # one plain run (the kernels' arithmetic op by op, the lattice's
     # densely), timed, held bitwise against K2; plain K1 is that run
-    # packed by ``ops.pack_words`` (its time: the run's plus the packing's)
+    # packed by ``ops.pack_words`` (its time: the run's plus the packing's).
+    # On the mxu unit the run covers the first MXU_TIME_PLAIN_LANES lanes
+    # (lanes are independent; the f32 FMA chains took 26.7 s at all
+    # 65,536 on the H100 machine)
+    n_plain = MXU_TIME_PLAIN_LANES if unit == "mxu" else s_pool
     traj_p, t["traj_plain_ms"] = timed_once(
-        torch, lambda: ref.chaotic_ann_ref(*w, x, n_steps, **kw))
-    words_p, pack_ms = timed_once(torch, lambda: ops.pack_words(traj_p, off))
+        torch, lambda: ref.chaotic_ann_ref(*w, x[:n_plain], n_steps, **kw))
+    words_p, pack_ms = timed_once(
+        torch, lambda: ops.pack_words(traj_p, off[:n_plain]))
     t["bits_plain_ms"] = t["traj_plain_ms"] + pack_ms
+    t["plain_lanes"] = n_plain
     words_k, state_k = chaotic_ann.chaotic_ann_bits(*w, x, off,
                                                     n_steps=n_steps, **kw)
-    e_bits = max(max_abs_err(torch, words_k, words_p),
-                 max_abs_err(torch, state_k, traj_p[-1]))
+    e_bits = max(max_abs_err(torch, words_k.view(torch.int32)[:, :n_plain]
+                             .view(torch.uint32), words_p),
+                 max_abs_err(torch, state_k[:n_plain], traj_p[-1]))
     del words_p, words_k, state_k
     traj_k = chaotic_ann.chaotic_ann_traj(*w, x, n_steps=n_steps, **kw)
-    e_traj = max_abs_err(torch, traj_k, traj_p)
+    e_traj = max_abs_err(torch, traj_k[:, :n_plain], traj_p)
     del traj_p, traj_k
     print(f"check {system} {unit} {tag} S={s_pool} steps={n_steps} (the "
-          f"flush's shape): {bits_name} max_abs_err={e_bits} {traj_name} "
+          f"flush's shape; the plain run on the first {n_plain} lanes): "
+          f"{bits_name} max_abs_err={e_bits} {traj_name} "
           f"max_abs_err={e_traj}")
     check(e_bits == 0.0, f"{bits_name} != plain ({system}, {tag}, flush shape)")
     check(e_traj == 0.0, f"{traj_name} != plain ({system}, {tag}, flush shape)")
@@ -1010,7 +1092,7 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
           f" {ops_step} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
           f"({n_out / t['bits_ms'] * 1e3:.4g} words/s, bound "
           f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}{dense}); "
-          f"plain {t['bits_plain_ms']:.1f} ms; "
+          f"plain on {n_plain} lanes {t['bits_plain_ms']:.1f} ms; "
           f"unfused traj+pack {t['unfused_ms']:.3f} ms; "
           f"{traj_name} {t['traj_ms']:.4f} ms (bound "
           f"{t['traj_bound'][0]:.4f} ms by {t['traj_bound'][1]}); "
@@ -1036,6 +1118,7 @@ def kernel_rows(system, unit, tag, launches, t, errs):
             "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
             "bound_ms": t[f"{key}_bound"][0],
             "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+            "plain_lanes": t["plain_lanes"],
             "unfused_ms": t["unfused_ms"] if key == "bits" else None,
             "flush_wall_ms": t["flush_s"] * 1e3 if key == "bits" else None,
         }
@@ -1798,9 +1881,10 @@ def phase_paper_flow(torch, device, card, errs):
                                                 device=device)
             words = counted(lambda: stream.bits(NIST_WORDS).numpy(),
                             "chaotic_ann_bits", "f32")
-            path_out = {"stream words": (words, ChaoticStream.from_trained(
-                bundle, activation=act, device=device,
-                backend="ref").bits(NIST_WORDS).numpy())}
+            path_out = {"stream words": (
+                words[:PAPER_STREAM_CHECK_WORDS], ChaoticStream.from_trained(
+                    bundle, activation=act, device=device,
+                    backend="ref").bits(PAPER_STREAM_CHECK_WORDS).numpy())}
             res = run_nist_subset(words, alpha=NIST_ALPHA)
             print(f"nist {act} trained chen on {words.size} words of "
                   f"ChaoticStream.from_trained (not gated): "
@@ -2025,7 +2109,8 @@ class GangRecorder:
     while active: each call on the card is recorded with its inputs, its
     outputs, its activation, and the launches its wrapper counted for it.
     ``replay`` then holds every recorded launch against the plain gang
-    scan on the same inputs, bitwise, and times it."""
+    scan on each core's first and last lane block, bitwise, and times
+    it."""
 
     NAMES = {"chaotic_bits_gang": "chaotic_ann_gang_bits",
              "chaotic_bits_gang_stacked": "chaotic_ann_gang_stacked"}
@@ -2033,6 +2118,8 @@ class GangRecorder:
     LATTICE_NAMES = {
         "chaotic_bits_gang": "chaotic_ann_lattice_gang_bits",
         "chaotic_bits_gang_stacked": "chaotic_ann_lattice_gang_stacked"}
+    # an mxu group's, scalar or lattice (K4 has no mxu form)
+    MXU_NAMES = {"chaotic_bits_gang": "chaotic_ann_mxu_gang_bits"}
 
     def __init__(self, torch):
         from repro_torch.kernels import chaotic_ann, ops
@@ -2051,14 +2138,16 @@ class GangRecorder:
 
     def _wrap(self, f):
         def call(params, x0, n_steps, word_offset=0, **kw):
-            kernel = (self.LATTICE_NAMES if "lattice_meta" in params
-                      else self.NAMES)[f]
-            counter = getattr(self.chaotic_ann, kernel)
+            unit = kw["config"].compute_unit
+            names = (self.MXU_NAMES if unit == "mxu"
+                     else self.LATTICE_NAMES if "lattice_meta" in params
+                     else self.NAMES)
+            counter = getattr(self.chaotic_ann, names[f])
             n0 = counter.launches
             x_in = x0.clone()
             out = self.orig[f](params, x0, n_steps, word_offset, **kw)
             self.calls.append(dict(
-                kernel=kernel, f=f, params=params, x0=x_in,
+                kernel=names[f], f=f, params=params, x0=x_in,
                 n_steps=n_steps, word_offset=word_offset, kw=kw, out=out,
                 activation=kw.get("activation", "relu"),
                 launches=counter.launches - n0))
@@ -2084,48 +2173,133 @@ class GangRecorder:
         return torch.as_tensor(np.repeat(rows, cfg.s_block).astype(np.int64),
                                device=rec["x0"].device)
 
-    def replay(self, rec, tag):
-        """``rec``'s words (the rows asked for) and state against the
-        plain gang scan, bitwise; the kernel's and the plain scan's device
-        times and the launch's bound.  Returns (err, times)."""
+    def _subset(self, rec):
+        """The lanes a replay holds: each core's first and last lane block
+        (K3), or each pool's first and last CTA of lanes (K4); lanes are
+        independent.  Returns (plain inputs, kernel words and state on
+        those lanes, their rows)."""
         torch = self.torch
-        orig = self.orig[rec["f"]]
-        args = (rec["params"], rec["x0"], rec["n_steps"], rec["word_offset"])
-        plain_kw = dict(rec["kw"], backend="ref")
-        (words_p, state_p), plain_ms = timed_once(
-            torch, lambda: orig(*args, **plain_kw))
+        x0, off = rec["x0"], rec["word_offset"]
         words_k, state_k = rec["out"]
         lane_rows = self.rows(rec)
-        e = max(masked_err(torch, words_k, words_p, lane_rows),
-                max_abs_err(torch, state_k, state_p))
+        if rec["f"] == "chaotic_bits_gang_stacked":
+            n = x0.shape[1]
+            idx = np.unique(np.concatenate([np.arange(min(128, n)),
+                                            np.arange(max(0, n - 128), n)]))
+            lanes = torch.as_tensor(idx, device=x0.device)
+            return (x0[:, lanes], off[:, lanes], None,
+                    words_k.view(torch.int32)[:, :, lanes].view(torch.uint32),
+                    state_k[:, lanes], lane_rows, idx.size)
+        cfg = rec["kw"]["config"]
+        core_map = np.asarray(rec["kw"]["core_map"])
+        first = np.array([np.flatnonzero(core_map == c)[0]
+                          for c in np.unique(core_map)])
+        last = np.array([np.flatnonzero(core_map == c)[-1]
+                         for c in np.unique(core_map)])
+        blocks = np.unique(np.concatenate([first, last]))
+        lanes = torch.as_tensor(
+            (blocks[:, None] * cfg.s_block + np.arange(cfg.s_block))
+            .reshape(-1), device=x0.device)
+        return (x0[lanes], off[lanes], core_map[blocks],
+                words_k.view(torch.int32)[:, lanes].view(torch.uint32),
+                state_k[lanes], lane_rows[lanes], lanes.numel())
+
+    def replay(self, rec, tag, max_rows=None):
+        """``rec``'s words (the rows asked for) and state on each core's
+        first and last lane block against the plain gang scan, bitwise;
+        the kernel's device time at the launch's full shape, the plain
+        scan's on those lanes, and the launch's bound.  ``max_rows`` runs
+        the plain scan for that many word rows only: the words of those
+        rows (they depend on no later step) and the state of the lanes
+        whose rows end within them are held.  Returns (err, times)."""
+        from repro_torch.kernels import ref
+        torch, ops = self.torch, self.ops
+        params, kw = rec["params"], rec["kw"]
+        unit = kw["config"].compute_unit
+        lattice, cpl = ops._lattice_args(params, unit)
+        w = ops._stacked_weights(params)
+        act = rec["activation"]
+        x0, off, core_map, words_k, state_k, lane_rows, n_lanes_held = \
+            self._subset(rec)
+        n_rows = rec["n_steps"] // 2
+        if max_rows is not None:
+            n_rows = min(n_rows, max_rows)
+        held = torch.clamp(lane_rows, max=n_rows)
+        def plain():
+            if core_map is None:        # K4: rows per core
+                return ref.chaotic_ann_gang_stacked_ref(
+                    *w, x0, 2 * n_rows, off, held[:, 0].tolist(), act,
+                    lattice)
+            # K3: each block's effective rows
+            rows = held.reshape(len(core_map), -1)[:, 0].cpu().numpy()
+            return ref.chaotic_ann_gang_bits_ref(
+                *w, x0, core_map, 2 * n_rows, off, rows, act, lattice, unit,
+                cpl)
+
+        (words_p, state_p), plain_ms = timed_once(torch, plain)
+        e = masked_err(torch, words_k[:n_rows], words_p, held)
+        done = (lane_rows <= n_rows).reshape(-1)
+        if bool(done.any()):
+            e = max(e, max_abs_err(torch, state_k[done], state_p[done]))
         del words_p, state_p
-        t = {"ms": cuda_ms(torch, lambda: orig(*args, **rec["kw"]), reps=10,
-                           warmup=2), "plain_ms": plain_ms}
+        orig = self.orig[rec["f"]]
+        args = (params, rec["x0"], rec["n_steps"], rec["word_offset"])
+        t = {"ms": cuda_ms(torch, lambda: orig(*args, **kw), reps=10,
+                           warmup=2), "plain_ms": plain_ms,
+             "plain_lanes": n_lanes_held, "plain_rows": n_rows,
+             "state_lanes": int(done.sum()) * (
+                 n_lanes_held if core_map is None else 1)}
         x0 = rec["x0"]
-        n_cores, i_dim, h_dim = rec["params"]["w1"].shape
+        n_cores, i_dim, h_dim = params["w1"].shape
         n_lanes = x0.numel() // i_dim
+        lane_rows = self.rows(rec)
         # K3's rows are per lane; K4's per core, for each of its lanes
         n_words = int(lane_rows.sum()) * (x0.shape[1] if x0.ndim == 3 else 1)
         item = x0.element_size()
-        n_maps = n_cores if x0.ndim == 3 else 2 * len(rec["kw"]["core_map"])
-        # x0 read, state written, offsets, weights and maps read, the words
-        # computed written
+        n_maps = n_cores if x0.ndim == 3 else 2 * len(kw["core_map"])
+        # x0 read, state written, offsets, weights (and the coupling
+        # operand on the mxu) and maps read, the words computed written
         n_bytes = (2 * n_lanes * i_dim * item + n_lanes * 4
                    + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
                    + n_maps * 4 + n_words * 4)
-        act = rec["activation"]
-        if "lattice_meta" in rec["params"]:
-            from repro_torch.core.ann import lattice_meta_tuple
-            ops_step = lattice_step_flops(
-                lattice_meta_tuple(rec["params"]["lattice_meta"]), h_dim, act)
-        else:
-            ops_step = step_flops(i_dim, h_dim) + act_flops(h_dim, act)
         extra = act_flops(h_dim, act)
-        t["bound"] = bound(n_words * 2 * (ops_step - extra), n_bytes, tag,
-                           f32_flops=n_words * 2 * extra)
+        if unit == "mxu":           # every op at the f32 rate
+            n_bytes += i_dim * i_dim * item if lattice else 0
+            ops_step = mxu_step_flops(i_dim, h_dim, lattice) + extra
+            t["bound"] = bound(0, n_bytes, tag,
+                               f32_flops=n_words * 2 * ops_step)
+        else:
+            ops_step = (lattice_step_flops(lattice, h_dim, act) if lattice
+                        else step_flops(i_dim, h_dim) + extra)
+            t["bound"] = bound(n_words * 2 * (ops_step - extra), n_bytes,
+                               tag, f32_flops=n_words * 2 * extra)
         t["ops_step"] = ops_step
         t["words"] = n_words
         return e, t
+
+
+def replay_calls(torch, rec, tag, what, label, card, errs, times,
+                 max_rows=None):
+    """Every gang launch ``rec`` recorded in one flush against the plain
+    gang scan on each core's first and last lane block (``max_rows``: its
+    first word rows), bitwise, and timed at the flush's own shape (not
+    counted as path launches); the times go to ``times[(kernel,
+    activation, label)]``."""
+    for r in rec.calls:
+        e, t = rec.replay(r, tag, max_rows)
+        name, act = r["kernel"], r["activation"]
+        rows = rec.rows(r)
+        print(f"check {what}: {name} {act} (x0 {tuple(r['x0'].shape)}, rows "
+              f"{sorted(set(rows.flatten().tolist()))}) against the plain "
+              f"gang scan on {t['plain_lanes']} lanes (each core's first "
+              f"and last block), {t['plain_rows']} rows, the state of "
+              f"{t['state_lanes']} lanes: max_abs_err={e}; {t['ms']:.4f} ms "
+              f"(bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, "
+              f"{t['ops_step']} ops a step, {t['words']} words; plain "
+              f"{t['plain_ms']:.1f} ms); card {card}")
+        check(e == 0.0, f"{what}: {name} {act} != plain")
+        errs[(name, act, tag)] = max(errs.get((name, act, tag), 0.0), e)
+        times[(name, act, label)] = t
 
 
 def check_gen_gang_kernels(torch, device, nets, errs) -> None:
@@ -2330,24 +2504,8 @@ def phase_gen_farm(torch, device, tag, card, farm_dir, errs, lattice=False):
                   f"{what} {tag} F3: expected one padded K3 launch an "
                   f"activation and {len(solo_want)} K1, got {decisions} "
                   f"{got}")
-        # every gang launch of the flush against the plain gang scan on
-        # the card, and timed at the flush's own shape (not counted as
-        # path launches)
-        for r in rec.calls:
-            e, t = rec.replay(r, tag)
-            name, act = r["kernel"], r["activation"]
-            rows = rec.rows(r)
-            print(f"check {what} {tag} {label}: {name} {act} "
-                  f"(x0 {tuple(r['x0'].shape)}, rows "
-                  f"{sorted(set(rows.flatten().tolist()))}) against the "
-                  f"plain gang scan: max_abs_err={e}"
-                  + (f"; {t['ms']:.4f} ms (bound {t['bound'][0]:.4f} ms by "
-                     f"{t['bound'][1]}, {t['ops_step']} ops a step, "
-                     f"{t['words']} words; plain {t['plain_ms']:.1f} ms); "
-                     f"card {card}"))
-            check(e == 0.0, f"{what} {tag} {label}: {name} {act} != plain")
-            errs[(name, act, tag)] = max(errs.get((name, act, tag), 0.0), e)
-            times[(name, act, label)] = t
+        replay_calls(torch, rec, tag, f"{what} {tag} {label}", label, card,
+                     errs, times, max_rows=GEN_REPLAY_ROWS)
         del rec
     for name in (k3, k4):
         for act in ("relu",) + PAPER_ACTIVATIONS:
@@ -2378,6 +2536,8 @@ def gang_act_rows(names, tag, path_name, path, times, walls, splits, errs,
                 "launches": path[(name, act)],
                 "max_abs_err": errs[(name, act, tag)],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "plain_lanes": t["plain_lanes"],
+                "plain_rows": t["plain_rows"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": None, "shape": f"{flush} padded",
                 "ops_step": t["ops_step"],
@@ -2652,21 +2812,21 @@ def lattice_act_paths(torch, device, nets):
                 x0 = np.random.default_rng(15).uniform(
                     -0.5, 0.5, (core.S_BLOCK, 24)).astype(np.float32)
                 got, n = counted_path(
-                    torch, lambda: core.generate(x0, PAPER_CORE_STEPS,
+                    torch, lambda: core.generate(x0, LAT_CORE_STEPS,
                                                  device=device),
                     "chaotic_ann_lattice_traj", f"core {name} generate")
                 key = ("chaotic_ann_lattice_traj", act, "bf16")
                 launches[key] = launches.get(key, 0) + n
                 path_out[(act, f"{name} generate")] = (got, core.generate(
-                    x0, PAPER_CORE_STEPS, backend="ref", device=device))
+                    x0, LAT_CORE_STEPS, backend="ref", device=device))
                 got, n = counted_path(
                     torch, lambda: core.generate_bits(
-                        x0, 2 * PAPER_CORE_STEPS, device=device),
+                        x0, 2 * LAT_CORE_STEPS, device=device),
                     "chaotic_ann_lattice_bits", f"core {name} generate_bits")
                 key = ("chaotic_ann_lattice_bits", act, "bf16")
                 launches[key] = launches.get(key, 0) + n
                 path_out[(act, f"{name} generate_bits")] = (
-                    got, core.generate_bits(x0, 2 * PAPER_CORE_STEPS,
+                    got, core.generate_bits(x0, 2 * LAT_CORE_STEPS,
                                             backend="ref", device=device))
                 sys.modules.pop(name, None)
         for (act, what), (got, want) in path_out.items():
@@ -2858,6 +3018,525 @@ def phase_lattice_activations(torch, device, card, nets, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tanh and sigmoid in the mxu forms of K1-K3
+# ---------------------------------------------------------------------------
+
+def mxu_act_operands(torch, device, nets, act, shape):
+    """The stacked weights on the card of one of MXU_GANG_CHECKS for
+    ``act``, its lattice descriptor and its one shared coupling operand
+    (None, None for a scalar gang): the four 3-8-3 nets of the activation
+    (GEN_SYSTEMS), expanded to the lattice for a lattice shape; at 4-16
+    two seeded nets (no 4-16 net is trained)."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    keys = ("w1", "b1", "w2", "b2")
+    if shape == "4-16":
+        rng = np.random.default_rng(18)
+        ws = [rng.normal(0.0, sd, (2,) + dims).astype(np.float32)
+              for sd, dims in ((0.5, (4, 16)), (0.1, (16,)),
+                               (0.5, (16, 4)), (0.1, (4,)))]
+        return [torch.as_tensor(a, device=device) for a in ws], None, None
+    if shape == "3-8":
+        per_core = [nets[(s, act)][0] for s in GEN_SYSTEMS]
+    else:
+        per_core = [expand_net(nets[(s, act)], shape)[0] for s in GEN_SYSTEMS]
+    w = [torch.as_tensor(np.stack([np.asarray(p[k], np.float32)
+                                   for p in per_core]), device=device)
+         for k in keys]
+    if shape == "3-8":
+        return w, None, None
+    return (w, lattice_meta_tuple(per_core[0]["lattice_meta"]),
+            torch.as_tensor(per_core[0]["coupling"], device=device))
+
+
+def check_mxu_act_kernels(torch, device, nets, errs) -> None:
+    """tanh/sigmoid mxu K1, K2 (on the first net, a ragged lane count) and
+    K3 (phase_mxu_gang_kernels' blocks, steps and ragged rows, padded and
+    ragged) against their plain versions, bitwise, in both dtypes, at
+    every MXU_SHAPES entry; each kernel's words must differ from relu's on
+    the same weights."""
+    from repro_torch.kernels import chaotic_ann, ops, ref
+    rng = np.random.default_rng(19)
+    n_lanes = MXU_GANG_BLOCKS * MXU_GANG_S_BLOCK
+    t0 = time.perf_counter()
+    for act in PAPER_ACTIVATIONS:
+        for shape in MXU_GANG_CHECKS:
+            w, lattice, cpl = mxu_act_operands(torch, device, nets, act,
+                                               shape)
+            n_cores, i_dim = w[0].shape[:2]
+            n_nodes = lattice[0] if lattice else 1
+            lanes1, steps1 = MXU_ACT_CHECKS[n_nodes]
+            steps = MXU_GANG_STEPS[n_nodes]
+            core_map = np.arange(MXU_GANG_BLOCKS) % n_cores
+            x1_np = rng.uniform(-0.9, 0.9, (lanes1, i_dim)).astype(np.float32)
+            off1_np = rng.integers(0, 1 << 32, lanes1, dtype=np.int64)
+            n_wrap = min(64, lanes1)                # wrap mid-run
+            off1_np[:n_wrap] = (1 << 32) - 1 - 3 * np.arange(n_wrap)
+            off1 = torch.as_tensor(off1_np, device=device)
+            x0_np = rng.uniform(-0.9, 0.9, (n_lanes, i_dim)).astype(np.float32)
+            off = torch.as_tensor(rng.integers(0, 1 << 32, n_lanes,
+                                               dtype=np.int64), device=device)
+            kw = dict(lattice=lattice, compute_unit="mxu", coupling=cpl)
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                e, differs = {}, {}
+                x1 = torch.as_tensor(x1_np, device=device).to(dtype)
+                w1 = [a[0] for a in w]
+                words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                    *w1, x1, off1, n_steps=steps1, activation=act, **kw)
+                traj_k = chaotic_ann.chaotic_ann_traj(
+                    *w1, x1, n_steps=steps1, activation=act, **kw)
+                relu_k, _ = chaotic_ann.chaotic_ann_bits(
+                    *w1, x1, off1, n_steps=steps1, **kw)
+                traj_p = ref.chaotic_ann_ref(*w1, x1, steps1, act, **kw)
+                e["chaotic_ann_mxu_bits"] = max(
+                    max_abs_err(torch, words_k, ops.pack_words(traj_p, off1)),
+                    max_abs_err(torch, state_k, traj_p[-1]))
+                e["chaotic_ann_mxu_traj"] = max_abs_err(torch, traj_k,
+                                                        traj_p)
+                differs["K1"] = max_abs_err(torch, words_k, relu_k) > 0
+                del traj_k, traj_p
+                x0 = torch.as_tensor(x0_np, device=device).to(dtype)
+                gkw = dict(n_steps=steps, s_block=MXU_GANG_S_BLOCK,
+                           t_block=MXU_GANG_T_BLOCK, unroll=MXU_GANG_UNROLL,
+                           **kw)
+                for layout in ("padded", "ragged"):
+                    row_map = LATTICE_K3_ROW_MAP if layout == "ragged" \
+                        else None
+                    rows = (chaotic_ann.gang_effective_rows(
+                        row_map, steps, MXU_GANG_T_BLOCK, MXU_GANG_UNROLL)
+                        if row_map is not None
+                        else np.full(MXU_GANG_BLOCKS, steps // 2, np.int32))
+                    lane_rows = torch.as_tensor(np.repeat(
+                        rows, MXU_GANG_S_BLOCK).astype(np.int64),
+                        device=device)
+                    words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                        *w, x0, core_map, off, row_map, activation=act, **gkw)
+                    relu_k, _ = chaotic_ann.chaotic_ann_gang_bits(
+                        *w, x0, core_map, off, row_map, **gkw)
+                    words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                        *w, x0, core_map, steps, off, rows, act, **kw)
+                    e[f"chaotic_ann_mxu_gang_bits {layout}"] = max(
+                        masked_err(torch, words_k, words_p, lane_rows),
+                        max_abs_err(torch, state_k, state_p))
+                    differs[f"K3 {layout}"] = masked_err(
+                        torch, words_k, relu_k, lane_rows) > 0
+                torch.cuda.synchronize()
+                print(f"check mxu {act} {shape} {tag} (K1/K2 S={lanes1} "
+                      f"steps={steps1}; K3 C={n_cores}, {MXU_GANG_BLOCKS} "
+                      f"blocks x {MXU_GANG_S_BLOCK} lanes, steps={steps}): "
+                      + ", ".join(f"{k} max_abs_err={v}" for k, v in e.items())
+                      + f"; words differ from relu's: {differs}")
+                for name, err in e.items():
+                    check(err == 0.0, f"{act} {name} != plain ({shape}, "
+                                      f"{tag})")
+                    key = (name.split()[0], act, tag)
+                    errs[key] = max(errs.get(key, 0.0), err)
+                check(all(differs.values()),
+                      f"{act} mxu words equal relu's ({shape}, {tag}, "
+                      f"{differs}): the check cannot see a silent relu")
+    print(f"tanh/sigmoid mxu kernel checks: {time.perf_counter() - t0:.1f} s")
+
+
+def mxu_act_paths(torch, device, nets):
+    """Phase 13's paths for one activation each: the no-config streams
+    (chen@ring32 in f32, ``ChaoticStream.from_trained``, and bf16,
+    ``ChaoticPRNG``; chen@ring8 in bf16), each config held to the JAX
+    package's mxu choice, 2**20 words through mxu K1, the first
+    MXU_STREAM_CHECK_WORDS bitwise against ``backend="ref"``, the NIST
+    subset printed; each lattice iterated through mxu K2 and held against
+    ``backend="ref"``; the generated chen_ring8 / chen_grid8 cores on
+    ``select(24, 64, "min_latency", n_nodes=8)`` (held to the JAX one):
+    each testbench on the card in its own process, each core's
+    ``generate`` (mxu K2) and ``generate_bits`` (mxu K1) bitwise against
+    ``backend="ref"``.  Returns {(kernel, activation, dtype tag):
+    launches}."""
+    import importlib
+    import tempfile
+    from repro_torch.core.ann import params_from_numpy
+    from repro_torch.core.codegen import generate_core
+    from repro_torch.core.dse import Candidate, select
+    from repro_torch.kernels import ops
+    from repro_torch.prng.stream import ChaoticPRNG, ChaoticStream
+
+    launches, path_out = {}, {}
+
+    def count(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    cand = select(24, 64, "min_latency", n_nodes=8)
+    print(f"mxu cores: select(24, 64, 'min_latency', n_nodes=8) = {cand}")
+    check(cand == Candidate(**MXU_SELECT),
+          f"select(24, 64, 'min_latency', n_nodes=8): {cand} is not the JAX "
+          f"package's")
+    tmp = tempfile.TemporaryDirectory(prefix="mxu_cores_")
+    sys.path.insert(0, tmp.name)
+    try:
+        pkgs = []
+        for act in PAPER_ACTIVATIONS:
+            for system in LAT_CORES:
+                params, scale, offset = expand_net(nets[("chen", act)],
+                                                   system)
+                pkgs.append(generate_core(
+                    f"{system.replace('@', '_')}_{act}_ml", tmp.name,
+                    params=params, candidate=cand, system=system,
+                    activation=act, scale=scale, offset=offset))
+        t0 = time.perf_counter()
+        run_testbenches(pkgs)
+        print(f"mxu cores: {len(pkgs)} testbenches "
+              f"{time.perf_counter() - t0:.1f} s")
+        for act in PAPER_ACTIVATIONS:
+            for system, tag in MXU_STREAMS:
+                dtype = torch.float32 if tag == "f32" else torch.bfloat16
+                params = expand_net(nets[("chen", act)], system)[0]
+                n_nodes = 32 if system.endswith("32") else 8
+                what = f"mxu stream {act} {system} {tag}"
+                if tag == "f32":
+                    stream = ChaoticStream.from_trained(
+                        params, activation=act, device=device)
+                    cfg = stream._engine.config
+                    plain = ChaoticStream.from_trained(
+                        params, activation=act, device=device, backend="ref")
+
+                    def draw(s, n):
+                        return s.bits(n).numpy()
+                else:
+                    stream = ChaoticPRNG(params, activation=act, dtype=dtype,
+                                         device=device)
+                    cfg = stream.config
+                    plain = ChaoticPRNG(params, activation=act, dtype=dtype,
+                                        device=device, backend="ref")
+
+                    def draw(s, n):
+                        return s.next_words(s.init(seed=0), n)[0]
+                want = Candidate(**dict(MXU_STREAM_CONFIG, n_nodes=n_nodes,
+                                        i_dim=3 * n_nodes,
+                                        h_dim=8 * n_nodes,
+                                        dtype_bytes=4 if tag == "f32" else 2))
+                print(f"{what}: no config -> {cfg}")
+                check(cfg == want, f"{what}: config {cfg} is not the JAX "
+                                   f"package's select_config")
+                words, n = counted_path(
+                    torch, lambda: draw(stream, NIST_WORDS),
+                    "chaotic_ann_mxu_bits", what)
+                count(("chaotic_ann_mxu_bits", act, tag), n)
+                t0 = time.perf_counter()
+                want_w = draw(plain, MXU_STREAM_CHECK_WORDS)
+                print(f"{what}: the plain path's first "
+                      f"{MXU_STREAM_CHECK_WORDS} words in "
+                      f"{time.perf_counter() - t0:.1f} s")
+                path_out[(act, f"{system} {tag} stream words")] = (
+                    words[:MXU_STREAM_CHECK_WORDS], want_w)
+                p, failed = nist3(words)
+                print(f"nist {what} on {words.size} words (not gated): "
+                      + ", ".join(f"{k} p={v:.4g}" for k, v in p.items())
+                      + f"; under alpha {NIST_ALPHA}: {failed}")
+                p_dev = params_from_numpy(params, device=device)
+                x_att = torch.as_tensor(np.random.default_rng(20).uniform(
+                    -0.5, 0.5, (ATTRACTOR_LANES, 3 * n_nodes)).astype(
+                        np.float32), device=device).to(dtype)
+                steps = MXU_ATTRACTOR_STEPS[n_nodes]
+                traj, n = counted_path(torch, lambda: ops.chaotic_trajectory(
+                    p_dev, x_att, steps, activation=act, config=cfg),
+                    "chaotic_ann_mxu_traj", f"{what} iterated")
+                count(("chaotic_ann_mxu_traj", act, tag), n)
+                amax = float(traj.float().abs().max())
+                print(f"{what}: iterated {steps} steps on {ATTRACTOR_LANES} "
+                      f"lanes: max|x| {amax:.4g}")
+                check(bool(torch.isfinite(traj.float()).all()) and amax < 10.0,
+                      f"{what}: the expanded net leaves the attractor box")
+                path_out[(act, f"{system} {tag} iterated")] = (
+                    traj, ops.chaotic_trajectory(p_dev, x_att, steps,
+                                                 activation=act, config=cfg,
+                                                 backend="ref"))
+            for system in LAT_CORES:
+                name = f"{system.replace('@', '_')}_{act}_ml"
+                core = importlib.import_module(name)
+                x0 = np.random.default_rng(21).uniform(
+                    -0.5, 0.5, (core.S_BLOCK, 24)).astype(np.float32)
+                got, n = counted_path(
+                    torch, lambda: core.generate(x0, MXU_CORE_STEPS,
+                                                 device=device),
+                    "chaotic_ann_mxu_traj", f"core {name} generate")
+                count(("chaotic_ann_mxu_traj", act, "bf16"), n)
+                path_out[(act, f"{name} generate")] = (got, core.generate(
+                    x0, MXU_CORE_STEPS, backend="ref", device=device))
+                got, n = counted_path(
+                    torch, lambda: core.generate_bits(
+                        x0, 2 * MXU_CORE_STEPS, device=device),
+                    "chaotic_ann_mxu_bits", f"core {name} generate_bits")
+                count(("chaotic_ann_mxu_bits", act, "bf16"), n)
+                path_out[(act, f"{name} generate_bits")] = (
+                    got, core.generate_bits(x0, 2 * MXU_CORE_STEPS,
+                                            backend="ref", device=device))
+                sys.modules.pop(name, None)
+        for (act, what), (got, want) in path_out.items():
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            e = max(max_abs_err(torch, torch.as_tensor(g), torch.as_tensor(w))
+                    for g, w in zip(got, want))
+            print(f"check mxu {act} path: {what} {tuple(np.shape(got[0]))} "
+                  f"against the plain path: max_abs_err={e}")
+            check(e == 0.0, f"mxu {act} path: {what} != plain")
+    finally:
+        sys.path.remove(tmp.name)
+        tmp.cleanup()
+    return launches
+
+
+def phase_mxu_act_farm(torch, device, tag, card, nets, errs):
+    """Phase 13's farm for one dtype: the four ring32 registry cores
+    (relu) beside ``<system>@ring32_<activation>``, the tanh and sigmoid
+    nets of phases 10 and 11 expanded to chen@ring32's descriptor, all
+    added with NO config (the mxu unit), 128 clients x 128 lanes a core,
+    MXU_WORDS a client; three mxu K3 groups, one an activation.  Three
+    flushes (F1 uniform: one padded mxu K3 an activation; F2 the chen
+    cores hot, the rest at MXU_COLD_WORDS; F3 one more client on each
+    lorenz core: one padded mxu K3 an activation), each with the launch
+    counters zeroed just before it and read just after, held against a
+    gang=False farm (each core its own mxu K1); every gang launch against
+    the plain gang scan on each core's first and last lane block, its
+    first MXU_REPLAY_ROWS word rows, bitwise.  Returns ({(kernel,
+    activation): launches}, {(kernel, activation, flush): times}, walls)."""
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.farm import OscillatorFarm, _compat_key
+    dtype = torch.float32 if tag == "f32" else torch.bfloat16
+    k3, k1 = "chaotic_ann_mxu_gang_bits", "chaotic_ann_mxu_bits"
+    what = f"mxu activation farm {tag}"
+    expanded = {(s, a): expand_net(nets[(s, a)], f"{s}@ring32")[0]
+                for s in GEN_SYSTEMS for a in PAPER_ACTIVATIONS}
+
+    def make(gang=True):
+        farm = OscillatorFarm(gang=gang, profile=True, device=device)
+        for system in LATTICE_FARM:
+            farm.add_core(system, default_params(system=system), dtype=dtype)
+        for (s, a), params in sorted(expanded.items()):
+            farm.add_core(f"{s}@ring32_{a}", params, dtype=dtype,
+                          activation=a)
+        return farm
+
+    farm, solo = make(), make(gang=False)
+    cores = farm.cores
+    groups = {}
+    for c in cores:
+        groups.setdefault(_compat_key(farm.services[c]), []).append(c)
+    by_act = {farm.services[g[0]].activation: sorted(g)
+              for g in groups.values()}
+    print(f"{what}: {len(cores)} cores; gang groups {by_act}; config "
+          f"{farm.services[cores[0]].config}")
+    check(sorted(by_act) == ["relu", "sigmoid", "tanh"]
+          and all(len(g) == len(GEN_SYSTEMS) for g in by_act.values())
+          and all(farm.services[c].config.compute_unit == "mxu"
+                  for c in cores),
+          f"{what}: expected three mxu groups of {len(GEN_SYSTEMS)}, one an "
+          f"activation")
+    clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
+    t_register = register_all(torch, (farm, solo), clients, 9000)
+    hot = {c: MXU_WORDS if c.startswith(GEN_HOT) else MXU_COLD_WORDS
+           for c in cores}
+    flushes = (("F1", {c: MXU_WORDS for c in cores}), ("F2", hot),
+               ("F3", {c: MXU_WORDS for c in cores}))
+    path, times, walls = {}, {}, {}
+    one_each = ["relu", "sigmoid", "tanh"]
+    for label, words in flushes:
+        if label == "F3":                  # unequal pools: one more client
+            for f in (farm, solo):
+                for c in cores:
+                    if c.startswith(GEN_F3):
+                        f.register(c, f"c{FARM_CLIENTS}", seed=99)
+        request_all((farm, solo), words)
+        with GangRecorder(torch) as rec:
+            _, got, decisions, modes, n_launched, walls[label] = \
+                counted_flush(torch, farm, solo, f"{what} {label}", card)
+        acts = sorted(r["activation"] for r in rec.calls)
+        for r in rec.calls:
+            key = (r["kernel"], r["activation"])
+            path[key] = path.get(key, 0) + r["launches"]
+        print(f"{what} {label}: gang launches by activation {acts}")
+        check(all(r["launches"] == 1 and r["kernel"] == k3
+                  for r in rec.calls) and got[k3] == len(rec.calls),
+              f"{what} {label}: each gang call must count one mxu K3 "
+              f"launch ({got}, {len(rec.calls)} calls)")
+        check(all(v == 0 for k, v in got.items() if k not in (k3, k1))
+              and modes == ["concat"],
+              f"{what} {label}: K4 or a vpu kernel launched, or a stacked "
+              f"plan ({got}, {modes})")
+        if label == "F2":
+            check("padded" not in decisions and got[k3] + got[k1] > 0,
+                  f"{what} F2: expected ragged or split, got {decisions} "
+                  f"{got}")
+        else:
+            check(decisions == {"padded": 3} and acts == one_each
+                  and got[k1] == 0 and n_launched == 3,
+                  f"{what} {label}: expected one padded mxu K3 launch an "
+                  f"activation and no mxu K1, got {decisions} {got}")
+        replay_calls(torch, rec, tag, f"{what} {label}", label, card, errs,
+                     times, max_rows=MXU_REPLAY_ROWS)
+        del rec
+    for act in one_each:
+        check(path.get((k3, act), 0) > 0,
+              f"{k3} {act} not launched on the {what}")
+    print(f"{what}: {len(cores)} cores x {FARM_CLIENTS} clients x "
+          f"{LANES_PER_CLIENT} lanes; register {t_register:.3f} s per farm; "
+          f"every flush bitwise equal to the gang=False farm; walls ms "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in walls.items()))
+    return path, times, walls
+
+
+def mxu_act_times(torch, device, card, nets, errs):
+    """tanh/sigmoid mxu K1 and K2 at chen@ring32, MXU_TIME_LANES x
+    MXU_TIME_STEPS (the mxu path's shape), each beside relu's on the same
+    weights and inputs, CUDA events; the kernels held bitwise against one
+    plain run on the first MXU_TIME_PLAIN_LANES lanes (lanes are
+    independent), timed; the bounds.  Returns {(act, tag): times}."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.kernels import chaotic_ann, ops, ref
+    keys = ("w1", "b1", "w2", "b2")
+    n, steps, n_plain = MXU_TIME_LANES, MXU_TIME_STEPS, MXU_TIME_PLAIN_LANES
+    rng = np.random.default_rng(22)
+    off = torch.as_tensor(rng.integers(0, 1 << 32, n, dtype=np.int64),
+                          device=device)
+    out = {}
+    for act in PAPER_ACTIVATIONS:
+        params = expand_net(nets[("chen", act)], LATTICE)[0]
+        w = [torch.as_tensor(params[k], device=device) for k in keys]
+        kw = dict(n_steps=steps, compute_unit="mxu",
+                  lattice=lattice_meta_tuple(params["lattice_meta"]),
+                  coupling=torch.as_tensor(params["coupling"], device=device))
+        i_dim, h_dim = params["w1"].shape
+        x_np = rng.uniform(-0.9, 0.9, (n, i_dim)).astype(np.float32)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = torch.as_tensor(x_np, device=device).to(dtype)
+            t = {}
+            pkw = {k: v for k, v in kw.items() if k != "n_steps"}
+            traj_p, t["traj_plain_ms"] = timed_once(
+                torch, lambda: ref.chaotic_ann_ref(*w, x[:n_plain], steps,
+                                                   act, **pkw))
+            words_p, pack_ms = timed_once(
+                torch, lambda: ops.pack_words(traj_p, off[:n_plain]))
+            t["bits_plain_ms"] = t["traj_plain_ms"] + pack_ms
+            words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                *w, x, off, activation=act, **kw)
+            traj_k = chaotic_ann.chaotic_ann_traj(*w, x, activation=act, **kw)
+            e_bits = max(max_abs_err(torch, words_k.view(torch.int32)
+                                     [:, :n_plain].view(torch.uint32),
+                                     words_p),
+                         max_abs_err(torch, state_k[:n_plain], traj_p[-1]))
+            e_traj = max_abs_err(torch, traj_k[:, :n_plain], traj_p)
+            del traj_p, words_p, words_k, traj_k
+            print(f"check mxu {act} {LATTICE} {tag} S={n} steps={steps} on "
+                  f"the first {n_plain} lanes: chaotic_ann_mxu_bits "
+                  f"max_abs_err={e_bits} chaotic_ann_mxu_traj "
+                  f"max_abs_err={e_traj}")
+            check(e_bits == 0.0 and e_traj == 0.0,
+                  f"{act} mxu K1/K2 != plain at {LATTICE} ({tag})")
+            for name, e in (("chaotic_ann_mxu_bits", e_bits),
+                            ("chaotic_ann_mxu_traj", e_traj)):
+                errs[(name, act, tag)] = max(errs.get((name, act, tag), 0.0),
+                                             e)
+            t["bits_ms"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+                *w, x, off, activation=act, **kw), reps=5, warmup=2)
+            t["relu_bits_ms"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_bits(*w, x, off, **kw),
+                reps=5, warmup=2)
+            t["traj_ms"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_traj(
+                *w, x, activation=act, **kw), reps=3, warmup=1)
+            t["relu_traj_ms"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_traj(*w, x, **kw),
+                reps=3, warmup=1)
+            item = x.element_size()
+            # every op at the f32 rate: the chains accumulate in f32 and
+            # the formulas run in f32 in both dtypes
+            ops_step = (mxu_step_flops(i_dim, h_dim, kw["lattice"])
+                        + act_flops(h_dim, act))
+            weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim
+                            + i_dim * i_dim) * item
+            n_out = steps // 2 * n
+            t["bits_bound"] = bound(
+                0, 2 * n * i_dim * item + n * 4 + weight_bytes + n_out * 4,
+                tag, f32_flops=n_out * 2 * ops_step)
+            t["traj_bound"] = bound(
+                0, n * i_dim * item + weight_bytes + steps * n * i_dim * item,
+                tag, f32_flops=steps * n * ops_step)
+            t["ops_step"] = ops_step
+            out[(act, tag)] = t
+            print(f"device times mxu {act} {LATTICE} {tag} (S={n}, "
+                  f"n_steps={steps}, {ops_step} ops a step): "
+                  f"chaotic_ann_mxu_bits {t['bits_ms']:.4f} ms (relu's "
+                  f"{t['relu_bits_ms']:.4f} ms in this call; bound "
+                  f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}); "
+                  f"chaotic_ann_mxu_traj {t['traj_ms']:.4f} ms (relu's "
+                  f"{t['relu_traj_ms']:.4f} ms; bound "
+                  f"{t['traj_bound'][0]:.4f} ms by {t['traj_bound'][1]}); "
+                  f"plain on {n_plain} lanes {t['bits_plain_ms']:.1f} / "
+                  f"{t['traj_plain_ms']:.1f} ms; card {card}")
+    return out
+
+
+def phase_mxu_activations(torch, device, card, nets, errs):
+    """Phase 13: the tanh/sigmoid mxu K1-K3 checks, the no-config streams,
+    their iterated lattices and the min-latency generated cores, the farm
+    of no-config ring32 cores per dtype, and the mxu K1/K2 times.  Returns
+    the ``kernels`` rows of tanh and sigmoid mxu K1-K3."""
+    t0 = time.perf_counter()
+    check_mxu_act_kernels(torch, device, nets, errs)
+    t1 = time.perf_counter()
+    launches = mxu_act_paths(torch, device, nets)
+    t2 = time.perf_counter()
+    rows = []
+    form = (lambda act: f"mxu unit, {act} (_activation "
+            f"src/repro/kernels/chaotic_ann.py:44-45 in the dot form :154-161,"
+            f" with K5's coupling dot :148-152)")
+    for tag in ("f32", "bf16"):
+        path, times, walls = phase_mxu_act_farm(torch, device, tag, card,
+                                                nets, errs)
+        name = "chaotic_ann_mxu_gang_bits"
+        for act in PAPER_ACTIVATIONS:
+            t3, t1_ = times[(name, act, "F3")], times[(name, act, "F1")]
+            rows.append({
+                "name": f"{name}/{act}/{tag}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+                "replaces": REPLACES[name], "path": "mxu-activation-farm",
+                "launches": path[(name, act)],
+                "max_abs_err": errs[(name, act, tag)],
+                "ms": t3["ms"], "plain_ms": t3["plain_ms"],
+                "plain_lanes": t3["plain_lanes"],
+                "plain_rows": t3["plain_rows"],
+                "bound_ms": t3["bound"][0], "bound_by": t3["bound"][1],
+                "library_ms": None, "shape": "F3 padded concat",
+                "ops_step": t3["ops_step"],
+                "relu_ms": times[(name, "relu", "F3")]["ms"],
+                "ms_f1": t1_["ms"], "bound_ms_f1": t1_["bound"][0],
+                "relu_ms_f1": times[(name, "relu", "F1")]["ms"],
+                "flush_wall_ms": {k: v * 1e3 for k, v in walls.items()},
+                "form": form(act),
+            })
+    t3 = time.perf_counter()
+    times = mxu_act_times(torch, device, card, nets, errs)
+    for (name, act, tag), n in sorted(launches.items()):
+        key = "bits" if name == "chaotic_ann_mxu_bits" else "traj"
+        t = times[(act, tag)]
+        rows.append({
+            "name": f"{name}/{act}/{tag}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+            "replaces": REPLACES[f"chaotic_ann_{key}"],
+            "path": "mxu-stream" if key == "bits" else "mxu-iterated",
+            "launches": n, "max_abs_err": errs[(name, act, tag)],
+            "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+            "plain_lanes": MXU_TIME_PLAIN_LANES,
+            "bound_ms": t[f"{key}_bound"][0],
+            "bound_by": t[f"{key}_bound"][1], "library_ms": None,
+            "shape": f"{LATTICE}, {MXU_TIME_LANES} lanes x "
+                     f"{MXU_TIME_STEPS} steps",
+            "ops_step": t["ops_step"], "relu_ms": t[f"relu_{key}_ms"],
+            "form": form(act),
+        })
+    print(f"mxu activations: kernel checks {t1 - t0:.1f} s, paths "
+          f"{t2 - t1:.1f} s, farms {t3 - t2:.1f} s, times "
+          f"{time.perf_counter() - t3:.1f} s")
+    return rows
+
+
 def nist3(words: np.ndarray):
     """p-values of the online-gate subset, and the tests under alpha."""
     from repro_torch.prng.nist import _to_bits, block_frequency, monobit, runs
@@ -3043,6 +3722,8 @@ def main() -> int:
     phase_done("generated farm")
     rows += phase_lattice_activations(torch, device, card, gen_nets, errs)
     phase_done("lattice activations")
+    rows += phase_mxu_activations(torch, device, card, gen_nets, errs)
+    phase_done("mxu activations")
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
     print(f"card: {card}")

@@ -14,18 +14,18 @@ the lattice forms of the gang kernels K3 and K4 (``lattice=`` on
 ``chaotic_ann_gang_bits`` / ``chaotic_ann_gang_stacked``:
 ``chaotic_ann_lattice_gang_bits`` / ``chaotic_ann_lattice_gang_stacked``),
 and K3 on the mxu unit (``compute_unit="mxu"`` on ``chaotic_ann_gang_bits``:
-``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  The vpu K1, K2, K3
-and K4, scalar and lattice, take relu, tanh and sigmoid; the mxu forms
-take relu only and raise ``NotImplementedError`` naming their ROADMAP.md
-item (``activation`` evaluates the kernels' tanh and sigmoid alone, a
-check hook).
+``chaotic_ann_mxu_gang_bits``; K4 has no mxu form).  Every form takes
+relu, tanh and sigmoid: the vpu K1-K4, scalar and lattice, and the mxu
+K1-K3, whose second dot reads phi's f32 result unrounded in bf16, as the
+JAX kernel's dot does (``activation`` evaluates the kernels' tanh and
+sigmoid alone, a check hook).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -38,9 +38,6 @@ _CTA_LANES = 128              # kThreads of chaotic_ann.cu: lanes per CTA
 _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # chaotic_ann.cu's activation codes (kRelu, kTanh, kSigmoid)
 _ACTIVATION_CODES = {"relu": 0, "tanh": 1, "sigmoid": 2}
-# The ROADMAP.md item that ports tanh and sigmoid to the kernel forms that
-# take relu only (the vpu K1-K4, scalar and lattice, take all three).
-TODO_NON_RELU = {"mxu": "queue 2, 'mxu forms: tanh and sigmoid'"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,31 +75,26 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * n_ptr
                        + [_c_i64] * 3 + [_c_ptr])
         fn.restype = _c_int
+    # (device, dtype, activation, node_i, node_h, n_nodes, topology)
     for name, n_ptr in (("chaotic_ann_mxu_bits_launch", 9),
                         ("chaotic_ann_mxu_traj_launch", 7)):
         fn = getattr(lib, name)
-        fn.argtypes = [_c_int] * 6 + [_c_ptr] * n_ptr + [_c_i64, _c_i64,
+        fn.argtypes = [_c_int] * 7 + [_c_ptr] * n_ptr + [_c_i64, _c_i64,
                                                          _c_ptr]
         fn.restype = _c_int
     lib.chaotic_ann_mxu_gang_bits_launch.argtypes = (
-        [_c_int] * 6 + [_c_ptr] * 11 + [_c_i64] * 3 + [_c_ptr])
+        [_c_int] * 7 + [_c_ptr] * 11 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_mxu_gang_bits_launch.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_activation(activation: str, form: Optional[str] = None) -> int:
-    """The activation's code for the vpu K1-K4, scalar and lattice
-    (``form`` None); the ``form`` kernels ("mxu") take relu only."""
+def _check_activation(activation: str) -> int:
+    """The activation's code in every kernel (``chaotic_ann.cu``'s ACT)."""
     if activation not in _ACTIVATION_CODES:
         raise ValueError(f"activation must be one of "
                          f"{sorted(_ACTIVATION_CODES)}, got {activation!r}")
-    if form is not None and activation != "relu":
-        raise NotImplementedError(
-            f"activation {activation!r}: the {form} kernels are relu only; "
-            f"non-relu {form} forms: see ROADMAP.md {TODO_NON_RELU[form]} "
-            f"(backend='ref' runs any activation)")
     return _ACTIVATION_CODES[activation]
 
 
@@ -176,7 +168,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     ``chaotic_ann_mxu_bits`` (a lattice with its dense ``coupling``).
 
     ``activation`` relu, tanh or sigmoid (the kernel's template
-    parameter, the lattice form's too; the mxu forms take relu only).
+    parameter, the lattice and mxu forms' too).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
     Bound on the H100: operations.  Each word costs 2 steps of
@@ -478,18 +470,22 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1, with
     K5's coupling dot for a lattice).  Each dot is a forward chain of f32
     FMAs, the order the JAX package's mxu stream has, so this is a word
-    stream of its own, bitwise the JAX one.  Bound on the H100:
+    stream of its own, bitwise the JAX one.  ``activation`` relu, tanh or
+    sigmoid: phi of the dtype-rounded ``dot + b1``, its f32 result read
+    unrounded by the second dot (in bf16 the inner ops of sigmoid stay
+    rounded), as the JAX kernel computes it.  Bound on the H100:
     operations, at the f32 rate in both dtypes (the chains accumulate in
     f32): per word 2 steps of n_nodes x (2*D*HB) FMAs of 2 ops, the
     coupling's 3 (ring) or 5 (torus) FMAs per component, and the bias and
     coupling adds (107 ops a step for 3-8-3, 4,096 at chen@ring32: the
-    nonzero terms of the dense dots, which have 58,368 FMAs), against 4
-    bytes written.
+    nonzero terms of the dense dots, which have 58,368 FMAs), plus tanh's
+    25 or sigmoid's 30 f32 ops on each hidden unit (10,496 / 11,776 ops a
+    step at chen@ring32), against 4 bytes written.
     Design: the lattice kernels' thread per (lane, node), the node's
     weight blocks in registers (a scalar core is one node), the chains
     over the node's nonzero terms in the dense order.
     """
-    _check_activation(activation, "mxu")
+    act = _check_activation(activation)
     _check_steps(n_steps)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_bits_ref(w1, b1, w2, b2, x0, n_steps,
@@ -506,7 +502,8 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_mxu_bits_launch(
-        x0.device.index, code, *shape, *(t.data_ptr() for t in weights),
+        x0.device.index, code, act, *shape,
+        *(t.data_ptr() for t in weights),
         None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
         offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_lanes,
         n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
@@ -528,14 +525,16 @@ def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
 
     Replaces the mxu form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2, with K5's
-    coupling dot).  Bound on the H100: at chen@ring32 bytes in f32 (4,096
-    ops a step against 384 bytes written, 10.7 ops a byte, under the
-    card's 20 f32 ops a byte) and operations in bf16 (192 bytes, 21.3);
-    operations for 3-8-3 (107 ops against 12 or 6 bytes).  Same design as
-    ``chaotic_ann_mxu_bits``; the threads of a lane write its values of a
-    step as one contiguous run.
+    coupling dot), relu, tanh or sigmoid.  Bound on the H100: at
+    chen@ring32 with relu bytes in f32 (4,096 ops a step against 384 bytes
+    written, 10.7 ops a byte, under the card's 20 f32 ops a byte) and
+    operations in bf16 (192 bytes, 21.3); with tanh or sigmoid operations
+    in both (10,496 / 11,776 ops a step); operations for 3-8-3 (107 ops,
+    307 / 347 with tanh / sigmoid, against 12 or 6 bytes).  Same design
+    as ``chaotic_ann_mxu_bits``; the threads of a lane write its values of
+    a step as one contiguous run.
     """
-    _check_activation(activation, "mxu")
+    act = _check_activation(activation)
     if x0.device.type == "cpu":
         return ref.chaotic_ann_ref(w1, b1, w2, b2, x0, n_steps, activation,
                                    lattice, "mxu", coupling)
@@ -548,7 +547,8 @@ def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
         return traj
     lib = _lib()
     rc = lib.chaotic_ann_mxu_traj_launch(
-        x0.device.index, code, *shape, *(t.data_ptr() for t in weights),
+        x0.device.index, code, act, *shape,
+        *(t.data_ptr() for t in weights),
         None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
         traj.data_ptr(), n_lanes, n_steps,
         torch.cuda.current_stream(x0.device).cuda_stream)
@@ -665,8 +665,7 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     ``chaotic_ann_lattice_gang_bits``; ``compute_unit="mxu"`` the mxu
     unit, ``chaotic_ann_mxu_gang_bits`` (a lattice group with its one
     shared dense ``coupling``).  ``activation`` relu, tanh or sigmoid on
-    the vpu forms, scalar and lattice (the kernel's template parameter, as
-    K1's); the mxu form takes relu only.
+    every form (the kernel's template parameter, as K1's).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
     (K3).  Bound on the H100: operations, as K1: 2 steps of
@@ -938,10 +937,12 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
 
     Replaces the mxu form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas`` (K3 with
-    the dot step, and K5's coupling dot for a lattice).  Bound on the H100:
-    operations at the f32 rate in both dtypes, as ``chaotic_ann_mxu_bits``
-    (4,096 ops a step at chen@ring32, 107 for 3-8-3), summed over the rows
-    each block really computes, against 4 bytes a word.  Design: the mxu
+    the dot step, and K5's coupling dot for a lattice), relu, tanh or
+    sigmoid as ``chaotic_ann_mxu_bits``.  Bound on the H100: operations at
+    the f32 rate in both dtypes, as ``chaotic_ann_mxu_bits`` (4,096 ops a
+    step at chen@ring32 with relu, 10,496 / 11,776 with tanh / sigmoid;
+    107, 307, 347 for 3-8-3), summed over the rows each block really
+    computes, against 4 bytes a word.  Design: the mxu
     K1's thread per (lane, node), its weight blocks in registers, each dot
     a forward ``__fmaf_rn`` chain in k order, so a core's words are bitwise
     its mxu K1's; a CTA holds 128 / n_nodes lanes (128 for a scalar core)
@@ -949,7 +950,7 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     block and reads that block's core and rows.  K4 has no mxu form (the
     stacked step is the vpu order), so every mxu gang is this launch.
     """
-    _check_activation(activation, "mxu")
+    act = _check_activation(activation)
     n_cores = w1.shape[0]
     cmap, rows = _gang_maps(x0, core_map, row_map, n_cores, n_steps, s_block,
                             t_block, unroll)
@@ -975,7 +976,8 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
         return words, state
     lib = _lib()
     rc = lib.chaotic_ann_mxu_gang_bits_launch(
-        x0.device.index, code, *shape, *(t.data_ptr() for t in weights),
+        x0.device.index, code, act, *shape,
+        *(t.data_ptr() for t in weights),
         None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
         maps[0].data_ptr(), maps[1].data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, s_block, n_rows,

@@ -18,10 +18,11 @@ space, so per-client words are bit-identical to the per-core path.
 
 **Activations**: the activation is part of the key, so tanh cores gang
 with tanh cores and sigmoid with sigmoid (a directory of generated relu,
-tanh and sigmoid cores on one config makes one group per activation).  A
-vpu group, scalar or lattice, runs K3/K4 (or their lattice forms) with
-its activation, as the JAX farm does; the mxu gang form is relu only and
-raises ``NotImplementedError`` for another activation.
+tanh and sigmoid cores on one config makes one group per activation).
+Every group runs its gang kernel with its activation, as the JAX farm
+does: a vpu group, scalar or lattice, K3/K4 (or their lattice forms); an
+mxu group K3's mxu form (no-config ``<system>@ring32`` cores of relu,
+tanh and sigmoid nets make three mxu groups).
 
 **Lattice cores** (``lattice_meta`` in their params) gang only with
 lattice cores of the same descriptor (n_nodes, base_dim, topology,

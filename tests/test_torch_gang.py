@@ -320,9 +320,9 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
         assert torch.equal(ops.from_uint32(mxu_w[:, 16 * c:16 * (c + 1)]),
                            ops.from_uint32(want_w))
         assert torch.equal(mxu_s[16 * c:16 * (c + 1)], want_s)
-    # the vpu gangs, scalar and lattice, take tanh and sigmoid: each block's
-    # words and state are solo K1's with that activation; the mxu gang form
-    # still names its item
+    # every gang form, scalar and lattice, vpu and mxu, takes tanh and
+    # sigmoid: each block's words and state are solo K1's with that
+    # activation
     tanh_w, tanh_s = chaotic_ann.chaotic_ann_gang_bits(
         *w, xm, [0, 1], n_steps=4, s_block=16, activation="tanh")
     for c in range(2):
@@ -332,10 +332,19 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
         assert torch.equal(ops.from_uint32(tanh_w[:, 16 * c:16 * (c + 1)]),
                            ops.from_uint32(want_w))
         assert torch.equal(tanh_s[16 * c:16 * (c + 1)], want_s)
-    with pytest.raises(NotImplementedError, match="mxu forms"):
-        chaotic_ann.chaotic_ann_gang_bits(*w, xm, [0, 1], n_steps=4,
-                                          s_block=16, activation="tanh",
-                                          compute_unit="mxu")
+    mxu_tanh_w, mxu_tanh_s = chaotic_ann.chaotic_ann_gang_bits(
+        *w, xm, [0, 1], n_steps=4, s_block=16, activation="tanh",
+        compute_unit="mxu")
+    for c in range(2):
+        want_w, want_s = chaotic_ann.chaotic_ann_bits(
+            *[t[c] for t in w], xm[16 * c:16 * (c + 1)], n_steps=4,
+            activation="tanh", compute_unit="mxu")
+        assert torch.equal(
+            ops.from_uint32(mxu_tanh_w[:, 16 * c:16 * (c + 1)]),
+            ops.from_uint32(want_w))
+        assert torch.equal(mxu_tanh_s[16 * c:16 * (c + 1)], want_s)
+    assert not torch.equal(ops.from_uint32(mxu_tanh_w),
+                           ops.from_uint32(mxu_w))
     ring = default_params(system="chen@ring8")
     lw = [torch.from_numpy(np.stack([ring[k]] * 2)) for k in KEYS]
     lattice = lattice_meta_tuple(ring["lattice_meta"])

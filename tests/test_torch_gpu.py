@@ -859,27 +859,48 @@ def test_paper_flow_on_card_never_reaches_the_plain_version(monkeypatch,
 
 
 def test_activation_wrappers_reject_what_the_kernels_do_not_take():
-    """tanh/sigmoid run on the vpu K1-K4, scalar and lattice: the mxu
-    forms, a lattice's too, name their ROADMAP.md item; an unknown
-    activation is a ValueError."""
+    """tanh/sigmoid run in every kernel form: the mxu K1, K3 and a
+    lattice's mxu K2 launch on the card and equal their plain versions,
+    with tanh words unlike relu's; an unknown activation is a
+    ValueError."""
     _need_card()
     w, x0, off = _inputs("chen", 256, torch.float32, seed=5)
-    with pytest.raises(NotImplementedError, match="mxu forms"):
-        chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=4,
-                                     activation="tanh", compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="mxu forms"):
-        chaotic_ann.chaotic_ann_gang_bits(
-            *[t[None] for t in w], x0, [0], n_steps=4, s_block=256,
-            activation="sigmoid", compute_unit="mxu")
+    n0 = (chaotic_ann.chaotic_ann_mxu_bits.launches,
+          chaotic_ann.chaotic_ann_mxu_gang_bits.launches,
+          chaotic_ann.chaotic_ann_mxu_traj.launches)
+    words, state = chaotic_ann.chaotic_ann_bits(
+        *w, x0, off, n_steps=4, activation="tanh", compute_unit="mxu")
+    relu, _ = chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=4,
+                                           compute_unit="mxu")
+    rw, rs = ref.chaotic_ann_bits_ref(*w, x0, 4, off, "tanh",
+                                      compute_unit="mxu")
+    gw, gs = chaotic_ann.chaotic_ann_gang_bits(
+        *[t[None] for t in w], x0, [0], n_steps=4, s_block=256,
+        activation="sigmoid", compute_unit="mxu")
+    sw, ss = ref.chaotic_ann_bits_ref(*w, x0, 4, 0, "sigmoid",
+                                      compute_unit="mxu")
     lw, lattice, lx, _ = _lattice_inputs("chen@ring8", 64, torch.float32, 4)
     cpl = torch.from_numpy(default_params(system="chen@ring8")["coupling"]
                            ).cuda()
-    with pytest.raises(NotImplementedError, match="mxu forms"):
-        chaotic_ann.chaotic_ann_traj(*lw, lx, n_steps=4, lattice=lattice,
-                                     activation="tanh", compute_unit="mxu",
-                                     coupling=cpl)
+    traj = chaotic_ann.chaotic_ann_traj(*lw, lx, n_steps=4, lattice=lattice,
+                                        activation="tanh", compute_unit="mxu",
+                                        coupling=cpl)
+    rt = ref.chaotic_ann_ref(*lw, lx, 4, "tanh", lattice, "mxu", cpl)
+    torch.cuda.synchronize()
+    assert (chaotic_ann.chaotic_ann_mxu_bits.launches - n0[0],
+            chaotic_ann.chaotic_ann_mxu_gang_bits.launches - n0[1],
+            chaotic_ann.chaotic_ann_mxu_traj.launches - n0[2]) == (2, 1, 1)
+    _assert_bitwise(words, rw)
+    _assert_bitwise(state, rs)
+    assert not torch.equal(ops.from_uint32(words), ops.from_uint32(relu))
+    _assert_bitwise(gw, sw)
+    _assert_bitwise(gs, ss)
+    _assert_bitwise(traj, rt)
     with pytest.raises(ValueError, match="activation"):
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="gelu")
+    with pytest.raises(ValueError, match="activation"):
+        chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4, activation="gelu",
+                                     compute_unit="mxu")
     with pytest.raises(ValueError, match="CUDA"):
         chaotic_ann.activation(x0.half(), "tanh")
 
@@ -967,3 +988,87 @@ def test_activation_lattice_gang_kernels_bitwise_vs_plain_on_card(
     assert torch.equal(_masked_rows(sw, core_rows),
                        _masked_rows(rsw, core_rows))
     _assert_bitwise(ss, rss)
+
+
+# ---------------------------------------------------------------------------
+# tanh and sigmoid: the mxu K1-K3
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("system", MXU_SYSTEMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_mxu_kernels_bitwise_vs_plain_on_card(system, dtype,
+                                                         activation):
+    """tanh/sigmoid mxu K1 and K2 at every MXU_SHAPES entry against the
+    plain dense FMA chains (phi's f32 result read by the second dot):
+    words, final state and trajectory, at a ragged lane count and with
+    offsets that wrap past 2**32; the words differ from relu's."""
+    _need_card()
+    rng = np.random.default_rng(48)
+    p = params_from_numpy(default_params(system=system), device="cuda")
+    w = [p[k] for k in ("w1", "b1", "w2", "b2")]
+    kw = dict(lattice=None, coupling=None, compute_unit="mxu")
+    if "lattice_meta" in p:
+        from repro_torch.core.ann import lattice_meta_tuple
+        kw.update(lattice=lattice_meta_tuple(p["lattice_meta"]),
+                  coupling=p["coupling"])
+    n_lanes = 100 + 3 if kw["lattice"] else 1000 + 37
+    x0 = torch.from_numpy(_x0_np(rng, (n_lanes, w[0].shape[0]))).to(
+        "cuda", dtype)
+    off = torch.from_numpy(_off_np(rng, n_lanes)).to("cuda")
+    n0 = (chaotic_ann.chaotic_ann_mxu_bits.launches,
+          chaotic_ann.chaotic_ann_mxu_traj.launches)
+    words, state = chaotic_ann.chaotic_ann_bits(
+        *w, x0, off, n_steps=16, activation=activation, **kw)
+    traj = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=16,
+                                        activation=activation, **kw)
+    relu, _ = chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=16, **kw)
+    assert (chaotic_ann.chaotic_ann_mxu_bits.launches,
+            chaotic_ann.chaotic_ann_mxu_traj.launches) == (n0[0] + 2,
+                                                           n0[1] + 1)
+    rt = ref.chaotic_ann_ref(*w, x0, 16, activation, **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise(words, ops.pack_words(rt, off))
+    _assert_bitwise(state, rt[-1])
+    _assert_bitwise(traj, rt)
+    assert not torch.equal(ops.from_uint32(words), ops.from_uint32(relu))
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("gang", MXU_GANGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activation_mxu_gang_kernel_bitwise_vs_plain_on_card(gang, dtype,
+                                                             activation):
+    """tanh/sigmoid mxu K3 at every MXU_SHAPES entry (six blocks of 128
+    lanes, ragged rows) against its plain version: the words each block
+    asked for, and the final states; one launch each; the words differ
+    from relu's."""
+    _need_card()
+    w, lattice, cpl = _mxu_gang(gang)
+    n_cores, i_dim = w[0].shape[0], w[0].shape[1]
+    rng = np.random.default_rng(49)
+    n_steps, s_block, n_blocks = 16, 128, 6
+    core_map = np.arange(n_blocks) % n_cores
+    row_map = np.array([0, 3, 8, 5, 40, 1])
+    x0 = torch.from_numpy(_x0_np(rng, (n_blocks * s_block, i_dim))).to(
+        "cuda", dtype)
+    off = torch.from_numpy(_off_np(rng, n_blocks * s_block)).to("cuda")
+    kw = dict(n_steps=n_steps, s_block=s_block, t_block=8, unroll=2,
+              compute_unit="mxu", lattice=lattice, coupling=cpl)
+    n0 = chaotic_ann.chaotic_ann_mxu_gang_bits.launches
+    words, state = chaotic_ann.chaotic_ann_gang_bits(
+        *w, x0, core_map, off, row_map, activation=activation, **kw)
+    relu, _ = chaotic_ann.chaotic_ann_gang_bits(*w, x0, core_map, off,
+                                                row_map, **kw)
+    assert chaotic_ann.chaotic_ann_mxu_gang_bits.launches == n0 + 2
+    rows = chaotic_ann.gang_effective_rows(row_map, n_steps, 8, 2)
+    rw, rs = ref.chaotic_ann_gang_bits_ref(
+        *w, x0, core_map, n_steps, off, rows, activation, lattice, "mxu",
+        cpl)
+    torch.cuda.synchronize()
+    lane_rows = torch.from_numpy(np.repeat(rows, s_block)).cuda()
+    assert torch.equal(_masked_rows(words, lane_rows),
+                       _masked_rows(rw, lane_rows))
+    assert not torch.equal(_masked_rows(words, lane_rows),
+                           _masked_rows(relu, lane_rows))
+    _assert_bitwise(state, rs)

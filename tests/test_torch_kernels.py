@@ -161,19 +161,31 @@ def test_wrappers_on_cpu_take_plain_version_without_counting():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    """tanh and sigmoid run on the scalar vpu K1/K2 (the plain version on
-    the CPU, tests/test_torch_activation.py); the mxu forms still name
-    their ROADMAP.md item, and an unknown activation is refused."""
+    """tanh and sigmoid run on every unit (the plain version on the CPU,
+    tests/test_torch_activation.py and tests/test_torch_mxu_activation.py):
+    the mxu K1/K2 with them equal their plain versions, tanh's words
+    unlike relu's; an unknown activation is refused."""
     w = torch_weights(default_params())
     x0 = torch.zeros(4, 3)
     words, state = chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4,
                                                 activation="tanh")
     assert torch.equal(state, ref.chaotic_ann_ref(*w, x0, 4, "tanh")[-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4, activation="tanh",
-                                     compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="sigmoid",
+    xs = torch.from_numpy(seeds(np.random.default_rng(3), 16, 3))
+    words, state = chaotic_ann.chaotic_ann_bits(
+        *w, xs, 9, n_steps=4, activation="tanh", compute_unit="mxu")
+    rw, rs = ref.chaotic_ann_bits_ref(*w, xs, 4, 9, "tanh",
+                                      compute_unit="mxu")
+    assert torch.equal(ops.from_uint32(words), ops.from_uint32(rw))
+    assert torch.equal(state, rs)
+    relu, _ = chaotic_ann.chaotic_ann_bits(*w, xs, 9, n_steps=4,
+                                           compute_unit="mxu")
+    assert not torch.equal(ops.from_uint32(words), ops.from_uint32(relu))
+    assert torch.equal(
+        chaotic_ann.chaotic_ann_traj(*w, xs, n_steps=4, activation="sigmoid",
+                                     compute_unit="mxu"),
+        ref.chaotic_ann_ref(*w, xs, 4, "sigmoid", compute_unit="mxu"))
+    with pytest.raises(ValueError, match="activation"):
+        chaotic_ann.chaotic_ann_bits(*w, xs, n_steps=4, activation="gelu",
                                      compute_unit="mxu")
     with pytest.raises(ValueError, match="activation"):
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="gelu")

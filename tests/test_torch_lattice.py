@@ -328,9 +328,16 @@ def test_unported_lattice_forms_raise():
     assert torch.equal(ops.from_uint32(g_words[:, 0]),
                        ops.from_uint32(want_w))
     assert torch.equal(g_state[0], want_s)
-    # the mxu lattice forms still name their item
-    with pytest.raises(NotImplementedError, match="mxu forms"):
-        ops.chaotic_bits(p, xs, 4, activation="tanh", compute_unit="mxu")
+    # the mxu lattice form takes tanh too: the plain version's words and
+    # state (the wrapper's own plain branch on the CPU), unlike relu's
+    mxu_w, mxu_s = ops.chaotic_bits(p, xs, 4, activation="tanh",
+                                    compute_unit="mxu")
+    want_w, want_s = ops.chaotic_bits(p, xs, 4, activation="tanh",
+                                      compute_unit="mxu", backend="ref")
+    assert torch.equal(ops.from_uint32(mxu_w), ops.from_uint32(want_w))
+    assert torch.equal(mxu_s, want_s)
+    relu_w, _ = ops.chaotic_bits(p, xs, 4, compute_unit="mxu")
+    assert not torch.equal(ops.from_uint32(mxu_w), ops.from_uint32(relu_w))
     with pytest.raises(ValueError, match="i_dim"):
         ref.chaotic_ann_ref(*[p[k] for k in KEYS], x0, 2,
                             lattice=(4, 3, "ring", 0.05))

@@ -197,9 +197,12 @@ def test_mxu_wrappers_on_cpu_take_the_plain_version_without_counting():
     with pytest.raises(ValueError, match="coupling"):
         chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4, lattice=lattice,
                                      compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="non-relu"):
-        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, activation="tanh",
-                                     **kw)
+    tanh = chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
+                                        activation="tanh", **kw)
+    assert torch.equal(tanh, ref.chaotic_ann_ref(*w, x0, 4, "tanh", **kw))
+    assert not torch.equal(tanh, traj)
+    assert (chaotic_ann.chaotic_ann_mxu_bits.launches,
+            chaotic_ann.chaotic_ann_mxu_traj.launches) == before
     with pytest.raises(ValueError, match="compute_unit"):
         chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4, compute_unit="tpu")
 

@@ -102,13 +102,13 @@ def test_ops_route_and_refuse_unported_forms():
         ops.chaotic_trajectory(p, x0, 4, compute_unit="tpu")
     with pytest.raises(ValueError):
         ops.chaotic_bits(p, x0, 8, backend="pallas")
-    # any activation on the plain version; tanh and sigmoid on the scalar
-    # vpu kernels, relu only on the other forms (here the mxu unit)
+    # any activation on the plain version and on every kernel form (here
+    # the scalar vpu and the mxu unit)
     assert torch.equal(
         ops.chaotic_trajectory(p, x0, 2, activation="tanh"),
         ops.chaotic_trajectory(p, x0, 2, activation="tanh", backend="ref"))
-    ops.chaotic_trajectory(p, x0, 2, activation="tanh", backend="ref",
-                           compute_unit="mxu")
-    with pytest.raises(NotImplementedError, match="non-relu"):
+    assert torch.equal(
         ops.chaotic_trajectory(p, x0, 2, activation="tanh",
-                               compute_unit="mxu")
+                               compute_unit="mxu"),
+        ops.chaotic_trajectory(p, x0, 2, activation="tanh", backend="ref",
+                               compute_unit="mxu"))

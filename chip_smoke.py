@@ -25,7 +25,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    core frozen early.  K3's mxu form likewise at every compiled mxu shape
    (the two scalar gangs; the four bases as lattices of chen@ring8,
    grid8, ring32 and grid32 with their one shared coupling operand), 32
-   blocks of 128 lanes, padded and ragged.
+   blocks of 128 lanes, padded and ragged.  Then the bf16 K1 on bf16x2
+   (``bf16x2_bits_kernel``, ``bf16x2_lattice_bits_kernel``): its add, sub
+   and mul.rn.bf16x2 against the f32 round trip, and its fused bias add
+   and relu, on all 2**32 operand pairs each, and its tanh and sigmoid of
+   two lanes against the round-trip kernels' on all 2**16 bf16 inputs
+   (any mismatch fails); both kernels bitwise their plain versions at
+   tiny and odd lane counts (1, 2, 3, 129, 257 lanes at 3-8 and 4-16;
+   1, 3, 5 at chen@ring8 and ring32) with relu, tanh and sigmoid; their
+   registers and spills; and, where ``cuobjdump`` is on PATH or beside nvcc, the
+   SASS counts (the conversions F2F and F2FP among them) of the bf16x2 K1
+   forms beside the f32 K1 and the round-trip bf16 K2.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -211,6 +221,7 @@ import dataclasses
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -220,11 +231,19 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, Hopper whitepaper): each
-# state dtype's rate outside the tensor cores, and HBM bandwidth.  Every
-# op of a step rounds in the state dtype, which tensor cores (f32
-# accumulators) do not do, so the scalar rates bound the work.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 133.8e12}
+# H100 SXM rates outside the tensor cores (132 SMs at the 1.98 GHz boost
+# clock), and HBM bandwidth (NVIDIA data sheet).  Every op of a step
+# rounds in the state dtype, which tensor cores (f32 accumulators) do not
+# do.  A vpu op cannot fuse (the reference rounds every multiply and add
+# on its own; the build has --fmad=false), so it is one instruction: 128
+# FMUL or FADD a clock per SM in f32, 256 bf16 results a clock per SM in
+# packed bf16x2 add or multiply.  The mxu chains are fused multiply-adds:
+# the data sheet's 67 TFLOP/s f32 rate, two flops an FMA; their separate
+# adds and the activations' formulas go at the f32 instruction rate.
+H100_SMS, H100_BOOST_HZ = 132, 1.98e9
+PEAK_OPS = {"f32": 128 * H100_SMS * H100_BOOST_HZ,     # 33.5e12 ops/s
+            "bf16": 256 * H100_SMS * H100_BOOST_HZ,    # 66.9e12 ops/s
+            "mxu": 67e12}                              # flops/s
 PEAK_HBM_BYTES = 3.35e12
 # a device spin of about 25 ms at the H100's 1.98 GHz boost clock, long
 # enough for the host to queue a timed loop's calls behind it
@@ -241,6 +260,27 @@ CHECKS = (("chen", CHECK_LANES, CHECK_STEPS),
           ("chen@ring32", LATTICE_CHECK_LANES, LATTICE_CHECK_STEPS),
           ("chen@grid32", LATTICE_CHECK_LANES, LATTICE_CHECK_STEPS),
           ("chen@ring8", LATTICE_CHECK_LANES, LATTICE_CHECK_STEPS))
+# the bf16 K1 on bf16x2 (bf16x2_bits_kernel, bf16x2_lattice_bits_kernel)
+# at tiny and odd lane counts, every activation: one plain run on the most
+# lanes, each count held to its first lanes (lanes are independent)
+BF16X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 64),
+                 ("hyperlorenz", (1, 2, 3, 129, 257), 64),
+                 ("chen@ring8", (1, 3, 5), 16),
+                 ("chen@ring32", (1, 3, 5), 16))
+# the kernels whose SASS is counted (name, template arguments): the bf16x2
+# K1 forms (relu; tanh at 3-8) beside the unchanged round-trip bf16 K2
+# forms and the f32 K1.  The round trip's conversion is F2F.BF16.F32, the
+# bf16x2 pack F2FP; FCHK guards an IEEE divide's slow path
+SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
+                ("bf16x2_bits_kernel", (3, 8, 1)),
+                ("bits_kernel", ("f", 3, 8, 0)),
+                ("bits_kernel", ("f", 3, 8, 1)),
+                ("traj_kernel", ("bf16", 3, 8, 0)),
+                ("bf16x2_lattice_bits_kernel", (3, 8, 32, 0, 0)),
+                ("lattice_bits_kernel", ("f", 3, 8, 32, 0, 0)),
+                ("lattice_traj_kernel", ("bf16", 3, 8, 32, 0, 0)))
+SASS_OPS = ("F2F", "F2FP", "HADD2", "HMUL2", "HFMA2", "FADD", "FMUL", "FFMA",
+            "FCHK", "LDS", "SHFL", "REDUX")
 N_CLIENTS = 512
 LANES_PER_CLIENT = 128
 WORDS_PER_CLIENT = 65_536
@@ -322,12 +362,13 @@ PAPER_STREAM_CHECK_WORDS = 1 << 17
 ATTRACTOR_LANES, ATTRACTOR_STEPS = 16, 2_000
 ACT_F32_INPUTS = 1 << 24
 # ops per hidden unit that tanh and sigmoid add to a step (relu's select
-# is not counted in step_flops), a fused multiply-add counted as 2:
+# is not counted in step_flops), each one instruction at the f32 vpu rate,
+# a fused multiply-add too:
 # tanh: clamp 2, x^2 1, 9 FMAs, x * P 1, divide 1, |x| < 0.0004 1, select 1;
 # sigmoid: negate 1, exp (clamp 2, 1 + 2 + 5 + 1 FMAs, floor 1, r^2 1,
 # + 1 1, 2^fx 1, the f64 scaling 1, flush 1), 1 + e 1, divide 1, flush 1.
 # These are f32 ops in both state dtypes (bf16 takes the f32 formula).
-ACT_OPS = {"relu": 0, "tanh": 25, "sigmoid": 30}
+ACT_OPS = {"relu": 0, "tanh": 16, "sigmoid": 21}
 # phase 11, a farm of generated tanh and sigmoid cores: ``generate_farm``'s
 # relu cores (every registered system) beside a tanh and a sigmoid core of
 # each 3-8-3 system; chen's nets are phase 10's, the others are trained
@@ -440,6 +481,91 @@ def register_report(log: str) -> str:
             f"spills: {'; '.join(spills) or 'none'}")
 
 
+def mangled(name: str, args) -> str:
+    """The Itanium-mangled ``name<args>`` as it stands in nvcc's and
+    cuobjdump's output: int arguments, ``"f"`` for float, ``"bf16"`` for
+    __nv_bfloat16."""
+    parts = "".join("13__nv_bfloat16" if a == "bf16" else a
+                    if isinstance(a, str) else f"Li{a}E" for a in args)
+    return f"{len(name)}{name}I{parts}E"
+
+
+def kernel_registers(log: str, name: str) -> str:
+    """Registers and spills of every instantiation of kernel ``name`` in
+    nvcc's ``-Xptxas -v`` log."""
+    regs, spills = [], set()
+    for entry in log.split("Compiling entry function '")[1:]:
+        fn = entry.split("'", 1)[0]
+        if f"{len(name)}{name}I" not in fn:
+            continue
+        m = re.search(r"Used (\d+) registers", entry)
+        regs.append(int(m.group(1)) if m else -1)
+        spills |= {int(n) for n in re.findall(r"(\d+) bytes spill", entry)}
+    return (f"{name}: {len(regs)} instantiations, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, spill bytes "
+            f"{sorted(spills) or [0]}")
+
+
+def sass_dump_start(lib_path):
+    """Start ``cuobjdump -sass`` of the built library (on PATH or beside
+    nvcc) into a file beside it, so that it runs beside the later phases;
+    returns (process, file), or None when there is no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        beside = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+        tool = str(beside) if beside.exists() else None
+    if tool is None:
+        return None
+    out = open(pathlib.Path(lib_path).with_suffix(".sass"), "w+")
+    return subprocess.Popen([tool, "-sass", str(lib_path)], stdout=out), out
+
+
+def sass_counts(dump) -> str:
+    """Per SASS_KERNELS entry: its SASS instructions and those of
+    SASS_OPS, from the dump ``sass_dump_start`` started; says so when
+    there is no cuobjdump."""
+    if dump is None:
+        return "no cuobjdump on PATH or beside nvcc: SASS not counted"
+    proc, out = dump
+    check(proc.wait(timeout=600) == 0, "cuobjdump -sass failed")
+    want = {mangled(n, a): f"{n}<{', '.join(map(str, a))}>"
+            for n, a in SASS_KERNELS}
+    counts, current = {}, None
+    op_re = re.compile(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
+    out.seek(0)
+    for line in out:
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            current = next((k for k in want if k in fn), None)
+            if current is not None:
+                counts[current] = dict.fromkeys(("all",) + SASS_OPS, 0)
+            continue
+        if current is None:
+            continue
+        m = op_re.search(line)
+        if m:
+            c = counts[current]
+            c["all"] += 1
+            if m.group(1) in c:
+                c[m.group(1)] += 1
+    return "; ".join(
+        f"{label}: " + (", ".join(f"{k} {v}" for k, v in counts[k0].items())
+                        if k0 in counts else "not found")
+        for k0, label in want.items())
+
+
+def sass_dump_stop(dump) -> None:
+    """End the dump's process if it still runs, and close its file."""
+    if dump is not None:
+        proc, out = dump
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events.
     The calls are queued behind a spin of the device (QUEUE_SPIN_CYCLES),
@@ -474,19 +600,23 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def bound(flops: float, n_bytes: float, tag: str, f32_flops: float = 0.0):
-    """The least time for ``flops`` at the ``tag`` dtype's rate plus
-    ``f32_flops`` at the f32 rate, or for ``n_bytes`` at HBM bandwidth,
-    whichever is larger."""
-    ops_ms = (flops / PEAK_FLOPS[tag] + f32_flops / PEAK_FLOPS["f32"]) * 1e3
+def bound(flops: float, n_bytes: float, rate: str, f32_flops: float = 0.0):
+    """The least time for ``flops`` at ``PEAK_OPS[rate]`` (a vpu state
+    dtype's instruction rate, or ``"mxu"``) plus ``f32_flops`` at the f32
+    vpu rate, or for ``n_bytes`` at HBM bandwidth, whichever is larger."""
+    ops_ms = (flops / PEAK_OPS[rate] + f32_flops / PEAK_OPS["f32"]) * 1e3
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def step_flops(i_dim: int, h_dim: int) -> int:
-    """Separate ops of one step, each in the state dtype: I*H mul+add,
-    H bias, H*I mul+add, I bias."""
-    return 4 * i_dim * h_dim + h_dim + i_dim
+    """Separate ops one step needs, each in the state dtype: each of the H
+    hidden sums is I products, I - 1 adds and the bias add, and each of
+    the I outputs H products, H - 1 adds and the bias add: 4*I*H.  The
+    reference's first add (+0 + the first product) changes no value
+    (``bf16x2_bits_kernel``'s sums start from their first term, bitwise
+    the same), and relu is a select, not counted."""
+    return 4 * i_dim * h_dim
 
 
 def act_flops(h_dim: int, activation: str) -> int:
@@ -501,28 +631,34 @@ def lattice_step_flops(lattice, h_dim: int, activation: str = "relu") -> int:
     plus the coupling's ops per state component (ring: neighbour sum 1,
     deg*x, difference, scale, add into y; torus: 3 sums), plus with tanh
     or sigmoid the formula's ops on every hidden unit of every node
-    (``act_flops``; 976 / 2,576 / 2,896 ops at chen@ring8 for relu /
-    tanh / sigmoid, 3,904 / 10,304 / 11,584 at chen@ring32)."""
+    (``act_flops``; 888 / 1,912 / 2,232 ops at chen@ring8 for relu /
+    tanh / sigmoid, 3,552 / 7,648 / 8,928 at chen@ring32)."""
     n_nodes, base_dim, topology, _ = lattice
     per_component = 5 if topology == "ring" else 7
     return (n_nodes * step_flops(base_dim, h_dim // n_nodes)
             + per_component * n_nodes * base_dim + act_flops(h_dim, activation))
 
 
-def mxu_step_flops(i_dim: int, h_dim: int, lattice) -> int:
-    """Ops of one mxu step: the nonzero terms of its dense dots, 2 a fused
-    multiply-add, plus the bias adds and, for a lattice, the coupling add.
-    Scalar: every term of the two dots (4*I*H + H + I).  Lattice: each
+def mxu_step_flops(i_dim: int, h_dim: int, lattice,
+                   activation: str = "relu") -> tuple:
+    """Ops of one mxu step as (FMA flops, f32 ops).  The first: the nonzero
+    terms of its dense dots, each a fused multiply-add of 2 flops, at the
+    mxu rate.  Scalar: every term of the two dots (4*I*H).  Lattice: each
     node's blocks and the coupling's 3 (ring) or 5 (torus) terms a
-    component (a torus side of 2 repeats a neighbour: one term fewer)."""
+    component (a torus side of 2 repeats a neighbour: one term fewer).
+    The second: the separate adds (H + I biases, for a lattice I coupling
+    adds) and the activation's formula, one instruction an op at the f32
+    vpu rate (``bound``'s ``f32_flops``)."""
+    adds = h_dim + i_dim + (i_dim if lattice is not None else 0)
+    f32_ops = adds + act_flops(h_dim, activation)
     if lattice is None:
-        return step_flops(i_dim, h_dim)
+        return step_flops(i_dim, h_dim), f32_ops
     n_nodes, base_dim, topology, _ = lattice
     from repro_torch.core.chaotic import lattice_coupling_matrix
     terms = int((lattice_coupling_matrix(n_nodes, base_dim, 1.0, topology)
                  != 0).sum())
-    return (n_nodes * step_flops(base_dim, h_dim // n_nodes) + 2 * terms
-            + i_dim)
+    return (n_nodes * step_flops(base_dim, h_dim // n_nodes) + 2 * terms,
+            f32_ops)
 
 
 def mxu_dense_flops(i_dim: int, h_dim: int, lattice) -> int:
@@ -848,6 +984,98 @@ def phase_kernels(torch, device, errs) -> None:
                 del traj_k, traj_p
 
 
+def bf16x2_exhaustive(torch, device) -> None:
+    """The bf16x2 ops the bf16 K1 computes with (add, sub and
+    mul.rn.bf16x2) against the round-trip form (__float2bfloat16_rn of the
+    f32 op), and its fused bias add and relu (fma.rn.relu.bf16x2) against
+    relu of that sum with a zero sum +0, on all 2^32 operand pairs each;
+    its tanh and sigmoid of two lanes (the divisions without the slow
+    path) against the round-trip kernels' on every bf16 input; on the
+    card, through the library's check hook; a NaN counts equal to any NaN.
+    Fails on any mismatch."""
+    from repro_torch.kernels import chaotic_ann
+    fn = chaotic_ann._lib().chaotic_ann_bf16x2_check_launch
+    mismatches = torch.zeros(6, dtype=torch.int64, device=device)
+    n_examples = torch.zeros(6, dtype=torch.int32, device=device)
+    examples = torch.zeros((6, 4, 2), dtype=torch.int32, device=device)
+    rc, ms = timed_once(torch, lambda: fn(
+        device.index, mismatches.data_ptr(), n_examples.data_ptr(),
+        examples.data_ptr(), torch.cuda.current_stream(device).cuda_stream))
+    check(rc == 0, f"bf16x2 check kernel did not launch (code {rc})")
+    counts = mismatches.tolist()
+    shown = (examples.to(torch.int64) & 0xFFFFFFFF).tolist()
+    ops = ("add.rn vs __float2bfloat16_rn(f32 add) on 2^32 operand pairs",
+           "sub.rn vs __float2bfloat16_rn(f32 sub) on 2^32 operand pairs",
+           "mul.rn vs __float2bfloat16_rn(f32 mul) on 2^32 operand pairs",
+           "fma.rn.relu(a, 1, b) vs relu(bf16(a + b)), zero sums +0, on "
+           "2^32 operand pairs",
+           "tanh of two lanes vs the round-trip tanh on 2^16 inputs",
+           "sigmoid of two lanes vs the round-trip sigmoid on 2^16 inputs")
+    for op, name in enumerate(ops):
+        ex = [f"a=0x{ab >> 16:04x} b=0x{ab & 0xFFFF:04x} got=0x{gw >> 16:04x}"
+              f" want=0x{gw & 0xFFFF:04x}"
+              for ab, gw in shown[op][:min(4, counts[op])]]
+        print(f"bf16x2 {name}: {counts[op]} mismatches"
+              + (f" (e.g. {'; '.join(ex)})" if ex else ""))
+    print(f"bf16x2 exhaustive check: {ms:.1f} ms on the card")
+    check(sum(counts) == 0, f"bf16x2 ops differ from the round-trip form: "
+                            f"{counts}")
+
+
+def phase_bf16x2(torch, device, log, errs) -> None:
+    """The bf16 K1 on bf16x2: its ops on every operand pair; both kernels
+    bitwise their plain versions at tiny and odd lane counts
+    (BF16X2_CHECKS) with relu, tanh and sigmoid, tanh's and sigmoid's
+    words unlike relu's; their registers and spills from the build log."""
+    from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
+    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.prng.stream import default_params
+
+    bf16x2_exhaustive(torch, device)
+    rng = np.random.default_rng(22)
+    for system, counts, n_steps in BF16X2_CHECKS:
+        p = params_from_numpy(default_params(system=system), device=device)
+        w = (p["w1"], p["b1"], p["w2"], p["b2"])
+        lattice = (lattice_meta_tuple(p["lattice_meta"])
+                   if "lattice_meta" in p else None)
+        n_max, i_dim = max(counts), p["w1"].shape[0]
+        x0 = torch.as_tensor(rng.uniform(-0.9, 0.9, (n_max, i_dim)),
+                             dtype=torch.float32, device=device)
+        x0 = x0.to(torch.bfloat16)
+        off_np = rng.integers(0, 1 << 32, n_max, dtype=np.int64)
+        off_np[:2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
+        off = torch.as_tensor(off_np, device=device)
+        name = kernel_names(lattice)[0]
+        relu_words = None
+        for act in ("relu", "tanh", "sigmoid"):
+            words_p, state_p = ref.chaotic_ann_bits_ref(
+                *w, x0, n_steps, off, act, lattice)
+            words_p = words_p.view(torch.int32)
+            e_all = 0.0
+            for n in counts:
+                words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                    *w, x0[:n].contiguous(), off[:n], n_steps=n_steps,
+                    lattice=lattice, activation=act)
+                e = max(max_abs_err(torch, words_k,
+                                    words_p[:, :n].contiguous()
+                                    .view(torch.uint32)),
+                        max_abs_err(torch, state_k, state_p[:n]))
+                check(e == 0.0, f"{name} != plain (bf16, {system}, {act}, "
+                                f"{n} lanes)")
+                e_all = max(e_all, e)
+            if relu_words is None:
+                relu_words = words_p
+            else:
+                check(not torch.equal(words_p, relu_words),
+                      f"{system} bf16 {act}: words equal relu's")
+            print(f"check bf16x2 {system} {act} lanes {counts} "
+                  f"steps={n_steps}: {name} max_abs_err={e_all}")
+            errs[(name, "bf16")] = max(errs.get((name, "bf16"), 0.0), e_all)
+    if log:
+        for kernel in ("bf16x2_bits_kernel", "bf16x2_lattice_bits_kernel"):
+            print(f"ptxas: {kernel_registers(log, kernel)}")
+
+
 # the TPU kernel each wrapper replaces (its lattice form too)
 REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
             "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
@@ -1027,10 +1255,12 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
     item = x.element_size()
     n_out = n_steps // 2 * s_pool
     if unit == "mxu":     # the chains accumulate in f32, in both dtypes
-        ops_step, rate = mxu_step_flops(i_dim, h_dim, lattice), "f32"
+        (ops_step, f32_step), rate = mxu_step_flops(i_dim, h_dim, lattice), \
+            "mxu"
     else:
-        ops_step, rate = (step_flops(i_dim, h_dim) if lattice is None
-                          else lattice_step_flops(lattice, h_dim)), tag
+        ops_step = (step_flops(i_dim, h_dim) if lattice is None
+                    else lattice_step_flops(lattice, h_dim))
+        f32_step, rate = 0, tag
     t = {
         "bits_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
             *w, x, off, n_steps=n_steps, **kw), reps=5, warmup=2),
@@ -1075,21 +1305,23 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
         weight_bytes += i_dim * i_dim * item
     t["bits_bound"] = bound(
         n_out * 2 * ops_step,
-        2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes + n_out * 4, rate)
+        2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes + n_out * 4, rate,
+        f32_flops=n_out * 2 * f32_step)
     t["traj_bound"] = bound(
         n_steps * s_pool * ops_step,
         s_pool * i_dim * item + weight_bytes + n_steps * s_pool * i_dim * item,
-        rate)
+        rate, f32_flops=n_steps * s_pool * f32_step)
     t["flush_s"] = t_flush2
     dense = ""
     if unit == "mxu":     # a count of the dense work, not a bound
         dense_ms = (n_out * 2 * mxu_dense_flops(i_dim, h_dim, lattice)
-                    / PEAK_FLOPS["f32"] * 1e3)
+                    / PEAK_OPS["mxu"] * 1e3)
         dense = (f"; the dense dots' work, zero terms too, is {dense_ms:.4f}"
-                 f" ms at the f32 rate: not a bound, the kernel skips "
+                 f" ms at the mxu rate: not a bound, the kernel skips "
                  f"those terms")
+    ops_text = f"{ops_step} + {f32_step} f32" if f32_step else f"{ops_step}"
     print(f"device times {system} {unit} {tag} (S={s_pool}, n_steps={n_steps},"
-          f" {ops_step} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
+          f" {ops_text} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
           f"({n_out / t['bits_ms'] * 1e3:.4g} words/s, bound "
           f"{t['bits_bound'][0]:.4f} ms by {t['bits_bound'][1]}{dense}); "
           f"plain on {n_plain} lanes {t['bits_plain_ms']:.1f} ms; "
@@ -1714,16 +1946,18 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
     item = x0c.element_size()
     i_dim, h_dim = w[0].shape[1:]
     weight_bytes = 4 * (2 * i_dim * h_dim + h_dim + i_dim) * item
-    ops_step = mxu_step_flops(i_dim, h_dim, lattice)
+    fma_step, f32_step = mxu_step_flops(i_dim, h_dim, lattice)
+    ops_step = fma_step + f32_step
 
     def gang_bound(n_lanes):
         # x0 read, state written, offsets, weights, coupling and maps read,
-        # words written; ops at the f32 rate (the chains accumulate in f32)
+        # words written; the f32 FMA chains at the mxu rate (2 flops each),
+        # the adds at the f32 rate
         n_words = n_lanes * steps // 2
-        return bound(n_words * 2 * ops_step,
+        return bound(n_words * 2 * fma_step,
                      2 * n_lanes * i_dim * item + n_lanes * 4 + weight_bytes
                      + i_dim * i_dim * item + 8 * n_lanes // cfg.s_block
-                     + n_words * 4, "f32")
+                     + n_words * 4, "mxu", f32_flops=n_words * 2 * f32_step)
 
     t["k3_bound"] = gang_bound(x0c.shape[0])
     t["k3_f1_bound"] = gang_bound(x1.shape[0])
@@ -2263,11 +2497,12 @@ class GangRecorder:
                    + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
                    + n_maps * 4 + n_words * 4)
         extra = act_flops(h_dim, act)
-        if unit == "mxu":           # every op at the f32 rate
+        if unit == "mxu":   # FMA chains at the mxu rate, the rest f32
             n_bytes += i_dim * i_dim * item if lattice else 0
-            ops_step = mxu_step_flops(i_dim, h_dim, lattice) + extra
-            t["bound"] = bound(0, n_bytes, tag,
-                               f32_flops=n_words * 2 * ops_step)
+            fma_step, f32_step = mxu_step_flops(i_dim, h_dim, lattice, act)
+            ops_step = fma_step + f32_step
+            t["bound"] = bound(n_words * 2 * fma_step, n_bytes, "mxu",
+                               f32_flops=n_words * 2 * f32_step)
         else:
             ops_step = (lattice_step_flops(lattice, h_dim, act) if lattice
                         else step_flops(i_dim, h_dim) + extra)
@@ -3445,19 +3680,22 @@ def mxu_act_times(torch, device, card, nets, errs):
                 torch, lambda: chaotic_ann.chaotic_ann_traj(*w, x, **kw),
                 reps=3, warmup=1)
             item = x.element_size()
-            # every op at the f32 rate: the chains accumulate in f32 and
-            # the formulas run in f32 in both dtypes
-            ops_step = (mxu_step_flops(i_dim, h_dim, kw["lattice"])
-                        + act_flops(h_dim, act))
+            # the chains (f32 FMAs, both dtypes) at the mxu rate; the
+            # adds and the formulas (f32 in both dtypes) at the f32 rate
+            fma_step, f32_step = mxu_step_flops(i_dim, h_dim, kw["lattice"],
+                                                act)
+            ops_step = fma_step + f32_step
             weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim
                             + i_dim * i_dim) * item
             n_out = steps // 2 * n
             t["bits_bound"] = bound(
-                0, 2 * n * i_dim * item + n * 4 + weight_bytes + n_out * 4,
-                tag, f32_flops=n_out * 2 * ops_step)
+                n_out * 2 * fma_step,
+                2 * n * i_dim * item + n * 4 + weight_bytes + n_out * 4, "mxu",
+                f32_flops=n_out * 2 * f32_step)
             t["traj_bound"] = bound(
-                0, n * i_dim * item + weight_bytes + steps * n * i_dim * item,
-                tag, f32_flops=steps * n * ops_step)
+                steps * n * fma_step,
+                n * i_dim * item + weight_bytes + steps * n * i_dim * item,
+                "mxu", f32_flops=steps * n * f32_step)
             t["ops_step"] = ops_step
             out[(act, tag)] = t
             print(f"device times mxu {act} {LATTICE} {tag} (S={n}, "
@@ -3592,6 +3830,17 @@ def main() -> int:
           f"({build.SOURCE} {'compiled' if log else 'reused'})")
     if log:
         print(f"ptxas: {register_report(log)}")
+    # the SASS counts: cuobjdump runs beside the phases, read at the end
+    sass = sass_dump_start(build.library_path(build.SOURCE))
+    try:
+        return run_phases(torch, device, card, log, sass)
+    finally:
+        sass_dump_stop(sass)
+
+
+def run_phases(torch, device, card, log, sass) -> int:
+    """Phases 2-13 (the module's docstring), the SASS counts, then the
+    ``kernels`` and ``ok`` lines."""
     neg0 = torch.relu(torch.tensor([-0.0], device=device))
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
 
@@ -3606,6 +3855,8 @@ def main() -> int:
 
     phase_kernels(torch, device, errs)
     phase_done("kernel checks")
+    phase_bf16x2(torch, device, log, errs)
+    phase_done("bf16x2 checks")
     phase_gang_kernels(torch, device, errs)
     phase_mxu_gang_kernels(torch, device, errs)
     phase_done("gang kernel checks")
@@ -3726,6 +3977,9 @@ def main() -> int:
     phase_done("mxu activations")
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
+    t0 = time.perf_counter()
+    report = sass_counts(sass)
+    print(f"sass (waited {time.perf_counter() - t0:.1f} s): {report}")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,10 @@ def _lib() -> ctypes.CDLL:
     lib.chaotic_ann_mxu_gang_bits_launch.argtypes = (
         [_c_int] * 7 + [_c_ptr] * 11 + [_c_i64] * 3 + [_c_ptr])
     lib.chaotic_ann_mxu_gang_bits_launch.restype = _c_int
+    # the bf16x2 check hook (device, mismatches, n_examples, examples,
+    # stream), launched by chip_smoke.py alone
+    lib.chaotic_ann_bf16x2_check_launch.argtypes = [_c_int] + [_c_ptr] * 4
+    lib.chaotic_ann_bf16x2_check_launch.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
     return lib
@@ -171,9 +175,10 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     parameter, the lattice and mxu forms' too).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1).
-    Bound on the H100: operations.  Each word costs 2 steps of
-    (4*I*H + H + I) separate f32 ops, 214 for a 3-8-3 net with relu (tanh
-    and sigmoid add their formulas' ops per hidden unit), against 4
+    Bound on the H100: operations.  Each word costs 2 steps of 4*I*H
+    separate ops (each sum's products, its adds after the first term and
+    its bias add), one instruction each, 192 for a 3-8-3 net with relu
+    (tanh and sigmoid add their formulas' ops per hidden unit), against 4
     bytes written.  The design keeps the state and the hidden layer in
     registers for the whole launch, so the trajectory never reaches
     device memory and only the words, offsets and final state move.
@@ -225,9 +230,10 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     ``activation`` as in ``chaotic_ann_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2).
-    Bound on the H100: bytes.  A step costs (4*I*H + H + I) ops per
-    I*itemsize bytes written, 107 ops per 12 bytes for 3-8-3 in f32,
-    below the card's 20 ops per byte (67 TFLOP/s over 3.35 TB/s).  Same
+    Bound on the H100: bytes.  A step costs 4*I*H ops per I*itemsize bytes
+    written, 96 ops per 12 bytes for 3-8-3 in f32 (6 in bf16), below the
+    card's 10 (f32) or 20 (bf16) ops per byte (33.5e12 or 66.9e12
+    instructions a second over 3.35 TB/s).  Same
     design as ``chaotic_ann_bits``; each thread writes its I values per
     step, so a warp writes one contiguous run per step.
     """
@@ -339,11 +345,11 @@ def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
     ``repro/kernels/chaotic_ann.py::chaotic_ann_bits_pallas`` (K1 with K5's
     ``_lattice_delta``), with relu, tanh or sigmoid (``activation``, the
     kernel's template parameter).  Bound on the H100: operations.  A word
-    costs 2 steps of n_nodes x (4*D*HB + HB + D) block-sparse ops plus the
+    costs 2 steps of n_nodes x 4*D*HB block-sparse ops plus the
     coupling's 5 (ring) or 7 (torus) ops per component, plus with tanh or
-    sigmoid the formula's 25 / 30 f32 ops on each of the n_nodes x HB
-    hidden units (a step: 976 / 2,576 / 2,896 ops at chen@ring8 for relu
-    / tanh / sigmoid, 3,904 / 10,304 / 11,584 at chen@ring32), against 4
+    sigmoid the formula's 16 / 21 f32 ops on each of the n_nodes x HB
+    hidden units (a step: 888 / 1,912 / 2,232 ops at chen@ring8 for relu
+    / tanh / sigmoid, 3,552 / 7,648 / 8,928 at chen@ring32), against 4
     bytes written.  Design: one thread per (lane, node), the node's weight
     blocks and state in registers, phi on the node's own HB hidden units;
     neighbours' state comes by warp shuffles and the lane's fold by an XOR
@@ -387,11 +393,11 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
 
     Replaces the vpu lattice form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2 with K5).
-    Bound on the H100 with relu: bytes.  A step at chen@ring32 is 3,904 ops
-    against 384 f32 or 192 bf16 bytes written, 10 or 20 ops per byte,
-    below the card's 20 (f32) or 40 (bf16) ops per byte of bandwidth; with
-    tanh or sigmoid operations (10,304 / 11,584 ops a step, the formulas'
-    at the f32 rate).  Same design as ``chaotic_ann_lattice_bits``; the 32
+    Bound on the H100 with relu: bytes.  A step at chen@ring32 is 3,552
+    ops against 384 f32 or 192 bf16 bytes written, 9.25 or 18.5 ops per
+    byte, below the card's 10 (f32) or 20 (bf16) ops per byte of
+    bandwidth; with tanh or sigmoid operations (7,648 / 8,928 ops a step,
+    the formulas' at the f32 rate).  Same design as ``chaotic_ann_lattice_bits``; the 32
     threads of a chen@ring32 lane write its 96 values of a step as one
     contiguous run.
     """
@@ -474,13 +480,14 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     sigmoid: phi of the dtype-rounded ``dot + b1``, its f32 result read
     unrounded by the second dot (in bf16 the inner ops of sigmoid stay
     rounded), as the JAX kernel computes it.  Bound on the H100:
-    operations, at the f32 rate in both dtypes (the chains accumulate in
-    f32): per word 2 steps of n_nodes x (2*D*HB) FMAs of 2 ops, the
-    coupling's 3 (ring) or 5 (torus) FMAs per component, and the bias and
-    coupling adds (107 ops a step for 3-8-3, 4,096 at chen@ring32: the
-    nonzero terms of the dense dots, which have 58,368 FMAs), plus tanh's
-    25 or sigmoid's 30 f32 ops on each hidden unit (10,496 / 11,776 ops a
-    step at chen@ring32), against 4 bytes written.
+    operations, in both dtypes (the chains accumulate in f32): per word 2
+    steps of n_nodes x (2*D*HB) FMAs of 2 flops and the coupling's 3
+    (ring) or 5 (torus) FMAs per component at the f32 FMA rate (96 flops
+    a step for 3-8-3, 3,648 at chen@ring32: the nonzero terms of the
+    dense dots, which have 58,368 FMAs), plus at the f32 instruction rate
+    the bias and coupling adds (11 / 448) and tanh's 16 or sigmoid's 21
+    f32 ops on each hidden unit (4,544 / 5,824 f32 ops a step at
+    chen@ring32), against 4 bytes written.
     Design: the lattice kernels' thread per (lane, node), the node's
     weight blocks in registers (a scalar core is one node), the chains
     over the node's nonzero terms in the dense order.
@@ -526,11 +533,12 @@ def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
     Replaces the mxu form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2, with K5's
     coupling dot), relu, tanh or sigmoid.  Bound on the H100: at
-    chen@ring32 with relu bytes in f32 (4,096 ops a step against 384 bytes
-    written, 10.7 ops a byte, under the card's 20 f32 ops a byte) and
-    operations in bf16 (192 bytes, 21.3); with tanh or sigmoid operations
-    in both (10,496 / 11,776 ops a step); operations for 3-8-3 (107 ops,
-    307 / 347 with tanh / sigmoid, against 12 or 6 bytes).  Same design
+    chen@ring32 with relu bytes in f32 (3,648 FMA flops and 448 f32 ops a
+    step, the time of 4,544 flops at the FMA rate, against 384 bytes
+    written: 11.8 a byte, under the card's 20) and operations in bf16 (192
+    bytes, 23.7); with tanh or sigmoid operations in both; operations for
+    3-8-3 (96 FMA flops and 11, 139 / 179 with tanh / sigmoid, f32 ops a
+    step against 12 or 6 bytes).  Same design
     as ``chaotic_ann_mxu_bits``; the threads of a lane write its values of
     a step as one contiguous run.
     """
@@ -668,11 +676,11 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     every form (the kernel's template parameter, as K1's).
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas``
-    (K3).  Bound on the H100: operations, as K1: 2 steps of
-    (4*I*H + H + I) separate ops per word, plus H times the activation's
-    formula ops a step (tanh 25, sigmoid 30 per hidden unit: 307 / 347
-    ops a 3-8-3 step against relu's 107), summed over the rows each block
-    really computes, against 4 bytes written per word.  Design: K1's
+    (K3).  Bound on the H100: operations, as K1: 2 steps of 4*I*H
+    separate ops per word, plus H times the activation's formula ops a
+    step (tanh 16, sigmoid 21 per hidden unit: 224 / 264 ops a 3-8-3 step
+    against relu's 96), summed over the rows each block really computes,
+    against 4 bytes written per word.  Design: K1's
     thread per lane; a 128-lane CTA lies inside one lane block (``s_block``
     is a multiple of 128), reads its block's core and rows, and stages
     that core's weights in shared memory.  The TPU's scalar-prefetched
@@ -812,7 +820,7 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas`` (K3 with
     K5's ``_lattice_delta``), with the group's one ``activation`` (relu,
     tanh or sigmoid).  Bound on the H100: operations, as
-    ``chaotic_ann_lattice_bits`` (2 steps of 976 / 2,576 / 2,896 ops a word
+    ``chaotic_ann_lattice_bits`` (2 steps of 888 / 1,912 / 2,232 ops a word
     at chen@ring8 for relu / tanh / sigmoid), summed over the rows each
     block really computes, against 4 bytes a word.  Design: the lattice
     K1's thread per (lane, node), weight blocks and state in registers,
@@ -938,11 +946,11 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     Replaces the mxu form of
     ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_pallas`` (K3 with
     the dot step, and K5's coupling dot for a lattice), relu, tanh or
-    sigmoid as ``chaotic_ann_mxu_bits``.  Bound on the H100: operations at
-    the f32 rate in both dtypes, as ``chaotic_ann_mxu_bits`` (4,096 ops a
-    step at chen@ring32 with relu, 10,496 / 11,776 with tanh / sigmoid;
-    107, 307, 347 for 3-8-3), summed over the rows each block really
-    computes, against 4 bytes a word.  Design: the mxu
+    sigmoid as ``chaotic_ann_mxu_bits``.  Bound on the H100: operations in
+    both dtypes, as ``chaotic_ann_mxu_bits`` (at chen@ring32 3,648 FMA
+    flops a step and 448 f32 ops with relu, 4,544 / 5,824 with tanh /
+    sigmoid; 96 and 11, 139, 179 for 3-8-3), summed over the rows each
+    block really computes, against 4 bytes a word.  Design: the mxu
     K1's thread per (lane, node), its weight blocks in registers, each dot
     a forward ``__fmaf_rn`` chain in k order, so a core's words are bitwise
     its mxu K1's; a CTA holds 128 / n_nodes lanes (128 for a scalar core)

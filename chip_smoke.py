@@ -29,13 +29,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    (``bf16x2_bits_kernel``, ``bf16x2_lattice_bits_kernel``): its add, sub
    and mul.rn.bf16x2 against the f32 round trip, and its fused bias add
    and relu, on all 2**32 operand pairs each, and its tanh and sigmoid of
-   two lanes against the round-trip kernels' on all 2**16 bf16 inputs
-   (any mismatch fails); both kernels bitwise their plain versions at
-   tiny and odd lane counts (1, 2, 3, 129, 257 lanes at 3-8 and 4-16;
-   1, 3, 5 at chen@ring8 and ring32) with relu, tanh and sigmoid; their
-   registers and spills; and, where ``cuobjdump`` is on PATH or beside nvcc, the
-   SASS counts (the conversions F2F and F2FP among them) of the bf16x2 K1
-   forms beside the f32 K1 and the round-trip bf16 K2.
+   two lanes against the round-trip kernels' on all 2**16 bf16 inputs;
+   the f32 tanh and sigmoid results the two-lane bf16 mxu K1 reads
+   (``div_fast``) against the ``__fdiv_rn`` form's on all 2**16 bf16
+   inputs, the f32 mxu K1's tanh and sigmoid (``div_fast``) likewise on
+   all 2**32 f32 inputs, and cvt.rn.bf16x2.f32 against ``__float2bfloat16_rn`` on all
+   2**32 f32 inputs in each half (any mismatch fails); both bf16x2
+   kernels, and the two-lane mxu K1 (``mxu_x2_bits_kernel``,
+   ``bf16x2_mxu_bits_kernel``) in f32 and bf16, bitwise their plain
+   versions at tiny and odd lane counts (1, 2, 3, 129, 257 lanes at 3-8
+   and 4-16; 1, 3, 5 at chen@ring8 and ring32) with relu, tanh and
+   sigmoid; their registers and spills; and, where ``cuobjdump`` is on
+   PATH or beside nvcc, the SASS counts (the conversions F2F and F2FP,
+   SHFL, REDUX and FFMA among them) of the bf16x2 K1 forms and the
+   two-lane mxu K1 beside the f32 K1, the round-trip bf16 K2 and the
+   one-lane mxu step in K3.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -267,10 +275,21 @@ BF16X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 64),
                  ("hyperlorenz", (1, 2, 3, 129, 257), 64),
                  ("chen@ring8", (1, 3, 5), 16),
                  ("chen@ring32", (1, 3, 5), 16))
+# the two-lane mxu K1 (mxu_x2_bits_kernel, bf16x2_mxu_bits_kernel) at the
+# same lane counts, f32 and bf16, every activation; the plain f32 FMA
+# chains are thousands of small ops a step at 32 nodes, so fewer steps
+MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
+                 ("hyperlorenz", (1, 2, 3, 129, 257), 32),
+                 ("chen@ring8", (1, 3, 5), 8),
+                 ("chen@ring32", (1, 3, 5), 4))
 # the kernels whose SASS is counted (name, template arguments): the bf16x2
 # K1 forms (relu; tanh at 3-8) beside the unchanged round-trip bf16 K2
-# forms and the f32 K1.  The round trip's conversion is F2F.BF16.F32, the
-# bf16x2 pack F2FP; FCHK guards an IEEE divide's slow path
+# forms and the f32 K1; the two-lane mxu K1 at chen@ring32 (relu, tanh,
+# sigmoid in bf16; relu and tanh in f32; relu at 3-8) beside the one-lane
+# mxu step in K3 (relu, both dtypes).  The round trip's conversion is
+# F2F.BF16.F32, the bf16x2 pack F2FP; FCHK guards an IEEE divide's slow
+# path.  Each is counted whole and in its row loop; the two-lane mxu K1's
+# row loop is not unrolled, so its loop is two steps
 SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_bits_kernel", (3, 8, 1)),
                 ("bits_kernel", ("f", 3, 8, 0)),
@@ -278,7 +297,16 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("traj_kernel", ("bf16", 3, 8, 0)),
                 ("bf16x2_lattice_bits_kernel", (3, 8, 32, 0, 0)),
                 ("lattice_bits_kernel", ("f", 3, 8, 32, 0, 0)),
-                ("lattice_traj_kernel", ("bf16", 3, 8, 32, 0, 0)))
+                ("lattice_traj_kernel", ("bf16", 3, 8, 32, 0, 0)),
+                ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 1)),
+                ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 2)),
+                ("bf16x2_mxu_bits_kernel", (3, 8, 1, 0, 0)),
+                ("mxu_x2_bits_kernel", (3, 8, 32, 0, 0)),
+                ("mxu_x2_bits_kernel", (3, 8, 32, 0, 1)),
+                ("mxu_x2_bits_kernel", (3, 8, 1, 0, 0)),
+                ("mxu_gang_bits_kernel", ("bf16", 3, 8, 32, 0, 0)),
+                ("mxu_gang_bits_kernel", ("f", 3, 8, 32, 0, 0)))
 SASS_OPS = ("F2F", "F2FP", "HADD2", "HMUL2", "HFMA2", "FADD", "FMUL", "FFMA",
             "FCHK", "LDS", "SHFL", "REDUX")
 N_CLIENTS = 512
@@ -523,36 +551,51 @@ def sass_dump_start(lib_path):
 
 def sass_counts(dump) -> str:
     """Per SASS_KERNELS entry: its SASS instructions and those of
-    SASS_OPS, from the dump ``sass_dump_start`` started; says so when
-    there is no cuobjdump."""
+    SASS_OPS, in the whole kernel and in its widest loop (the span of its
+    longest backward branch: the row loop), from the dump
+    ``sass_dump_start`` started; says so when there is no cuobjdump."""
     if dump is None:
         return "no cuobjdump on PATH or beside nvcc: SASS not counted"
     proc, out = dump
     check(proc.wait(timeout=600) == 0, "cuobjdump -sass failed")
     want = {mangled(n, a): f"{n}<{', '.join(map(str, a))}>"
             for n, a in SASS_KERNELS}
-    counts, current = {}, None
+    code, current = {}, None          # kernel -> [(address, opcode, line)]
     op_re = re.compile(
-        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)(.*)")
     out.seek(0)
     for line in out:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             current = next((k for k in want if k in fn), None)
             if current is not None:
-                counts[current] = dict.fromkeys(("all",) + SASS_OPS, 0)
+                code[current] = []
             continue
-        if current is None:
-            continue
-        m = op_re.search(line)
+        m = op_re.search(line) if current is not None else None
         if m:
-            c = counts[current]
-            c["all"] += 1
-            if m.group(1) in c:
-                c[m.group(1)] += 1
+            code[current].append((int(m.group(1), 16), m.group(2),
+                                  m.group(3)))
+
+    def count(ins):
+        c = dict.fromkeys(SASS_OPS, 0)
+        for _, op, _ in ins:
+            if op in c:
+                c[op] += 1
+        return f"{len(ins)} ({', '.join(f'{k} {v}' for k, v in c.items())})"
+
+    def widest_loop(ins):
+        spans = [(int(t.group(1), 16), addr) for addr, op, rest in ins
+                 if op == "BRA" and (t := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(t.group(1), 16) < addr]
+        if not spans:
+            return []
+        lo, hi = max(spans, key=lambda sp: sp[1] - sp[0])
+        return [x for x in ins if lo <= x[0] <= hi]
+
     return "; ".join(
-        f"{label}: " + (", ".join(f"{k} {v}" for k, v in counts[k0].items())
-                        if k0 in counts else "not found")
+        f"{label}: " + (f"all {count(code[k0])}, loop "
+                        f"{count(widest_loop(code[k0]))}"
+                        if k0 in code else "not found")
         for k0, label in want.items())
 
 
@@ -600,11 +643,14 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def bound(flops: float, n_bytes: float, rate: str, f32_flops: float = 0.0):
+def bound(flops: float, n_bytes: float, rate: str, f32_flops: float = 0.0,
+          add_ops: float = 0.0, add_rate: str = "f32"):
     """The least time for ``flops`` at ``PEAK_OPS[rate]`` (a vpu state
     dtype's instruction rate, or ``"mxu"``) plus ``f32_flops`` at the f32
-    vpu rate, or for ``n_bytes`` at HBM bandwidth, whichever is larger."""
-    ops_ms = (flops / PEAK_OPS[rate] + f32_flops / PEAK_OPS["f32"]) * 1e3
+    vpu rate plus ``add_ops`` at ``PEAK_OPS[add_rate]``, or for
+    ``n_bytes`` at HBM bandwidth, whichever is larger."""
+    ops_ms = (flops / PEAK_OPS[rate] + f32_flops / PEAK_OPS["f32"]
+              + add_ops / PEAK_OPS[add_rate]) * 1e3
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -641,24 +687,35 @@ def lattice_step_flops(lattice, h_dim: int, activation: str = "relu") -> int:
 
 def mxu_step_flops(i_dim: int, h_dim: int, lattice,
                    activation: str = "relu") -> tuple:
-    """Ops of one mxu step as (FMA flops, f32 ops).  The first: the nonzero
-    terms of its dense dots, each a fused multiply-add of 2 flops, at the
-    mxu rate.  Scalar: every term of the two dots (4*I*H).  Lattice: each
-    node's blocks and the coupling's 3 (ring) or 5 (torus) terms a
-    component (a torus side of 2 repeats a neighbour: one term fewer).
-    The second: the separate adds (H + I biases, for a lattice I coupling
-    adds) and the activation's formula, one instruction an op at the f32
-    vpu rate (``bound``'s ``f32_flops``)."""
+    """Ops of one mxu step as (FMA flops, adds, formula ops).  The first:
+    the nonzero terms of its dense dots, each a fused multiply-add of 2
+    flops, at the mxu rate.  Scalar: every term of the two dots (4*I*H).
+    Lattice: each node's blocks and the coupling's 3 (ring) or 5 (torus)
+    terms a component (a torus side of 2 repeats a neighbour: one term
+    fewer).  The second: the separate adds in the state dtype (H + I
+    biases, for a lattice I coupling adds), one instruction an op at the
+    state dtype's vpu rate (packed bf16x2 in bf16, as the vpu bf16 rows);
+    the third: the activation's formula, f32 ops in both dtypes at the f32
+    vpu rate (``mxu_bound``)."""
     adds = h_dim + i_dim + (i_dim if lattice is not None else 0)
-    f32_ops = adds + act_flops(h_dim, activation)
+    act = act_flops(h_dim, activation)
     if lattice is None:
-        return step_flops(i_dim, h_dim), f32_ops
+        return step_flops(i_dim, h_dim), adds, act
     n_nodes, base_dim, topology, _ = lattice
     from repro_torch.core.chaotic import lattice_coupling_matrix
     terms = int((lattice_coupling_matrix(n_nodes, base_dim, 1.0, topology)
                  != 0).sum())
     return (n_nodes * step_flops(base_dim, h_dim // n_nodes) + 2 * terms,
-            f32_ops)
+            adds, act)
+
+
+def mxu_bound(lane_steps: float, step: tuple, n_bytes: float, tag: str):
+    """``bound`` of ``lane_steps`` mxu steps of ``mxu_step_flops``'s
+    ``step`` in state dtype ``tag``: the FMA flops at the mxu rate, the
+    adds at the ``tag`` rate, the formula ops at the f32 rate."""
+    fma, adds, act = step
+    return bound(lane_steps * fma, n_bytes, "mxu", f32_flops=lane_steps * act,
+                 add_ops=lane_steps * adds, add_rate=tag)
 
 
 def mxu_dense_flops(i_dim: int, h_dim: int, lattice) -> int:
@@ -984,37 +1041,54 @@ def phase_kernels(torch, device, errs) -> None:
                 del traj_k, traj_p
 
 
+BF16X2_CHECK_OPS = (
+    "add.rn vs __float2bfloat16_rn(f32 add) on 2^32 operand pairs",
+    "sub.rn vs __float2bfloat16_rn(f32 sub) on 2^32 operand pairs",
+    "mul.rn vs __float2bfloat16_rn(f32 mul) on 2^32 operand pairs",
+    "fma.rn.relu(a, 1, b) vs relu(bf16(a + b)), zero sums +0, on 2^32 "
+    "operand pairs",
+    "tanh of two lanes vs the round-trip tanh on 2^16 inputs",
+    "sigmoid of two lanes vs the round-trip sigmoid on 2^16 inputs",
+    "tanh's f32 result with div_fast (the mxu step's) vs __fdiv_rn's on "
+    "2^16 inputs",
+    "sigmoid's f32 result with div_fast (the mxu step's) vs __fdiv_rn's on "
+    "2^16 inputs",
+    "cvt.rn.bf16x2.f32 vs __float2bfloat16_rn on 2^32 f32 inputs, both "
+    "halves",
+    "f32 tanh with div_fast (the f32 mxu step's) vs __fdiv_rn's on 2^32 f32 "
+    "inputs",
+    "f32 sigmoid with div_fast (the f32 mxu step's) vs __fdiv_rn's on 2^32 "
+    "f32 inputs")
+
+
 def bf16x2_exhaustive(torch, device) -> None:
     """The bf16x2 ops the bf16 K1 computes with (add, sub and
     mul.rn.bf16x2) against the round-trip form (__float2bfloat16_rn of the
     f32 op), and its fused bias add and relu (fma.rn.relu.bf16x2) against
     relu of that sum with a zero sum +0, on all 2^32 operand pairs each;
     its tanh and sigmoid of two lanes (the divisions without the slow
-    path) against the round-trip kernels' on every bf16 input; on the
-    card, through the library's check hook; a NaN counts equal to any NaN.
+    path) against the round-trip kernels' on every bf16 input, and the f32
+    results the bf16 mxu K1 reads from them against the __fdiv_rn form's,
+    bitwise in f32; cvt.rn.bf16x2.f32 against __float2bfloat16_rn on every
+    f32 input in either half; the f32 mxu K1's tanh and sigmoid
+    (div_fast) against the __fdiv_rn form on every f32 input; on the card,
+    through the library's check hook; a NaN counts equal to any NaN.
     Fails on any mismatch."""
     from repro_torch.kernels import chaotic_ann
     fn = chaotic_ann._lib().chaotic_ann_bf16x2_check_launch
-    mismatches = torch.zeros(6, dtype=torch.int64, device=device)
-    n_examples = torch.zeros(6, dtype=torch.int32, device=device)
-    examples = torch.zeros((6, 4, 2), dtype=torch.int32, device=device)
+    n_ops = len(BF16X2_CHECK_OPS)
+    mismatches = torch.zeros(n_ops, dtype=torch.int64, device=device)
+    n_examples = torch.zeros(n_ops, dtype=torch.int32, device=device)
+    examples = torch.zeros((n_ops, 4, 4), dtype=torch.int32, device=device)
     rc, ms = timed_once(torch, lambda: fn(
         device.index, mismatches.data_ptr(), n_examples.data_ptr(),
         examples.data_ptr(), torch.cuda.current_stream(device).cuda_stream))
     check(rc == 0, f"bf16x2 check kernel did not launch (code {rc})")
     counts = mismatches.tolist()
     shown = (examples.to(torch.int64) & 0xFFFFFFFF).tolist()
-    ops = ("add.rn vs __float2bfloat16_rn(f32 add) on 2^32 operand pairs",
-           "sub.rn vs __float2bfloat16_rn(f32 sub) on 2^32 operand pairs",
-           "mul.rn vs __float2bfloat16_rn(f32 mul) on 2^32 operand pairs",
-           "fma.rn.relu(a, 1, b) vs relu(bf16(a + b)), zero sums +0, on "
-           "2^32 operand pairs",
-           "tanh of two lanes vs the round-trip tanh on 2^16 inputs",
-           "sigmoid of two lanes vs the round-trip sigmoid on 2^16 inputs")
-    for op, name in enumerate(ops):
-        ex = [f"a=0x{ab >> 16:04x} b=0x{ab & 0xFFFF:04x} got=0x{gw >> 16:04x}"
-              f" want=0x{gw & 0xFFFF:04x}"
-              for ab, gw in shown[op][:min(4, counts[op])]]
+    for op, name in enumerate(BF16X2_CHECK_OPS):
+        ex = [f"a=0x{a:x} b=0x{b:x} got=0x{got:x} want=0x{want:x}"
+              for a, b, got, want in shown[op][:min(4, counts[op])]]
         print(f"bf16x2 {name}: {counts[op]} mismatches"
               + (f" (e.g. {'; '.join(ex)})" if ex else ""))
     print(f"bf16x2 exhaustive check: {ms:.1f} ms on the card")
@@ -1026,53 +1100,65 @@ def phase_bf16x2(torch, device, log, errs) -> None:
     """The bf16 K1 on bf16x2: its ops on every operand pair; both kernels
     bitwise their plain versions at tiny and odd lane counts
     (BF16X2_CHECKS) with relu, tanh and sigmoid, tanh's and sigmoid's
-    words unlike relu's; their registers and spills from the build log."""
+    words unlike relu's; the two-lane mxu K1 likewise (MXU_X2_CHECKS) in
+    f32 and bf16; their registers and spills from the build log."""
     from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
     from repro_torch.kernels import chaotic_ann, ref
     from repro_torch.prng.stream import default_params
 
     bf16x2_exhaustive(torch, device)
     rng = np.random.default_rng(22)
-    for system, counts, n_steps in BF16X2_CHECKS:
-        p = params_from_numpy(default_params(system=system), device=device)
-        w = (p["w1"], p["b1"], p["w2"], p["b2"])
-        lattice = (lattice_meta_tuple(p["lattice_meta"])
-                   if "lattice_meta" in p else None)
-        n_max, i_dim = max(counts), p["w1"].shape[0]
-        x0 = torch.as_tensor(rng.uniform(-0.9, 0.9, (n_max, i_dim)),
-                             dtype=torch.float32, device=device)
-        x0 = x0.to(torch.bfloat16)
-        off_np = rng.integers(0, 1 << 32, n_max, dtype=np.int64)
-        off_np[:2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
-        off = torch.as_tensor(off_np, device=device)
-        name = kernel_names(lattice)[0]
-        relu_words = None
-        for act in ("relu", "tanh", "sigmoid"):
-            words_p, state_p = ref.chaotic_ann_bits_ref(
-                *w, x0, n_steps, off, act, lattice)
-            words_p = words_p.view(torch.int32)
-            e_all = 0.0
-            for n in counts:
-                words_k, state_k = chaotic_ann.chaotic_ann_bits(
-                    *w, x0[:n].contiguous(), off[:n], n_steps=n_steps,
-                    lattice=lattice, activation=act)
-                e = max(max_abs_err(torch, words_k,
-                                    words_p[:, :n].contiguous()
-                                    .view(torch.uint32)),
-                        max_abs_err(torch, state_k, state_p[:n]))
-                check(e == 0.0, f"{name} != plain (bf16, {system}, {act}, "
-                                f"{n} lanes)")
-                e_all = max(e_all, e)
-            if relu_words is None:
-                relu_words = words_p
-            else:
-                check(not torch.equal(words_p, relu_words),
-                      f"{system} bf16 {act}: words equal relu's")
-            print(f"check bf16x2 {system} {act} lanes {counts} "
-                  f"steps={n_steps}: {name} max_abs_err={e_all}")
-            errs[(name, "bf16")] = max(errs.get((name, "bf16"), 0.0), e_all)
+    both = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+    for unit, checks, dtypes in (
+            ("vpu", BF16X2_CHECKS, both[1:]), ("mxu", MXU_X2_CHECKS, both)):
+        for system, counts, n_steps in checks:
+            p = params_from_numpy(default_params(system=system),
+                                  device=device)
+            w = (p["w1"], p["b1"], p["w2"], p["b2"])
+            lattice = (lattice_meta_tuple(p["lattice_meta"])
+                       if "lattice_meta" in p else None)
+            kw = dict(lattice=lattice, compute_unit=unit, coupling=(
+                p["coupling"] if unit == "mxu" and lattice else None))
+            n_max, i_dim = max(counts), p["w1"].shape[0]
+            x0_f = torch.as_tensor(rng.uniform(-0.9, 0.9, (n_max, i_dim)),
+                                   dtype=torch.float32, device=device)
+            off_np = rng.integers(0, 1 << 32, n_max, dtype=np.int64)
+            off_np[:2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
+            off = torch.as_tensor(off_np, device=device)
+            name = kernel_names(lattice, unit)[0]
+            for dtype, tag in dtypes:
+                x0 = x0_f.to(dtype)
+                relu_words = None
+                for act in ("relu", "tanh", "sigmoid"):
+                    words_p, state_p = ref.chaotic_ann_bits_ref(
+                        *w, x0, n_steps, off, act, **kw)
+                    words_p = words_p.view(torch.int32)
+                    e_all = 0.0
+                    for n in counts:
+                        words_k, state_k = chaotic_ann.chaotic_ann_bits(
+                            *w, x0[:n].contiguous(), off[:n],
+                            n_steps=n_steps, activation=act, **kw)
+                        e = max(max_abs_err(torch, words_k,
+                                            words_p[:, :n].contiguous()
+                                            .view(torch.uint32)),
+                                max_abs_err(torch, state_k, state_p[:n]))
+                        check(e == 0.0, f"{name} != plain ({tag}, {system}, "
+                                        f"{act}, {n} lanes)")
+                        e_all = max(e_all, e)
+                    if relu_words is None:
+                        relu_words = words_p
+                    else:
+                        check(not torch.equal(words_p, relu_words),
+                              f"{system} {unit} {tag} {act}: words equal "
+                              f"relu's")
+                    print(f"check {'bf16x2' if unit == 'vpu' else 'mxu x2'} "
+                          f"{system} {tag} {act} lanes {counts} "
+                          f"steps={n_steps}: {name} max_abs_err={e_all}")
+                    errs[(name, tag)] = max(errs.get((name, tag), 0.0),
+                                            e_all)
     if log:
-        for kernel in ("bf16x2_bits_kernel", "bf16x2_lattice_bits_kernel"):
+        for kernel in ("bf16x2_bits_kernel", "bf16x2_lattice_bits_kernel",
+                       "mxu_x2_bits_kernel", "bf16x2_mxu_bits_kernel"):
             print(f"ptxas: {kernel_registers(log, kernel)}")
 
 
@@ -1092,6 +1178,9 @@ REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
 PATHS = {("chen", "vpu"): ("served", "unfused"),
          (LATTICE, "vpu"): ("lattice-served", "lattice-unfused"),
          (LATTICE, "mxu"): ("mxu-served", "mxu-unfused")}
+# the CUDA kernels behind the mxu K1 wrapper (two lanes a thread), by dtype
+MXU_K1_KERNELS = {"f32": "mxu_x2_bits_kernel",
+                  "bf16": "bf16x2_mxu_bits_kernel"}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
            "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
            "chaotic_ann_lattice_traj", "chaotic_ann_mxu_bits",
@@ -1254,13 +1343,11 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
     i_dim, h_dim = w[0].shape
     item = x.element_size()
     n_out = n_steps // 2 * s_pool
-    if unit == "mxu":     # the chains accumulate in f32, in both dtypes
-        (ops_step, f32_step), rate = mxu_step_flops(i_dim, h_dim, lattice), \
-            "mxu"
-    else:
-        ops_step = (step_flops(i_dim, h_dim) if lattice is None
-                    else lattice_step_flops(lattice, h_dim))
-        f32_step, rate = 0, tag
+    mxu_step = (mxu_step_flops(i_dim, h_dim, lattice) if unit == "mxu"
+                 else None)    # the chains accumulate in f32, in both dtypes
+    ops_step = (sum(mxu_step) if unit == "mxu"
+                else step_flops(i_dim, h_dim) if lattice is None
+                else lattice_step_flops(lattice, h_dim))
     t = {
         "bits_ms": cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
             *w, x, off, n_steps=n_steps, **kw), reps=5, warmup=2),
@@ -1303,14 +1390,17 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
     weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim) * item
     if kw["coupling"] is not None:
         weight_bytes += i_dim * i_dim * item
-    t["bits_bound"] = bound(
-        n_out * 2 * ops_step,
-        2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes + n_out * 4, rate,
-        f32_flops=n_out * 2 * f32_step)
-    t["traj_bound"] = bound(
-        n_steps * s_pool * ops_step,
-        s_pool * i_dim * item + weight_bytes + n_steps * s_pool * i_dim * item,
-        rate, f32_flops=n_steps * s_pool * f32_step)
+    bits_bytes = (2 * s_pool * i_dim * item + s_pool * 4 + weight_bytes
+                  + n_out * 4)
+    traj_bytes = (s_pool * i_dim * item + weight_bytes
+                  + n_steps * s_pool * i_dim * item)
+    if unit == "mxu":
+        t["bits_bound"] = mxu_bound(n_out * 2, mxu_step, bits_bytes, tag)
+        t["traj_bound"] = mxu_bound(n_steps * s_pool, mxu_step, traj_bytes,
+                                    tag)
+    else:
+        t["bits_bound"] = bound(n_out * 2 * ops_step, bits_bytes, tag)
+        t["traj_bound"] = bound(n_steps * s_pool * ops_step, traj_bytes, tag)
     t["flush_s"] = t_flush2
     dense = ""
     if unit == "mxu":     # a count of the dense work, not a bound
@@ -1319,7 +1409,8 @@ def phase_served(torch, device, dtype, tag, card, system, n_words, seed0,
         dense = (f"; the dense dots' work, zero terms too, is {dense_ms:.4f}"
                  f" ms at the mxu rate: not a bound, the kernel skips "
                  f"those terms")
-    ops_text = f"{ops_step} + {f32_step} f32" if f32_step else f"{ops_step}"
+    ops_text = (f"{mxu_step[0]} FMA flops + {mxu_step[1]} {tag} adds + "
+                f"{mxu_step[2]} f32" if unit == "mxu" else f"{ops_step}")
     print(f"device times {system} {unit} {tag} (S={s_pool}, n_steps={n_steps},"
           f" {ops_text} ops a step): {bits_name} {t['bits_ms']:.4f} ms "
           f"({n_out / t['bits_ms'] * 1e3:.4g} words/s, bound "
@@ -1358,6 +1449,8 @@ def kernel_rows(system, unit, tag, launches, t, errs):
             row["form"] = (f"{system} mxu unit (the dot form, "
                            f"src/repro/kernels/chaotic_ann.py:154-161, with "
                            f"K5's coupling dot :148-152)")
+            if key == "bits":
+                row["kernel"] = MXU_K1_KERNELS[tag]
         elif lattice:
             row["form"] = (f"{system} vpu lattice (K5, "
                            f"src/repro/kernels/chaotic_ann.py:61)")
@@ -1946,18 +2039,18 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
     item = x0c.element_size()
     i_dim, h_dim = w[0].shape[1:]
     weight_bytes = 4 * (2 * i_dim * h_dim + h_dim + i_dim) * item
-    fma_step, f32_step = mxu_step_flops(i_dim, h_dim, lattice)
-    ops_step = fma_step + f32_step
+    mxu_step = mxu_step_flops(i_dim, h_dim, lattice)
+    ops_step = sum(mxu_step)
 
     def gang_bound(n_lanes):
         # x0 read, state written, offsets, weights, coupling and maps read,
         # words written; the f32 FMA chains at the mxu rate (2 flops each),
-        # the adds at the f32 rate
+        # the adds at the state dtype's rate
         n_words = n_lanes * steps // 2
-        return bound(n_words * 2 * fma_step,
-                     2 * n_lanes * i_dim * item + n_lanes * 4 + weight_bytes
-                     + i_dim * i_dim * item + 8 * n_lanes // cfg.s_block
-                     + n_words * 4, "mxu", f32_flops=n_words * 2 * f32_step)
+        return mxu_bound(n_words * 2, mxu_step,
+                         2 * n_lanes * i_dim * item + n_lanes * 4
+                         + weight_bytes + i_dim * i_dim * item
+                         + 8 * n_lanes // cfg.s_block + n_words * 4, tag)
 
     t["k3_bound"] = gang_bound(x0c.shape[0])
     t["k3_f1_bound"] = gang_bound(x1.shape[0])
@@ -2497,12 +2590,11 @@ class GangRecorder:
                    + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
                    + n_maps * 4 + n_words * 4)
         extra = act_flops(h_dim, act)
-        if unit == "mxu":   # FMA chains at the mxu rate, the rest f32
+        if unit == "mxu":   # FMA chains at the mxu rate (mxu_bound)
             n_bytes += i_dim * i_dim * item if lattice else 0
-            fma_step, f32_step = mxu_step_flops(i_dim, h_dim, lattice, act)
-            ops_step = fma_step + f32_step
-            t["bound"] = bound(n_words * 2 * fma_step, n_bytes, "mxu",
-                               f32_flops=n_words * 2 * f32_step)
+            mxu_step = mxu_step_flops(i_dim, h_dim, lattice, act)
+            ops_step = sum(mxu_step)
+            t["bound"] = mxu_bound(n_words * 2, mxu_step, n_bytes, tag)
         else:
             ops_step = (lattice_step_flops(lattice, h_dim, act) if lattice
                         else step_flops(i_dim, h_dim) + extra)
@@ -3680,22 +3772,21 @@ def mxu_act_times(torch, device, card, nets, errs):
                 torch, lambda: chaotic_ann.chaotic_ann_traj(*w, x, **kw),
                 reps=3, warmup=1)
             item = x.element_size()
-            # the chains (f32 FMAs, both dtypes) at the mxu rate; the
-            # adds and the formulas (f32 in both dtypes) at the f32 rate
-            fma_step, f32_step = mxu_step_flops(i_dim, h_dim, kw["lattice"],
-                                                act)
-            ops_step = fma_step + f32_step
+            # the chains (f32 FMAs, both dtypes) at the mxu rate, the adds
+            # at the state dtype's rate, the formulas (f32 in both dtypes)
+            # at the f32 rate
+            mxu_step = mxu_step_flops(i_dim, h_dim, kw["lattice"], act)
+            ops_step = sum(mxu_step)
             weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim
                             + i_dim * i_dim) * item
             n_out = steps // 2 * n
-            t["bits_bound"] = bound(
-                n_out * 2 * fma_step,
-                2 * n * i_dim * item + n * 4 + weight_bytes + n_out * 4, "mxu",
-                f32_flops=n_out * 2 * f32_step)
-            t["traj_bound"] = bound(
-                steps * n * fma_step,
+            t["bits_bound"] = mxu_bound(
+                n_out * 2, mxu_step,
+                2 * n * i_dim * item + n * 4 + weight_bytes + n_out * 4, tag)
+            t["traj_bound"] = mxu_bound(
+                steps * n, mxu_step,
                 n * i_dim * item + weight_bytes + steps * n * i_dim * item,
-                "mxu", f32_flops=steps * n * f32_step)
+                tag)
             t["ops_step"] = ops_step
             out[(act, tag)] = t
             print(f"device times mxu {act} {LATTICE} {tag} (S={n}, "
@@ -3769,6 +3860,8 @@ def phase_mxu_activations(torch, device, card, nets, errs):
             "ops_step": t["ops_step"], "relu_ms": t[f"relu_{key}_ms"],
             "form": form(act),
         })
+        if key == "bits":
+            rows[-1]["kernel"] = MXU_K1_KERNELS[tag]
     print(f"mxu activations: kernel checks {t1 - t0:.1f} s, paths "
           f"{t2 - t1:.1f} s, farms {t3 - t2:.1f} s, times "
           f"{time.perf_counter() - t3:.1f} s")

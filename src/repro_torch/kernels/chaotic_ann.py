@@ -484,13 +484,20 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     steps of n_nodes x (2*D*HB) FMAs of 2 flops and the coupling's 3
     (ring) or 5 (torus) FMAs per component at the f32 FMA rate (96 flops
     a step for 3-8-3, 3,648 at chen@ring32: the nonzero terms of the
-    dense dots, which have 58,368 FMAs), plus at the f32 instruction rate
-    the bias and coupling adds (11 / 448) and tanh's 16 or sigmoid's 21
-    f32 ops on each hidden unit (4,544 / 5,824 f32 ops a step at
-    chen@ring32), against 4 bytes written.
-    Design: the lattice kernels' thread per (lane, node), the node's
-    weight blocks in registers (a scalar core is one node), the chains
-    over the node's nonzero terms in the dense order.
+    dense dots, which have 58,368 FMAs), plus the bias and coupling adds
+    (11 / 448) at the state dtype's add rate (packed bf16x2 in bf16), and
+    tanh's 16 or sigmoid's 21 f32 ops on each hidden unit (4,096 / 5,376
+    a step at chen@ring32) at the f32 instruction rate, against 4 bytes
+    written.
+    Design (``mxu_x2_bits_kernel``, ``bf16x2_mxu_bits_kernel``): two
+    lanes a thread, a CTA of 128 threads holding 128 / n_nodes lane slots
+    of n_nodes node threads (a scalar core is one node), slot s lanes s
+    and s + 128 / n_nodes of the CTA's range; the node's weight blocks in
+    registers once for both lanes, the chains over the node's nonzero
+    terms in the dense order; in bf16 both lanes packed in one register,
+    each chain's f32 pair rounded by one ``cvt.rn.bf16x2.f32``, the bias
+    and coupling adds ``add.rn.bf16x2``; both lanes' folds reduced
+    together over the slot's nodes.
     """
     act = _check_activation(activation)
     _check_steps(n_steps)
@@ -950,10 +957,11 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     both dtypes, as ``chaotic_ann_mxu_bits`` (at chen@ring32 3,648 FMA
     flops a step and 448 f32 ops with relu, 4,544 / 5,824 with tanh /
     sigmoid; 96 and 11, 139, 179 for 3-8-3), summed over the rows each
-    block really computes, against 4 bytes a word.  Design: the mxu
-    K1's thread per (lane, node), its weight blocks in registers, each dot
-    a forward ``__fmaf_rn`` chain in k order, so a core's words are bitwise
-    its mxu K1's; a CTA holds 128 / n_nodes lanes (128 for a scalar core)
+    block really computes, against 4 bytes a word.  Design: a thread per
+    (lane, node) (the one-lane step; the mxu K1 runs two lanes a thread),
+    its weight blocks in registers, each dot a forward ``__fmaf_rn`` chain
+    in k order, so a core's words are bitwise its mxu K1's; a CTA holds
+    128 / n_nodes lanes (128 for a scalar core)
     and ``s_block`` is a multiple of that, so a CTA lies inside one lane
     block and reads that block's core and rows.  K4 has no mxu form (the
     stacked step is the vpu order), so every mxu gang is this launch.

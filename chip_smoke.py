@@ -39,11 +39,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``bf16x2_mxu_bits_kernel``) in f32 and bf16, bitwise their plain
    versions at tiny and odd lane counts (1, 2, 3, 129, 257 lanes at 3-8
    and 4-16; 1, 3, 5 at chen@ring8 and ring32) with relu, tanh and
-   sigmoid; their registers and spills; and, where ``cuobjdump`` is on
-   PATH or beside nvcc, the SASS counts (the conversions F2F and F2FP,
-   SHFL, REDUX and FFMA among them) of the bf16x2 K1 forms and the
-   two-lane mxu K1 beside the f32 K1, the round-trip bf16 K2 and the
-   one-lane mxu step in K3.
+   sigmoid; the bf16 lattice K3 and K4 on the same row loop as the bf16x2
+   lattice K1 (``bf16x2_lattice_gang_bits_kernel``,
+   ``bf16x2_lattice_gang_stacked_kernel``) bitwise their plain versions at
+   chen@ring8, grid8 and ring32 with relu, tanh and sigmoid (K3: six
+   blocks of the four cores with 0, partial and full rows, ``s_block`` on
+   the two-lane span and off it; K4: three cores at 1, 5 and 37 lanes, a
+   0-row and a partial core); their registers and spills; and, where
+   ``cuobjdump`` is on PATH or beside nvcc, the SASS counts (the
+   conversions F2F and F2FP, SHFL, REDUX and FFMA among them) of the
+   bf16x2 K1 forms, the bf16x2 lattice K3/K4 and the two-lane mxu K1
+   beside the f32 K1, the round-trip bf16 K2 and the one-lane mxu step in
+   K3.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -102,7 +109,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    Each flush bitwise against a ``gang=False`` farm, F2 against a
    snapshot taken with its requests pending and restored onto a fresh
    farm; F1's K4 and F3's K3 launches against one plain run each at
-   their shapes; their times, bounds and the ``gang=False`` cost.
+   their shapes; their times, bounds and the ``gang=False`` cost (in
+   bf16 the K3 and K4 are the bf16x2 kernels, on the lattice K1's row
+   loop).
 9. The mxu farm path, per dtype: ``OscillatorFarm`` with the four
    ring32 cores of phase 8 added with NO config (the JAX farm's default
    lattice gang: ``select_config`` puts them on the mxu unit, s_block 128,
@@ -275,6 +284,22 @@ BF16X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 64),
                  ("hyperlorenz", (1, 2, 3, 129, 257), 64),
                  ("chen@ring8", (1, 3, 5), 16),
                  ("chen@ring32", (1, 3, 5), 16))
+# the bf16 lattice K3 and K4 on the bf16x2 row loop
+# (bf16x2_lattice_gang_bits_kernel, bf16x2_lattice_gang_stacked_kernel),
+# every activation, words and state bitwise one plain run each: K3 at
+# each (system, s_blocks, steps) entry's s_blocks, one on the two-lane
+# span 2 * 128 / n_nodes and two odd multiples of 128 / n_nodes (a
+# block's last CTA then holds one live half), six blocks of the four
+# cores with 0, partial and full rows; K4 on three cores with a 0-row and
+# a partial core at odd lane counts, each count held to the plain run's
+# first lanes of every core
+LATTICE_GANG_X2_CHECKS = (("chen@ring8", (16, 32, 48), 16),
+                          ("chen@grid8", (16, 32, 48), 16),
+                          ("chen@ring32", (4, 8, 12), 8))
+LATTICE_GANG_X2_CORE_MAP = [2, 0, 3, 1, 1, 2]
+LATTICE_GANG_X2_K3_ROWS = [0, 3, 99, 1, 99, 5]   # clamped to steps // 2
+LATTICE_GANG_X2_LANES = (1, 5, 37)
+LATTICE_GANG_X2_K4_ROWS = [99, 0, 3]
 # the two-lane mxu K1 (mxu_x2_bits_kernel, bf16x2_mxu_bits_kernel) at the
 # same lane counts, f32 and bf16, every activation; the plain f32 FMA
 # chains are thousands of small ops a step at 32 nodes, so fewer steps
@@ -283,7 +308,8 @@ MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
                  ("chen@ring8", (1, 3, 5), 8),
                  ("chen@ring32", (1, 3, 5), 4))
 # the kernels whose SASS is counted (name, template arguments): the bf16x2
-# K1 forms (relu; tanh at 3-8) beside the unchanged round-trip bf16 K2
+# K1 forms (relu; tanh at 3-8) and the bf16x2 lattice K3 and K4 (relu at
+# chen@ring32, K4 tanh at ring8) beside the unchanged round-trip bf16 K2
 # forms and the f32 K1; the two-lane mxu K1 at chen@ring32 (relu, tanh,
 # sigmoid in bf16; relu and tanh in f32; relu at 3-8) beside the one-lane
 # mxu step in K3 (relu, both dtypes).  The round trip's conversion is
@@ -296,6 +322,9 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bits_kernel", ("f", 3, 8, 1)),
                 ("traj_kernel", ("bf16", 3, 8, 0)),
                 ("bf16x2_lattice_bits_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_lattice_gang_bits_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 8, 0, 1)),
                 ("lattice_bits_kernel", ("f", 3, 8, 32, 0, 0)),
                 ("lattice_traj_kernel", ("bf16", 3, 8, 32, 0, 0)),
                 ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 0)),
@@ -1156,10 +1185,82 @@ def phase_bf16x2(torch, device, log, errs) -> None:
                           f"steps={n_steps}: {name} max_abs_err={e_all}")
                     errs[(name, tag)] = max(errs.get((name, tag), 0.0),
                                             e_all)
+    check_lattice_gang_x2(torch, device, errs)
     if log:
         for kernel in ("bf16x2_bits_kernel", "bf16x2_lattice_bits_kernel",
+                       "bf16x2_lattice_gang_bits_kernel",
+                       "bf16x2_lattice_gang_stacked_kernel",
                        "mxu_x2_bits_kernel", "bf16x2_mxu_bits_kernel"):
             print(f"ptxas: {kernel_registers(log, kernel)}")
+
+
+def check_lattice_gang_x2(torch, device, errs) -> None:
+    """The bf16 lattice K3 and K4 on the bf16x2 row loop bitwise their
+    plain versions (LATTICE_GANG_X2_CHECKS), relu, tanh and sigmoid: the
+    words each block or core computed, and the final states."""
+    from repro_torch.kernels import chaotic_ann, ref
+
+    rng = np.random.default_rng(24)
+    core_map = np.array(LATTICE_GANG_X2_CORE_MAP)
+    n_max = max(LATTICE_GANG_X2_LANES)
+    for system, s_blocks, n_steps in LATTICE_GANG_X2_CHECKS:
+        w, lattice = lattice_gang_weights(torch, device, system)
+        w3 = [a[:3] for a in w]
+        i_dim, n_rows = w[0].shape[1], n_steps // 2
+        rows = np.minimum(LATTICE_GANG_X2_K3_ROWS, n_rows)
+        srows = np.minimum(LATTICE_GANG_X2_K4_ROWS, n_rows)
+        core_rows = torch.as_tensor(srows, device=device)[:, None]
+        xs = torch.as_tensor(rng.uniform(-0.9, 0.9, (3, n_max, i_dim)),
+                             dtype=torch.float32, device=device).to(
+                                 torch.bfloat16)
+        offs_np = rng.integers(0, 1 << 32, (3, n_max), dtype=np.int64)
+        offs_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
+        offs = torch.as_tensor(offs_np, device=device)
+        for act in ("relu", "tanh", "sigmoid"):
+            e3 = 0.0
+            for s_block in s_blocks:
+                n_lanes = len(core_map) * s_block
+                x0 = torch.as_tensor(
+                    rng.uniform(-0.9, 0.9, (n_lanes, i_dim)),
+                    dtype=torch.float32, device=device).to(torch.bfloat16)
+                off_np = rng.integers(0, 1 << 32, n_lanes, dtype=np.int64)
+                off_np[:2] = (1 << 32) - 1, (1 << 32) - 3
+                off = torch.as_tensor(off_np, device=device)
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0, core_map, off, rows, n_steps=n_steps,
+                    s_block=s_block, t_block=n_steps, unroll=1,
+                    lattice=lattice, activation=act)
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0, core_map, n_steps, off, rows, act, lattice)
+                lane_rows = torch.as_tensor(np.repeat(rows, s_block),
+                                            device=device)
+                e = max(masked_err(torch, words_k, words_p, lane_rows),
+                        max_abs_err(torch, state_k, state_p))
+                check(e == 0.0, f"bf16x2_lattice_gang_bits_kernel != plain "
+                                f"({system}, {act}, s_block {s_block})")
+                e3 = max(e3, e)
+            words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                *w3, xs, n_steps, offs, srows, act, lattice)
+            e4 = 0.0
+            for n in LATTICE_GANG_X2_LANES:
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                    *w3, xs[:, :n].contiguous(), offs[:, :n].contiguous(),
+                    srows, n_steps=n_steps, lattice=lattice, activation=act)
+                e = max(masked_err(torch, words_k, words_p[:, :, :n],
+                                   core_rows),
+                        max_abs_err(torch, state_k, state_p[:, :n]))
+                check(e == 0.0, f"bf16x2_lattice_gang_stacked_kernel != "
+                                f"plain ({system}, {act}, {n} lanes)")
+                e4 = max(e4, e)
+            print(f"check bf16x2 lattice gang {system} bf16 {act}: "
+                  f"chaotic_ann_lattice_gang_bits (6 blocks x s_block "
+                  f"{s_blocks}, rows {rows.tolist()}, steps={n_steps}) "
+                  f"max_abs_err={e3}; chaotic_ann_lattice_gang_stacked (3 "
+                  f"cores x {LATTICE_GANG_X2_LANES} lanes, rows "
+                  f"{srows.tolist()}) max_abs_err={e4}")
+            for name, e in (("chaotic_ann_lattice_gang_bits", e3),
+                            ("chaotic_ann_lattice_gang_stacked", e4)):
+                errs[(name, "bf16")] = max(errs.get((name, "bf16"), 0.0), e)
 
 
 # the TPU kernel each wrapper replaces (its lattice form too)
@@ -1181,6 +1282,12 @@ PATHS = {("chen", "vpu"): ("served", "unfused"),
 # the CUDA kernels behind the mxu K1 wrapper (two lanes a thread), by dtype
 MXU_K1_KERNELS = {"f32": "mxu_x2_bits_kernel",
                   "bf16": "bf16x2_mxu_bits_kernel"}
+# the CUDA kernels behind the bf16 lattice K1, K3 and K4 wrappers (the
+# bf16x2 row loop, two lanes a node thread); f32 keeps the one-lane forms
+BF16X2_LATTICE_KERNELS = {
+    "chaotic_ann_lattice_bits": "bf16x2_lattice_bits_kernel",
+    "chaotic_ann_lattice_gang_bits": "bf16x2_lattice_gang_bits_kernel",
+    "chaotic_ann_lattice_gang_stacked": "bf16x2_lattice_gang_stacked_kernel"}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
            "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
            "chaotic_ann_lattice_traj", "chaotic_ann_mxu_bits",
@@ -1454,6 +1561,8 @@ def kernel_rows(system, unit, tag, launches, t, errs):
         elif lattice:
             row["form"] = (f"{system} vpu lattice (K5, "
                            f"src/repro/kernels/chaotic_ann.py:61)")
+            if tag == "bf16" and name in BF16X2_LATTICE_KERNELS:
+                row["kernel"] = BF16X2_LATTICE_KERNELS[name]
         rows.append(row)
     return rows
 
@@ -2872,6 +2981,8 @@ def gang_act_rows(names, tag, path_name, path, times, walls, splits, errs,
                 "flush_wall_ms": {k: v * 1e3 for k, v in walls.items()},
                 "flush_split_ms": splits, "form": form(act),
             }
+            if tag == "bf16" and name in BF16X2_LATTICE_KERNELS:
+                row["kernel"] = BF16X2_LATTICE_KERNELS[name]
             f2 = times.get((name, act, "F2"))
             if f2:
                 row.update(ms_f2=f2["ms"], plain_ms_f2=f2["plain_ms"],
@@ -3339,6 +3450,8 @@ def phase_lattice_activations(torch, device, card, nets, errs):
             "form": (f"vpu lattice, {act} (_activation "
                      f"src/repro/kernels/chaotic_ann.py:44-45 with K5 :61)"),
         })
+        if tag == "bf16" and name in BF16X2_LATTICE_KERNELS:
+            rows[-1]["kernel"] = BF16X2_LATTICE_KERNELS[name]
     print(f"lattice activations: kernel checks {t1 - t0:.1f} s, paths "
           f"{t2 - t1:.1f} s, farms {t3 - t2:.1f} s, times "
           f"{time.perf_counter() - t3:.1f} s")
@@ -4017,6 +4130,8 @@ def run_phases(torch, device, card, log, sass) -> int:
                 "form": (f"{LATTICE} vpu lattice (K5, "
                          f"src/repro/kernels/chaotic_ann.py:61)"),
             })
+            if tag == "bf16":
+                rows[-1]["kernel"] = BF16X2_LATTICE_KERNELS[name]
     phase_done("lattice farm path")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         path, t = phase_mxu_farm(torch, device, dtype, tag, card, errs)

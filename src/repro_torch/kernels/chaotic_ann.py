@@ -829,11 +829,19 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     tanh or sigmoid).  Bound on the H100: operations, as
     ``chaotic_ann_lattice_bits`` (2 steps of 888 / 1,912 / 2,232 ops a word
     at chen@ring8 for relu / tanh / sigmoid), summed over the rows each
-    block really computes, against 4 bytes a word.  Design: the lattice
-    K1's thread per (lane, node), weight blocks and state in registers,
-    neighbours by warp shuffles; a CTA holds
-    128 / n_nodes lanes and ``s_block`` is a multiple of that, so a CTA
-    lies inside one lane block and reads that block's core and rows.
+    block really computes, against 4 bytes a word; bf16 ops at the packed
+    bf16x2 rate, twice f32's.  Design: the lattice K1's thread per (lane,
+    node), weight blocks and state in registers, neighbours by warp
+    shuffles.  A CTA lies inside one lane block and reads that block's
+    core and rows.  f32 (``lattice_gang_bits_kernel``): a CTA holds
+    128 / n_nodes lanes and ``s_block`` is a multiple of that.  bf16
+    (``bf16x2_lattice_gang_bits_kernel``): the bf16x2 lattice K1's row
+    loop, two lanes a node thread in one register, every op one packed
+    ``add/sub/mul.rn.bf16x2`` with no f32 round trip; a CTA holds
+    2 * 128 / n_nodes lanes of one block, CTAs indexed by (block, CTA in
+    the block), and an ``s_block`` that is an odd multiple of 128 / n_nodes
+    leaves the block's last CTA one lane half, which mirrors the block's
+    last lane and writes nothing.  Both take the same ``s_block`` values.
     """
     act = _check_activation(activation)
     n_cores = w1.shape[0]
@@ -888,12 +896,17 @@ def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     with K5's ``_lattice_delta``), with the group's one ``activation``.
     Bound on the H100: operations, as ``chaotic_ann_lattice_bits`` (the
     activation's formula ops included), summed over the rows each core
-    really computes.  Design: ``blockIdx.y`` the core, the lattice K1's thread per
-    (lane, node) within it; a thread's lane is counted inside its core, so
-    a ragged edge mirrors the core's own last lane.  The TPU's sublane
-    stack of C lattice periods has no counterpart: each CTA holds one
-    core's state in registers, so there is no VMEM cliff, and the only
-    limit is the grid's y extent (65,535 cores).
+    really computes; bf16 ops at the packed bf16x2 rate.  Design:
+    ``blockIdx.y`` the core, the lattice K1's thread per (lane, node)
+    within it; a thread's lanes are counted inside its core, so a ragged
+    edge mirrors the core's own last lane.  f32:
+    ``lattice_gang_stacked_kernel``, one lane a node thread.  bf16:
+    ``bf16x2_lattice_gang_stacked_kernel``, the bf16x2 lattice K1's row
+    loop, two lanes a node thread packed in one register, no f32 round
+    trip.  The TPU's sublane stack of C lattice periods has no
+    counterpart: each CTA holds one core's state in registers, so there is
+    no VMEM cliff, and the only limit is the grid's y extent (65,535
+    cores).
     """
     act = _check_activation(activation)
     n_cores, n_rows = w1.shape[0], n_steps // 2

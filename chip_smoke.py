@@ -45,12 +45,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    chen@ring8, grid8 and ring32 with relu, tanh and sigmoid (K3: six
    blocks of the four cores with 0, partial and full rows, ``s_block`` on
    the two-lane span and off it; K4: three cores at 1, 5 and 37 lanes, a
-   0-row and a partial core); their registers and spills; and, where
+   0-row and a partial core); the bf16 lattice K2 on the bf16x2 step with
+   staged 16-byte stores (``bf16x2_lattice_traj_kernel``) bitwise its
+   plain version at chen@ring8, grid8, ring32 and grid32, odd lane counts
+   (a ragged last CTA, lane-b halves partly live) with relu, tanh and
+   sigmoid; the mxu K3 on the two-lane row loop
+   (``mxu_x2_gang_bits_kernel``, ``bf16x2_mxu_gang_bits_kernel``) in f32
+   and bf16 at 3-8, 4-16, chen@ring8 and ring32 with relu, tanh and
+   sigmoid (six blocks with 0, partial and full rows, ``s_block`` on the
+   two-lane span and off it); their registers and spills; and, where
    ``cuobjdump`` is on PATH or beside nvcc, the SASS counts (the
-   conversions F2F and F2FP, SHFL, REDUX and FFMA among them) of the
-   bf16x2 K1 forms, the bf16x2 lattice K3/K4 and the two-lane mxu K1
-   beside the f32 K1, the round-trip bf16 K2 and the one-lane mxu step in
-   K3.
+   conversions F2F and F2FP, SHFL, REDUX, FFMA and the 16-byte stores
+   among them) of the bf16x2 K1 forms, the bf16x2 lattice K2/K3/K4 and
+   the two-lane mxu K1 and K3 beside the f32 K1 and the round-trip scalar
+   bf16 K2.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -300,6 +308,29 @@ LATTICE_GANG_X2_CORE_MAP = [2, 0, 3, 1, 1, 2]
 LATTICE_GANG_X2_K3_ROWS = [0, 3, 99, 1, 99, 5]   # clamped to steps // 2
 LATTICE_GANG_X2_LANES = (1, 5, 37)
 LATTICE_GANG_X2_K4_ROWS = [99, 0, 3]
+# the bf16 lattice K2 on the bf16x2 step (bf16x2_lattice_traj_kernel) at
+# odd lane counts, every activation: a CTA holds 2 * 128 / n_nodes lanes
+# (32 at 8 nodes, 8 at 32), so these take a lone lane-a half, lane-b halves
+# partly live and a ragged last CTA; the trajectory bitwise one plain run
+# on the most lanes, each count held to its first lanes
+LATTICE_TRAJ_X2_CHECKS = (("chen@ring8", (1, 3, 17, 37, 65), 16),
+                          ("chen@grid8", (1, 3, 17, 37, 65), 16),
+                          ("chen@ring32", (1, 3, 5, 13), 8),
+                          ("chen@grid32", (1, 5, 13), 8))
+# the mxu K3 on the two-lane row loop (mxu_x2_gang_bits_kernel,
+# bf16x2_mxu_gang_bits_kernel), f32 and bf16, every activation: (shape,
+# s_blocks, steps, cores), six blocks of the first `cores` nets (the
+# LATTICE_GANG_X2 core map modulo the cores) with 0, partial and full rows,
+# s_block on the two-lane span 2 * 128 / n_nodes and off it (an odd
+# multiple of 128 / n_nodes: a block's last CTA then holds one live half;
+# a scalar core's 128); words and state bitwise one plain run at the
+# largest s_block, each smaller s_block's blocks held to the first lanes
+# of the plain run's (lanes are independent); two ring32 cores and four
+# steps: the plain f32 chains are thousands of small ops a core a step
+MXU_GANG_X2_CHECKS = (("3-8", (128, 256, 384), 16, 4),
+                      ("4-16", (128, 256), 8, 2),
+                      ("chen@ring8", (16, 32, 48), 8, 4),
+                      ("chen@ring32", (4, 8, 12), 4, 2))
 # the two-lane mxu K1 (mxu_x2_bits_kernel, bf16x2_mxu_bits_kernel) at the
 # same lane counts, f32 and bf16, every activation; the plain f32 FMA
 # chains are thousands of small ops a step at 32 nodes, so fewer steps
@@ -308,14 +339,17 @@ MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
                  ("chen@ring8", (1, 3, 5), 8),
                  ("chen@ring32", (1, 3, 5), 4))
 # the kernels whose SASS is counted (name, template arguments): the bf16x2
-# K1 forms (relu; tanh at 3-8) and the bf16x2 lattice K3 and K4 (relu at
-# chen@ring32, K4 tanh at ring8) beside the unchanged round-trip bf16 K2
-# forms and the f32 K1; the two-lane mxu K1 at chen@ring32 (relu, tanh,
-# sigmoid in bf16; relu and tanh in f32; relu at 3-8) beside the one-lane
-# mxu step in K3 (relu, both dtypes).  The round trip's conversion is
-# F2F.BF16.F32, the bf16x2 pack F2FP; FCHK guards an IEEE divide's slow
-# path.  Each is counted whole and in its row loop; the two-lane mxu K1's
-# row loop is not unrolled, so its loop is two steps
+# K1 forms (relu; tanh at 3-8) and the bf16x2 lattice K2, K3 and K4 (relu
+# at chen@ring32, K2 tanh and sigmoid and K4 tanh at ring8) beside the
+# unchanged round-trip scalar bf16 K2 and the f32 K1; the two-lane mxu K1
+# at chen@ring32 (relu, tanh, sigmoid in bf16; relu and tanh in f32; relu
+# at 3-8) beside the two-lane mxu K3 (relu in both dtypes; tanh and
+# sigmoid in bf16).  The round trip's conversion is F2F.BF16.F32
+# (F2F.BF16 counts it apart from sigmoid's f32 <-> f64 F2F in exp's
+# scaling), the bf16x2 pack F2FP; FCHK guards an IEEE divide's slow path;
+# STG.128 counts 16-byte stores.  Each is counted whole and in its row
+# loop; the two-lane mxu loops are not unrolled, so a mxu loop is two
+# steps
 SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_bits_kernel", (3, 8, 1)),
                 ("bits_kernel", ("f", 3, 8, 0)),
@@ -326,7 +360,9 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 8, 0, 1)),
                 ("lattice_bits_kernel", ("f", 3, 8, 32, 0, 0)),
-                ("lattice_traj_kernel", ("bf16", 3, 8, 32, 0, 0)),
+                ("bf16x2_lattice_traj_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_lattice_traj_kernel", (3, 8, 8, 0, 1)),
+                ("bf16x2_lattice_traj_kernel", (3, 8, 8, 0, 2)),
                 ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 1)),
                 ("bf16x2_mxu_bits_kernel", (3, 8, 32, 0, 2)),
@@ -334,10 +370,13 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("mxu_x2_bits_kernel", (3, 8, 32, 0, 0)),
                 ("mxu_x2_bits_kernel", (3, 8, 32, 0, 1)),
                 ("mxu_x2_bits_kernel", (3, 8, 1, 0, 0)),
-                ("mxu_gang_bits_kernel", ("bf16", 3, 8, 32, 0, 0)),
-                ("mxu_gang_bits_kernel", ("f", 3, 8, 32, 0, 0)))
-SASS_OPS = ("F2F", "F2FP", "HADD2", "HMUL2", "HFMA2", "FADD", "FMUL", "FFMA",
-            "FCHK", "LDS", "SHFL", "REDUX")
+                ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 1)),
+                ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 2)),
+                ("mxu_x2_gang_bits_kernel", (3, 8, 32, 0, 0)))
+SASS_OPS = ("F2F", "F2F.BF16", "F2FP", "HADD2", "HMUL2", "HFMA2", "FADD",
+            "FMUL", "FFMA", "FCHK", "LDS", "SHFL", "REDUX", "STS", "STG",
+            "STG.128")
 N_CLIENTS = 512
 LANES_PER_CLIENT = 128
 WORDS_PER_CLIENT = 65_536
@@ -385,12 +424,13 @@ LATTICE_FARM = ("chen@ring32", "chua@ring32", "lorenz@ring32",
 # rows; the plain f32 FMA chains of a lattice are bound by op launches
 # (4 cores x 112 chains a step at 8 nodes, x 448 at 32), so those checks
 # run fewer steps (the farm phase checks 64 steps at 32 nodes); phase 13
-# runs them again with tanh and sigmoid (since then 32 / 16 steps at 1 / 8
-# nodes, from 64 / 32: the run's time)
+# runs them again with tanh and sigmoid (since then 32 / 8 / 6 steps at 1
+# / 8 / 32 nodes, from 64 / 32 / 8: the run's time; 6 steps keep partial
+# rows, t_block 8 leaving row granularity 1 there)
 MXU_GANG_CHECKS = ("3-8", "4-16", "chen@ring8", "chen@grid8", "chen@ring32",
                    "chen@grid32")
 MXU_GANG_BLOCKS, MXU_GANG_S_BLOCK = 32, 128
-MXU_GANG_STEPS = {1: 32, 8: 16, 32: 8}           # by n_nodes
+MXU_GANG_STEPS = {1: 32, 8: 8, 32: 6}            # by n_nodes
 MXU_GANG_T_BLOCK, MXU_GANG_UNROLL = 8, 2         # row granularity 2
 # the mxu farm: the four ring32 cores with NO config (the JAX farm's
 # default lattice gang, mxu) beside the four 3-8-3 registry nets on the
@@ -607,9 +647,13 @@ def sass_counts(dump) -> str:
 
     def count(ins):
         c = dict.fromkeys(SASS_OPS, 0)
-        for _, op, _ in ins:
+        for _, op, rest in ins:
             if op in c:
                 c[op] += 1
+            if op == "STG" and ".128" in rest.split(" ", 1)[0]:
+                c["STG.128"] += 1
+            if op == "F2F" and ".BF16" in rest.split(" ", 1)[0]:
+                c["F2F.BF16"] += 1
         return f"{len(ins)} ({', '.join(f'{k} {v}' for k, v in c.items())})"
 
     def widest_loop(ins):
@@ -1185,12 +1229,22 @@ def phase_bf16x2(torch, device, log, errs) -> None:
                           f"steps={n_steps}: {name} max_abs_err={e_all}")
                     errs[(name, tag)] = max(errs.get((name, tag), 0.0),
                                             e_all)
+    t0 = time.perf_counter()
     check_lattice_gang_x2(torch, device, errs)
+    t1 = time.perf_counter()
+    check_lattice_traj_x2(torch, device, errs)
+    t2 = time.perf_counter()
+    check_mxu_gang_x2(torch, device, errs)
+    print(f"bf16x2 lattice K3/K4 checks {t1 - t0:.1f} s, lattice K2 "
+          f"{t2 - t1:.1f} s, two-lane mxu K3 {time.perf_counter() - t2:.1f} s")
     if log:
         for kernel in ("bf16x2_bits_kernel", "bf16x2_lattice_bits_kernel",
+                       "bf16x2_lattice_traj_kernel",
                        "bf16x2_lattice_gang_bits_kernel",
                        "bf16x2_lattice_gang_stacked_kernel",
-                       "mxu_x2_bits_kernel", "bf16x2_mxu_bits_kernel"):
+                       "mxu_x2_bits_kernel", "bf16x2_mxu_bits_kernel",
+                       "mxu_x2_gang_bits_kernel",
+                       "bf16x2_mxu_gang_bits_kernel"):
             print(f"ptxas: {kernel_registers(log, kernel)}")
 
 
@@ -1263,6 +1317,105 @@ def check_lattice_gang_x2(torch, device, errs) -> None:
                 errs[(name, "bf16")] = max(errs.get((name, "bf16"), 0.0), e)
 
 
+def check_lattice_traj_x2(torch, device, errs) -> None:
+    """The bf16 lattice K2 on the bf16x2 step with staged 16-byte stores
+    bitwise its plain version (LATTICE_TRAJ_X2_CHECKS), relu, tanh and
+    sigmoid: the whole trajectory of every lane count."""
+    from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
+    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.prng.stream import default_params
+
+    rng = np.random.default_rng(25)
+    name = "chaotic_ann_lattice_traj"
+    for system, counts, n_steps in LATTICE_TRAJ_X2_CHECKS:
+        p = params_from_numpy(default_params(system=system), device=device)
+        w = (p["w1"], p["b1"], p["w2"], p["b2"])
+        lattice = lattice_meta_tuple(p["lattice_meta"])
+        x0 = torch.as_tensor(rng.uniform(-0.9, 0.9, (max(counts),
+                                                     w[0].shape[0])),
+                             dtype=torch.float32, device=device).to(
+                                 torch.bfloat16)
+        for act in ("relu", "tanh", "sigmoid"):
+            traj_p = ref.chaotic_ann_ref(*w, x0, n_steps, act, lattice)
+            e_all = 0.0
+            for n in counts:
+                traj_k = chaotic_ann.chaotic_ann_traj(
+                    *w, x0[:n].contiguous(), n_steps=n_steps,
+                    activation=act, lattice=lattice)
+                e = max_abs_err(torch, traj_k, traj_p[:, :n].contiguous())
+                check(e == 0.0, f"bf16x2_lattice_traj_kernel != plain "
+                                f"({system}, {act}, {n} lanes)")
+                e_all = max(e_all, e)
+            print(f"check bf16x2 lattice traj {system} bf16 {act} lanes "
+                  f"{counts} steps={n_steps}: {name} max_abs_err={e_all}")
+            key = (name, "bf16") if act == "relu" else (name, act, "bf16")
+            errs[key] = max(errs.get(key, 0.0), e_all)
+
+
+def check_mxu_gang_x2(torch, device, errs) -> None:
+    """The mxu K3 on the two-lane row loop bitwise its plain version
+    (MXU_GANG_X2_CHECKS), f32 and bf16, relu, tanh and sigmoid: the words
+    each block computed, and the final states."""
+    from repro_torch.kernels import chaotic_ann, ref
+
+    rng = np.random.default_rng(26)
+    name = "chaotic_ann_mxu_gang_bits"
+    n_blocks = len(LATTICE_GANG_X2_CORE_MAP)
+    for shape, s_blocks, n_steps, n_cores in MXU_GANG_X2_CHECKS:
+        w, lattice, cpl = mxu_gang_operands(torch, device, shape)
+        w = [a[:n_cores] for a in w]
+        core_map = np.array(LATTICE_GANG_X2_CORE_MAP) % n_cores
+        rows = np.minimum(LATTICE_GANG_X2_K3_ROWS, n_steps // 2)
+        s_max, i_dim = max(s_blocks), w[0].shape[1]
+        x0_np = rng.uniform(-0.9, 0.9, (n_blocks, s_max, i_dim))
+        off_np = rng.integers(0, 1 << 32, (n_blocks, s_max), dtype=np.int64)
+        off_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
+        kw = dict(lattice=lattice, compute_unit="mxu", coupling=cpl)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for act in ("relu", "tanh", "sigmoid"):
+                x0 = torch.as_tensor(x0_np, dtype=torch.float32,
+                                     device=device).to(dtype)
+                off = torch.as_tensor(off_np, device=device)
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0.reshape(-1, i_dim), core_map, n_steps,
+                    off.reshape(-1), rows, act, **kw)
+                words_p = words_p.view(torch.int32).reshape(-1, n_blocks,
+                                                            s_max)
+                state_p = state_p.reshape(n_blocks, s_max, i_dim)
+                e_all = 0.0
+                for s_block in s_blocks:
+                    words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                        *w, x0[:, :s_block].reshape(-1, i_dim), core_map,
+                        off[:, :s_block].reshape(-1), rows, n_steps=n_steps,
+                        s_block=s_block, t_block=n_steps, unroll=1,
+                        activation=act, **kw)
+                    lane_rows = torch.as_tensor(np.repeat(rows, s_block),
+                                                device=device)
+                    want = (words_p[:, :, :s_block].reshape(-1,
+                                                            n_blocks * s_block)
+                            .contiguous().view(torch.uint32))
+                    e = max(masked_err(torch, words_k, want, lane_rows),
+                            max_abs_err(torch, state_k, state_p[:, :s_block]
+                                        .reshape(-1, i_dim)))
+                    check(e == 0.0, f"two-lane mxu K3 != plain ({shape}, "
+                                    f"{tag}, {act}, s_block {s_block})")
+                    e_all = max(e_all, e)
+                print(f"check mxu x2 gang {shape} {tag} {act}: {name} "
+                      f"({n_blocks} blocks of {n_cores} cores x s_block "
+                      f"{s_blocks}, rows {rows.tolist()}, steps={n_steps}) "
+                      f"max_abs_err={e_all}")
+                key = (name, tag) if act == "relu" else (name, act, tag)
+                errs[key] = max(errs.get(key, 0.0), e_all)
+
+
+def mirrored_share(n_nodes: int, s_block: int) -> float:
+    """The share of lane halves a two-lane K3 launch computes as mirrors:
+    a block of s_block lanes takes ceil(s_block / span) CTAs of span = 2 *
+    128 / n_nodes lanes (``GangCta``)."""
+    span = 2 * 128 // n_nodes
+    return 1.0 - s_block / (-(-s_block // span) * span)
+
+
 # the TPU kernel each wrapper replaces (its lattice form too)
 REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
             "chaotic_ann_traj": "src/repro/kernels/chaotic_ann.py:254",
@@ -1279,13 +1432,17 @@ REPLACES = {"chaotic_ann_bits": "src/repro/kernels/chaotic_ann.py:441",
 PATHS = {("chen", "vpu"): ("served", "unfused"),
          (LATTICE, "vpu"): ("lattice-served", "lattice-unfused"),
          (LATTICE, "mxu"): ("mxu-served", "mxu-unfused")}
-# the CUDA kernels behind the mxu K1 wrapper (two lanes a thread), by dtype
+# the CUDA kernels behind the mxu K1 and K3 wrappers (two lanes a thread),
+# by dtype
 MXU_K1_KERNELS = {"f32": "mxu_x2_bits_kernel",
                   "bf16": "bf16x2_mxu_bits_kernel"}
-# the CUDA kernels behind the bf16 lattice K1, K3 and K4 wrappers (the
-# bf16x2 row loop, two lanes a node thread); f32 keeps the one-lane forms
+MXU_K3_KERNELS = {"f32": "mxu_x2_gang_bits_kernel",
+                  "bf16": "bf16x2_mxu_gang_bits_kernel"}
+# the CUDA kernels behind the bf16 lattice K1-K4 wrappers (the bf16x2 step,
+# two lanes a node thread); f32 keeps the one-lane forms
 BF16X2_LATTICE_KERNELS = {
     "chaotic_ann_lattice_bits": "bf16x2_lattice_bits_kernel",
+    "chaotic_ann_lattice_traj": "bf16x2_lattice_traj_kernel",
     "chaotic_ann_lattice_gang_bits": "bf16x2_lattice_gang_bits_kernel",
     "chaotic_ann_lattice_gang_stacked": "bf16x2_lattice_gang_stacked_kernel"}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
@@ -2028,9 +2185,16 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
         check(c.compute_unit == "mxu" and c.s_block == 128
               and c.t_block == 256 and c.unroll == 8,
               f"mxu farm {tag}: {core} config {c}")
+    for group, n_nodes in ((LATTICE_FARM, 32), (scalar, 1)):
+        s_block = farm.services[group[0]].config.s_block
+        print(f"mxu farm {tag}: mxu K3 group {', '.join(group)}: n_nodes "
+              f"{n_nodes}, s_block {s_block}, "
+              f"{mirrored_share(n_nodes, s_block):.1%} of the two-lane "
+              f"kernel's lane halves mirrored")
     clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
     t_register = register_all(torch, (farm, solo), clients, 7000)
     lat_svcs = [farm.services[c] for c in LATTICE_FARM]
+    scalar_svcs = [farm.services[c] for c in scalar]
     w = [torch.stack([s.params[k] for s in lat_svcs])
          for k in ("w1", "b1", "w2", "b2")]
     lattice = lattice_meta_tuple(lat_svcs[0].params["lattice_meta"])
@@ -2050,6 +2214,8 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
             snap = farm.snapshot()
         else:
             shapes[label] = launch_inputs(torch, device, lat_svcs)
+        if label == "F1":
+            shapes["F1 scalar"] = launch_inputs(torch, device, scalar_svcs)
         out, got, decisions, modes, n_launched, walls[label] = counted_flush(
             torch, farm, solo, f"mxu farm {tag} {label}", card)
         launches[label] = got
@@ -2145,6 +2311,26 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
             chaotic_ann.chaotic_ann_bits(*[a[c] for a in w], p, o, **k1)
 
     t["k1_x4_f1"] = cuda_ms(torch, solo_f1, reps=5, warmup=1)
+    # the scalar group's F1 launch (s_block 128: every CTA holds one live
+    # lane half) beside its four solo mxu K1 launches (no mirrors)
+    ws = [torch.stack([s.params[k] for s in scalar_svcs])
+          for k in ("w1", "b1", "w2", "b2")]
+    pools, offsets = shapes["F1 scalar"]
+    s_cfg = scalar_svcs[0].config
+    xs, offs = torch.cat(pools), torch.cat(offsets)
+    maps = np.repeat(np.arange(len(pools)),
+                     [q.shape[0] // s_cfg.s_block for q in pools])
+    skw = dict(n_steps=steps, s_block=s_cfg.s_block, t_block=s_cfg.t_block,
+               unroll=s_cfg.unroll, compute_unit="mxu")
+    t["k3_scalar_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+        *ws, xs, maps, offs, **skw), reps=5, warmup=1)
+
+    def solo_scalar_f1():
+        for c, (q, o) in enumerate(zip(pools, offsets)):
+            chaotic_ann.chaotic_ann_bits(*[a[c] for a in ws], q, o,
+                                         n_steps=steps, compute_unit="mxu")
+
+    t["k1_x4_scalar_f1"] = cuda_ms(torch, solo_scalar_f1, reps=5, warmup=1)
     item = x0c.element_size()
     i_dim, h_dim = w[0].shape[1:]
     weight_bytes = 4 * (2 * i_dim * h_dim + h_dim + i_dim) * item
@@ -2174,7 +2360,12 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
           f"{cfg.s_block}) {t['k3']:.4f} ms (bound {t['k3_bound'][0]:.4f} ms"
           f" by {t['k3_bound'][1]}; plain on {lanes.numel()} lanes "
           f"{t['k3_plain']:.1f} ms; busy {t['k3'] / (walls['F3'] * 1e3):.2%}"
-          f" of F3's wall); card {card}")
+          f" of F3's wall); the 3-8-3 group at F1 ({xs.shape[0]} lanes, "
+          f"s_block {s_cfg.s_block}, "
+          f"{mirrored_share(1, s_cfg.s_block):.1%} of lane halves mirrored) "
+          f"chaotic_ann_mxu_gang_bits {t['k3_scalar_f1']:.4f} ms, gang=False "
+          f"4 x chaotic_ann_mxu_bits {t['k1_x4_scalar_f1']:.4f} ms; card "
+          f"{card}")
     return path, t
 
 
@@ -3762,8 +3953,11 @@ def phase_mxu_act_farm(torch, device, tag, card, nets, errs):
         groups.setdefault(_compat_key(farm.services[c]), []).append(c)
     by_act = {farm.services[g[0]].activation: sorted(g)
               for g in groups.values()}
+    s_block = farm.services[cores[0]].config.s_block
     print(f"{what}: {len(cores)} cores; gang groups {by_act}; config "
-          f"{farm.services[cores[0]].config}")
+          f"{farm.services[cores[0]].config}; each mxu K3 group at s_block "
+          f"{s_block}, {mirrored_share(32, s_block):.1%} of the two-lane "
+          f"kernel's lane halves mirrored")
     check(sorted(by_act) == ["relu", "sigmoid", "tanh"]
           and all(len(g) == len(GEN_SYSTEMS) for g in by_act.values())
           and all(farm.services[c].config.compute_unit == "mxu"
@@ -3951,6 +4145,7 @@ def phase_mxu_activations(torch, device, card, nets, errs):
                 "ms_f1": t1_["ms"], "bound_ms_f1": t1_["bound"][0],
                 "relu_ms_f1": times[(name, "relu", "F1")]["ms"],
                 "flush_wall_ms": {k: v * 1e3 for k, v in walls.items()},
+                "kernel": MXU_K3_KERNELS[tag],
                 "form": form(act),
             })
     t3 = time.perf_counter()
@@ -4149,6 +4344,9 @@ def run_phases(torch, device, card, log, sass) -> int:
             "library_ms": None, "shape": "F3 padded concat",
             "ms_f1": t["k3_f1"], "bound_ms_f1": t["k3_f1_bound"][0],
             "gang_false_ms_f1": t["k1_x4_f1"],
+            "scalar_ms_f1": t["k3_scalar_f1"],
+            "scalar_gang_false_ms_f1": t["k1_x4_scalar_f1"],
+            "kernel": MXU_K3_KERNELS[tag],
             "flush_wall_ms": {k: v * 1e3 for k, v in t["walls"].items()},
             "form": (f"{LATTICE} mxu unit (the dot form, "
                      f"src/repro/kernels/chaotic_ann.py:154-161, with the "

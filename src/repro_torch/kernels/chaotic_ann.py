@@ -397,9 +397,15 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
     ops against 384 f32 or 192 bf16 bytes written, 9.25 or 18.5 ops per
     byte, below the card's 10 (f32) or 20 (bf16) ops per byte of
     bandwidth; with tanh or sigmoid operations (7,648 / 8,928 ops a step,
-    the formulas' at the f32 rate).  Same design as ``chaotic_ann_lattice_bits``; the 32
+    the formulas' at the f32 rate).  f32 (``lattice_traj_kernel``): the
+    design of ``chaotic_ann_lattice_bits``, one lane a node thread; the 32
     threads of a chen@ring32 lane write its 96 values of a step as one
-    contiguous run.
+    contiguous run.  bf16 (``bf16x2_lattice_traj_kernel``): the bf16x2
+    lattice K1's step, two lanes a node thread packed in one register,
+    every op one ``add/sub/mul.rn.bf16x2`` with no f32 round trip; a CTA's
+    lanes are contiguous, so a step's values of a warp are two contiguous
+    runs, staged in shared memory and written in 16-byte stores (a lane's
+    values of a step are whole 16-byte chunks at the compiled shapes).
     """
     act = _check_activation(activation)
     if x0.device.type == "cpu":
@@ -970,14 +976,19 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     both dtypes, as ``chaotic_ann_mxu_bits`` (at chen@ring32 3,648 FMA
     flops a step and 448 f32 ops with relu, 4,544 / 5,824 with tanh /
     sigmoid; 96 and 11, 139, 179 for 3-8-3), summed over the rows each
-    block really computes, against 4 bytes a word.  Design: a thread per
-    (lane, node) (the one-lane step; the mxu K1 runs two lanes a thread),
-    its weight blocks in registers, each dot a forward ``__fmaf_rn`` chain
-    in k order, so a core's words are bitwise its mxu K1's; a CTA holds
-    128 / n_nodes lanes (128 for a scalar core)
-    and ``s_block`` is a multiple of that, so a CTA lies inside one lane
-    block and reads that block's core and rows.  K4 has no mxu form (the
-    stacked step is the vpu order), so every mxu gang is this launch.
+    block really computes, against 4 bytes a word.  Design
+    (``mxu_x2_gang_bits_kernel`` in f32, ``bf16x2_mxu_gang_bits_kernel``
+    in bf16): the mxu K1's row loop, two lanes a thread, on the lane
+    block's core, so a core's words are bitwise its mxu K1's.  A CTA of
+    128 threads holds 128 / n_nodes lane slots of two lanes each and lies
+    inside one lane block, reading that block's core and rows; CTAs are
+    indexed by (block, CTA in the block), so ``s_block`` is any multiple
+    of 128 / n_nodes, and where it is an odd one the block's last CTA
+    holds one live lane half, the other mirroring the block's last lane
+    and writing nothing (a scalar core at ``s_block`` 128: every CTA; in
+    f32 such a thread runs its one lane alone).  K4
+    has no mxu form (the stacked step is the vpu order), so every mxu gang
+    is this launch.
     """
     act = _check_activation(activation)
     n_cores = w1.shape[0]
@@ -993,7 +1004,7 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     cta_lanes = _CTA_LANES // shape[2]
     if s_block % cta_lanes:
         raise ValueError(f"s_block {s_block} must be a multiple of "
-                         f"{cta_lanes}, the mxu kernel's lanes per CTA at "
+                         f"{cta_lanes}, the mxu kernel's lane slots per CTA at "
                          f"{shape[2]} node(s)")
     n_lanes, n_rows = x0.shape[0], n_steps // 2
     maps = _int32_on_card(np.stack([cmap, rows]), x0.device)

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Times a fixed set of the port's CUDA kernels from one checkout, so that two
+commits can be compared on one card in one call.  Needs a CUDA card and nvcc.
+
+    python3 tools/kernel_times.py ROOT LABEL
+
+ROOT is a checkout of the repo (its ``src/repro_torch`` is imported and its
+kernels built there); LABEL names it in the output.  To compare a parent
+commit with the working tree, unpack the parent into a git-ignored
+directory and run the two in turns, each in its own process:
+
+    git archive <parent> | tar -x -C build/parent
+    for t in build/parent . . build/parent; do
+        python3 tools/kernel_times.py $t $t; done
+
+Each kernel at its path's shape (65,536 lanes; the lattice kernels x 256
+steps, the mxu K3 x 64 steps, the 3-8-3 mxu K3 x 256 steps), bf16 unless
+named, on the registry weights, by CUDA events after a device spin (as
+``chip_smoke.py``'s ``cuda_ms``): the bf16 lattice K4 / K3 / K1 at
+chen@ring8 (the four bases as lattices of one descriptor) with relu, tanh
+and sigmoid; the bf16 lattice K2 at chen@ring32 (relu) and chen@ring8
+(tanh, sigmoid); the mxu K3 at chen@ring32 (four cores, s_block 128) in
+f32 and bf16 with each activation; the mxu K3 of the four 3-8-3 nets at
+s_block 128 (half its two-lane kernel's lane slots without a lane b).
+"""
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+KEYS = ("w1", "b1", "w2", "b2")
+BASES = ("chen", "chua", "lorenz", "rossler")
+LANES = 65_536
+SPIN_CYCLES = 50_000_000      # about 25 ms at 1.98 GHz: the calls queue
+
+
+def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    root, label = pathlib.Path(sys.argv[1]).resolve(), sys.argv[2]
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
+    from repro_torch.kernels import build, chaotic_ann
+    from repro_torch.prng.stream import default_params
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    build.build()
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def stacked(systems):
+        per = [default_params(system=s) for s in systems]
+        return per, [torch.as_tensor(np.stack([p[k] for p in per]),
+                                     device=dev) for k in KEYS]
+
+    per, w = stacked([f"{b}@ring8" for b in BASES])
+    lat = lattice_meta_tuple(per[0]["lattice_meta"])
+    xs = torch.as_tensor(rng.uniform(-0.9, 0.9, (4, LANES // 4, 24)),
+                         dtype=torch.float32, device=dev).to(bf16)
+    offs = torch.zeros((4, LANES // 4), dtype=torch.int64, device=dev)
+    x, off = xs.reshape(-1, 24).contiguous(), offs.reshape(-1)
+    cmap = np.repeat(np.arange(4), LANES // 4 // 256)
+    for act in ("relu", "tanh", "sigmoid"):
+        kw = dict(n_steps=256, lattice=lat, activation=act)
+        out[f"bf16 lattice K4 chen@ring8 {act}, 4 x 16,384 lanes"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                *w, xs, offs, **kw))
+        out[f"bf16 lattice K3 chen@ring8 {act}, s_block 256"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                *w, x, cmap, off, s_block=256, t_block=256, unroll=8, **kw))
+        out[f"bf16 lattice K1 chen@ring8 {act} (chen)"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_bits(
+                *[a[0] for a in w], x, off, **kw))
+    for system, act in (("chen@ring32", "relu"), ("chen@ring8", "tanh"),
+                        ("chen@ring8", "sigmoid")):
+        p = params_from_numpy(default_params(system=system), device=dev)
+        w1 = [p[k] for k in KEYS]
+        x1 = torch.as_tensor(rng.uniform(-0.9, 0.9, (LANES, w1[0].shape[0])),
+                             dtype=torch.float32, device=dev).to(bf16)
+        kw = dict(n_steps=256, activation=act,
+                  lattice=lattice_meta_tuple(p["lattice_meta"]))
+        out[f"bf16 lattice K2 {system} {act}"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_traj(*w1, x1, **kw),
+            reps=3)
+    per, wm = stacked([f"{b}@ring32" for b in BASES])
+    mkw = dict(s_block=128, t_block=256, unroll=8, compute_unit="mxu",
+               lattice=lattice_meta_tuple(per[0]["lattice_meta"]),
+               coupling=torch.as_tensor(per[0]["coupling"], device=dev))
+    cm = np.repeat(np.arange(4), LANES // 4 // 128)
+    offm = torch.zeros(LANES, dtype=torch.int64, device=dev)
+    xm = torch.as_tensor(rng.uniform(-0.9, 0.9, (LANES, 96)),
+                         dtype=torch.float32, device=dev)
+    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+        xx = xm.to(dtype)
+        for act in ("relu", "tanh", "sigmoid"):
+            out[f"{tag} mxu K3 chen@ring32 {act}"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                    *wm, xx, cm, offm, n_steps=64, activation=act, **mkw))
+    _, ws = stacked(BASES)
+    x3 = torch.as_tensor(rng.uniform(-0.9, 0.9, (LANES, 3)),
+                         dtype=torch.float32, device=dev)
+    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+        xx = x3.to(dtype)
+        out[f"{tag} mxu K3 3-8-3 relu, s_block 128"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                *ws, xx, cm, offm, n_steps=256, s_block=128, t_block=256,
+                unroll=8, compute_unit="mxu"))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{label} (build {t_build:.1f} s; card {card})")
+    for name, ms in out.items():
+        print(f"  {name}: {ms:.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -53,12 +53,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    (``mxu_x2_gang_bits_kernel``, ``bf16x2_mxu_gang_bits_kernel``) in f32
    and bf16 at 3-8, 4-16, chen@ring8 and ring32 with relu, tanh and
    sigmoid (six blocks with 0, partial and full rows, ``s_block`` on the
-   two-lane span and off it); their registers and spills; and, where
-   ``cuobjdump`` is on PATH or beside nvcc, the SASS counts (the
-   conversions F2F and F2FP, SHFL, REDUX, FFMA and the 16-byte stores
-   among them) of the bf16x2 K1 forms, the bf16x2 lattice K2/K3/K4 and
-   the two-lane mxu K1 and K3 beside the f32 K1 and the round-trip scalar
-   bf16 K2.
+   two-lane span and off it); the scalar bf16 K2 on the bf16x2 step
+   (``bf16x2_traj_kernel``) and the mxu K2 on two lanes a thread
+   (``mxu_x2_traj_kernel``, ``bf16x2_mxu_traj_kernel``, f32 and bf16),
+   both with staged 16-byte stores, bitwise their plain versions at odd
+   lane counts (a ragged last CTA, lane-b halves partly live and, for a
+   scalar core, steps whose values start mid-chunk) at 3-8, 4-16 and, for
+   mxu, chen@ring8 and ring32, with relu, tanh and sigmoid; their
+   registers and spills; and, where ``cuobjdump`` is on PATH or beside
+   nvcc, the SASS counts (the conversions F2F and F2FP, SHFL, REDUX, FFMA
+   and the 16-byte stores among them) of the bf16x2 K1 and K2 forms, the
+   bf16x2 lattice K2/K3/K4 and the two-lane mxu K1, K2 and K3 beside the
+   f32 K1.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -217,7 +223,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    read just after: the no-config streams of chen's net expanded to
    chen@ring32 (f32 ``ChaoticStream.from_trained``, bf16 ``ChaoticPRNG``)
    and to chen@ring8 (bf16), each config held to the JAX package's mxu
-   choice, 2**20 words through mxu K1, the first 2**13 bitwise against
+   choice, 2**20 words through mxu K1, the first 2**12 bitwise against
    ``backend="ref"``, NIST printed and not gated; each lattice iterated
    through mxu K2 and held against ``backend="ref"``; chen_ring8 /
    chen_grid8 tanh and sigmoid cores on ``select(24, 64, "min_latency",
@@ -231,7 +237,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    K3 an activation, no K4 of any form), F2 the chen cores hot (the rest
    at 256 words), F3 one more client on each lorenz core; each flush
    bitwise against ``gang=False``, every gang launch against the plain
-   gang scan on each core's first and last lane block over its first 4
+   gang scan on each core's first and last lane block over its first 2
    word rows, and timed.  Last, mxu K1/K2 with tanh and sigmoid at
    chen@ring32, 65,536 lanes x 64 steps, timed beside relu's, held
    bitwise against plain on the first 1,024 lanes.
@@ -317,6 +323,20 @@ LATTICE_TRAJ_X2_CHECKS = (("chen@ring8", (1, 3, 17, 37, 65), 16),
                           ("chen@grid8", (1, 3, 17, 37, 65), 16),
                           ("chen@ring32", (1, 3, 5, 13), 8),
                           ("chen@grid32", (1, 5, 13), 8))
+# the scalar bf16 K2 on the bf16x2 step (bf16x2_traj_kernel) and the mxu K2
+# on two lanes a thread (mxu_x2_traj_kernel, bf16x2_mxu_traj_kernel; f32
+# and bf16) at odd lane counts, every activation: a scalar core's CTA holds
+# 256 lanes, so these take a lone lane-a half, lane-b halves partly live,
+# a ragged last CTA and (but in f32 at 4-16) steps whose values start
+# mid-chunk; the trajectory bitwise one plain run on the most lanes, each
+# count held to its first lanes; fewer mxu steps: the plain f32 FMA chains
+# are thousands of small ops a step at 32 nodes
+TRAJ_X2_CHECKS = (("chen", (1, 2, 3, 37, 129, 257), 64),
+                  ("hyperlorenz", (1, 2, 3, 37, 129, 257), 64))
+MXU_TRAJ_X2_CHECKS = (("chen", (1, 2, 3, 37, 129, 257), 32),
+                      ("hyperlorenz", (1, 2, 3, 37, 129, 257), 32),
+                      ("chen@ring8", (1, 3, 17, 37), 8),
+                      ("chen@ring32", (1, 3, 5), 4))
 # the mxu K3 on the two-lane row loop (mxu_x2_gang_bits_kernel,
 # bf16x2_mxu_gang_bits_kernel), f32 and bf16, every activation: (shape,
 # s_blocks, steps, cores), six blocks of the first `cores` nets (the
@@ -339,22 +359,24 @@ MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
                  ("chen@ring8", (1, 3, 5), 8),
                  ("chen@ring32", (1, 3, 5), 4))
 # the kernels whose SASS is counted (name, template arguments): the bf16x2
-# K1 forms (relu; tanh at 3-8) and the bf16x2 lattice K2, K3 and K4 (relu
-# at chen@ring32, K2 tanh and sigmoid and K4 tanh at ring8) beside the
-# unchanged round-trip scalar bf16 K2 and the f32 K1; the two-lane mxu K1
-# at chen@ring32 (relu, tanh, sigmoid in bf16; relu and tanh in f32; relu
-# at 3-8) beside the two-lane mxu K3 (relu in both dtypes; tanh and
-# sigmoid in bf16).  The round trip's conversion is F2F.BF16.F32
-# (F2F.BF16 counts it apart from sigmoid's f32 <-> f64 F2F in exp's
-# scaling), the bf16x2 pack F2FP; FCHK guards an IEEE divide's slow path;
-# STG.128 counts 16-byte stores.  Each is counted whole and in its row
-# loop; the two-lane mxu loops are not unrolled, so a mxu loop is two
-# steps
+# K1 and K2 forms (relu; tanh at 3-8) and the bf16x2 lattice K2, K3 and K4
+# (relu at chen@ring32, K2 tanh and sigmoid and K4 tanh at ring8) beside
+# the f32 K1; the two-lane mxu K1 at chen@ring32 (relu, tanh, sigmoid in
+# bf16; relu and tanh in f32; relu at 3-8) beside the two-lane mxu K2
+# (relu in both dtypes, tanh and sigmoid in bf16 at chen@ring32; relu in
+# f32 at 3-8, whose steps may start mid-chunk) and K3 (relu in both
+# dtypes; tanh and sigmoid in bf16).  The round trip's conversion is
+# F2F.BF16.F32 (F2F.BF16 counts it apart from sigmoid's f32 <-> f64 F2F in
+# exp's scaling), the bf16x2 pack F2FP; FCHK guards an IEEE divide's slow
+# path; STG.128 counts 16-byte stores.  Each is counted whole and in its
+# row loop; the two-lane mxu loops are not unrolled, so a mxu K1/K3 loop
+# is two steps, a mxu K2 loop one
 SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_bits_kernel", (3, 8, 1)),
                 ("bits_kernel", ("f", 3, 8, 0)),
                 ("bits_kernel", ("f", 3, 8, 1)),
-                ("traj_kernel", ("bf16", 3, 8, 0)),
+                ("bf16x2_traj_kernel", (3, 8, 0)),
+                ("bf16x2_traj_kernel", (3, 8, 1)),
                 ("bf16x2_lattice_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 32, 0, 0)),
@@ -370,6 +392,11 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("mxu_x2_bits_kernel", (3, 8, 32, 0, 0)),
                 ("mxu_x2_bits_kernel", (3, 8, 32, 0, 1)),
                 ("mxu_x2_bits_kernel", (3, 8, 1, 0, 0)),
+                ("bf16x2_mxu_traj_kernel", (3, 8, 32, 0, 0)),
+                ("bf16x2_mxu_traj_kernel", (3, 8, 32, 0, 1)),
+                ("bf16x2_mxu_traj_kernel", (3, 8, 32, 0, 2)),
+                ("mxu_x2_traj_kernel", (3, 8, 32, 0, 0)),
+                ("mxu_x2_traj_kernel", (3, 8, 1, 0, 0)),
                 ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 1)),
                 ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 2)),
@@ -504,7 +531,7 @@ GEN_REPLAY_ROWS = 32
 # blocks, lanes and demands; the plain dense loop at 32 nodes is 4x the
 # ops of 8, so those run fewer steps
 LAT_ACT_SHAPES = ("chen@ring8", "chen@grid8", "chen@ring32", "chen@grid32")
-LAT_ACT_STEPS = {8: 64, 32: 16}                  # by n_nodes
+LAT_ACT_STEPS = {8: 32, 32: 16}                  # by n_nodes
 # the JAX package's choices at 8 nodes (a CPU run of repro.core.dse):
 # select_config(24, 64, s_total=256, float32, n_nodes=8), the no-config
 # stream's, and select(24, 64, "pareto", n_nodes=8), the generated cores'
@@ -527,8 +554,8 @@ LAT_TIME_LANES, LAT_TIME_STEPS = 65_536, 256
 # K1/K2 checked at every MXU_SHAPES entry at (lanes, steps) by n_nodes
 # (the plain f32 FMA chains' launches set their time), K3 at
 # phase_mxu_gang_kernels' blocks, steps and rows
-MXU_ACT_CHECKS = {1: (8_192 + 37, 128), 8: (2_048 + 37, 32),
-                  32: (1_024 + 37, 8)}
+MXU_ACT_CHECKS = {1: (4_096 + 37, 64), 8: (1_024 + 37, 16),
+                  32: (512 + 37, 4)}
 # the JAX package's choices (a CPU run of repro.core.dse): the no-config
 # streams' select_config(3n, 8n, s_total=256, dtype, n_nodes=n), mxu at
 # chen@ring32 in both dtypes and at bf16 chen@ring8, and select(24, 64,
@@ -541,12 +568,12 @@ MXU_SELECT = dict(i_dim=24, h_dim=64, p=5, compute_unit="mxu",
 # each stream's first words held against the plain path (6-9 s of plain
 # f32 chains at ring32), the lattices iterated (steps by n_nodes),
 # and the generated cores' generate / generate_bits steps
-MXU_STREAM_CHECK_WORDS = 1 << 13
+MXU_STREAM_CHECK_WORDS = 1 << 12
 MXU_ATTRACTOR_STEPS = {32: 32, 8: 128}
 MXU_CORE_STEPS = 64
 # the farm's gang launches replayed on their first word rows (a ring32
 # plain f32 gang scan costs about 0.1 s a core a step)
-MXU_REPLAY_ROWS = 4
+MXU_REPLAY_ROWS = 2
 # mxu K1/K2 timed at the mxu path's shape; the plain run on the first lanes
 MXU_TIME_LANES, MXU_TIME_STEPS, MXU_TIME_PLAIN_LANES = 65_536, 64, 1_024
 
@@ -1235,14 +1262,19 @@ def phase_bf16x2(torch, device, log, errs) -> None:
     check_lattice_traj_x2(torch, device, errs)
     t2 = time.perf_counter()
     check_mxu_gang_x2(torch, device, errs)
+    t3 = time.perf_counter()
+    check_traj_x2(torch, device, errs)
     print(f"bf16x2 lattice K3/K4 checks {t1 - t0:.1f} s, lattice K2 "
-          f"{t2 - t1:.1f} s, two-lane mxu K3 {time.perf_counter() - t2:.1f} s")
+          f"{t2 - t1:.1f} s, two-lane mxu K3 {t3 - t2:.1f} s, scalar bf16 "
+          f"and mxu K2 {time.perf_counter() - t3:.1f} s")
     if log:
-        for kernel in ("bf16x2_bits_kernel", "bf16x2_lattice_bits_kernel",
+        for kernel in ("bf16x2_bits_kernel", "bf16x2_traj_kernel",
+                       "bf16x2_lattice_bits_kernel",
                        "bf16x2_lattice_traj_kernel",
                        "bf16x2_lattice_gang_bits_kernel",
                        "bf16x2_lattice_gang_stacked_kernel",
                        "mxu_x2_bits_kernel", "bf16x2_mxu_bits_kernel",
+                       "mxu_x2_traj_kernel", "bf16x2_mxu_traj_kernel",
                        "mxu_x2_gang_bits_kernel",
                        "bf16x2_mxu_gang_bits_kernel"):
             print(f"ptxas: {kernel_registers(log, kernel)}")
@@ -1408,6 +1440,52 @@ def check_mxu_gang_x2(torch, device, errs) -> None:
                 errs[key] = max(errs.get(key, 0.0), e_all)
 
 
+def check_traj_x2(torch, device, errs) -> None:
+    """The scalar bf16 K2 on the bf16x2 step (TRAJ_X2_CHECKS) and the
+    two-lane mxu K2 in f32 and bf16 (MXU_TRAJ_X2_CHECKS), both with staged
+    16-byte stores, bitwise their plain versions, relu, tanh and sigmoid:
+    the whole trajectory of every lane count."""
+    from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
+    from repro_torch.kernels import chaotic_ann, ref
+    from repro_torch.prng.stream import default_params
+
+    rng = np.random.default_rng(26)
+    both = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+    for unit, checks, dtypes in (("vpu", TRAJ_X2_CHECKS, both[1:]),
+                                 ("mxu", MXU_TRAJ_X2_CHECKS, both)):
+        for system, counts, n_steps in checks:
+            p = params_from_numpy(default_params(system=system),
+                                  device=device)
+            w = (p["w1"], p["b1"], p["w2"], p["b2"])
+            lattice = (lattice_meta_tuple(p["lattice_meta"])
+                       if "lattice_meta" in p else None)
+            kw = dict(lattice=lattice, compute_unit=unit, coupling=(
+                p["coupling"] if unit == "mxu" and lattice else None))
+            x0_f = torch.as_tensor(rng.uniform(-0.9, 0.9, (max(counts),
+                                                           w[0].shape[0])),
+                                   dtype=torch.float32, device=device)
+            name = kernel_names(lattice, unit)[1]
+            for dtype, tag in dtypes:
+                x0 = x0_f.to(dtype)
+                for act in ("relu", "tanh", "sigmoid"):
+                    traj_p = ref.chaotic_ann_ref(*w, x0, n_steps, act, **kw)
+                    e_all = 0.0
+                    for n in counts:
+                        traj_k = chaotic_ann.chaotic_ann_traj(
+                            *w, x0[:n].contiguous(), n_steps=n_steps,
+                            activation=act, **kw)
+                        e = max_abs_err(torch, traj_k,
+                                        traj_p[:, :n].contiguous())
+                        check(e == 0.0, f"{K2_X2_KERNELS[(unit, tag)]} != "
+                                        f"plain ({system}, {act}, {n} lanes)")
+                        e_all = max(e_all, e)
+                    print(f"check {unit} K2 x2 {system} {tag} {act} lanes "
+                          f"{counts} steps={n_steps}: {name} "
+                          f"max_abs_err={e_all}")
+                    key = (name, tag) if act == "relu" else (name, act, tag)
+                    errs[key] = max(errs.get(key, 0.0), e_all)
+
+
 def mirrored_share(n_nodes: int, s_block: int) -> float:
     """The share of lane halves a two-lane K3 launch computes as mirrors:
     a block of s_block lanes takes ceil(s_block / span) CTAs of span = 2 *
@@ -1438,6 +1516,11 @@ MXU_K1_KERNELS = {"f32": "mxu_x2_bits_kernel",
                   "bf16": "bf16x2_mxu_bits_kernel"}
 MXU_K3_KERNELS = {"f32": "mxu_x2_gang_bits_kernel",
                   "bf16": "bf16x2_mxu_gang_bits_kernel"}
+# the CUDA kernels behind the two-lane K2 wrappers: the mxu K2 in both
+# dtypes, the scalar vpu K2 in bf16 (f32 keeps the one-lane traj_kernel)
+K2_X2_KERNELS = {("mxu", "f32"): "mxu_x2_traj_kernel",
+                 ("mxu", "bf16"): "bf16x2_mxu_traj_kernel",
+                 ("vpu", "bf16"): "bf16x2_traj_kernel"}
 # the CUDA kernels behind the bf16 lattice K1-K4 wrappers (the bf16x2 step,
 # two lanes a node thread); f32 keeps the one-lane forms
 BF16X2_LATTICE_KERNELS = {
@@ -1713,8 +1796,10 @@ def kernel_rows(system, unit, tag, launches, t, errs):
             row["form"] = (f"{system} mxu unit (the dot form, "
                            f"src/repro/kernels/chaotic_ann.py:154-161, with "
                            f"K5's coupling dot :148-152)")
-            if key == "bits":
-                row["kernel"] = MXU_K1_KERNELS[tag]
+            row["kernel"] = (MXU_K1_KERNELS[tag] if key == "bits"
+                             else K2_X2_KERNELS[(unit, tag)])
+        elif not lattice and key == "traj" and tag == "bf16":
+            row["kernel"] = K2_X2_KERNELS[(unit, tag)]
         elif lattice:
             row["form"] = (f"{system} vpu lattice (K5, "
                            f"src/repro/kernels/chaotic_ann.py:61)")
@@ -4168,8 +4253,8 @@ def phase_mxu_activations(torch, device, card, nets, errs):
             "ops_step": t["ops_step"], "relu_ms": t[f"relu_{key}_ms"],
             "form": form(act),
         })
-        if key == "bits":
-            rows[-1]["kernel"] = MXU_K1_KERNELS[tag]
+        rows[-1]["kernel"] = (MXU_K1_KERNELS[tag] if key == "bits"
+                              else K2_X2_KERNELS[("mxu", tag)])
     print(f"mxu activations: kernel checks {t1 - t0:.1f} s, paths "
           f"{t2 - t1:.1f} s, farms {t3 - t2:.1f} s, times "
           f"{time.perf_counter() - t3:.1f} s")
@@ -4372,6 +4457,8 @@ def run_phases(torch, device, card, log, sass) -> int:
             "form": (f"vpu scalar, {act} (_activation, "
                      f"src/repro/kernels/chaotic_ann.py:44-45)"),
         })
+        if key == "traj" and tag == "bf16":
+            rows[-1]["kernel"] = K2_X2_KERNELS[("vpu", tag)]
     phase_done("paper flow")
     gen_rows, gen_nets = phase_generated_farm(torch, device, card, chen_nets,
                                               errs)

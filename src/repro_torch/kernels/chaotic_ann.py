@@ -230,12 +230,16 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     ``activation`` as in ``chaotic_ann_bits``.
 
     Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_pallas`` (K2).
-    Bound on the H100: bytes.  A step costs 4*I*H ops per I*itemsize bytes
-    written, 96 ops per 12 bytes for 3-8-3 in f32 (6 in bf16), below the
-    card's 10 (f32) or 20 (bf16) ops per byte (33.5e12 or 66.9e12
-    instructions a second over 3.35 TB/s).  Same
-    design as ``chaotic_ann_bits``; each thread writes its I values per
-    step, so a warp writes one contiguous run per step.
+    Bound on the H100: bytes with relu.  A step costs 4*I*H ops per
+    I*itemsize bytes written, 96 ops per 12 bytes for 3-8-3 in f32 (6 in
+    bf16), below the card's 10 (f32) or 20 (bf16) ops per byte (33.5e12 or
+    66.9e12 instructions a second over 3.35 TB/s); tanh and sigmoid add
+    their formulas' f32 ops and make it operations.  f32 (``traj_kernel``):
+    ``chaotic_ann_bits``'s design, each thread writing its I values per
+    step, so a warp writes one contiguous run per step.  bf16
+    (``bf16x2_traj_kernel``): the bf16 K1's two lanes a thread and packed
+    bf16x2 step; each warp stages its lanes' values of a step in shared
+    memory and writes them in 16-byte stores.
     """
     _check_unit(compute_unit)
     if compute_unit == "mxu":
@@ -551,9 +555,10 @@ def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
     written: 11.8 a byte, under the card's 20) and operations in bf16 (192
     bytes, 23.7); with tanh or sigmoid operations in both; operations for
     3-8-3 (96 FMA flops and 11, 139 / 179 with tanh / sigmoid, f32 ops a
-    step against 12 or 6 bytes).  Same design
-    as ``chaotic_ann_mxu_bits``; the threads of a lane write its values of
-    a step as one contiguous run.
+    step against 12 or 6 bytes).  Same design as ``chaotic_ann_mxu_bits``
+    (``mxu_x2_traj_kernel``, ``bf16x2_mxu_traj_kernel``: two lanes a
+    thread); each warp stages its lanes' values of a step in shared memory
+    and writes them in 16-byte stores.
     """
     act = _check_activation(activation)
     if x0.device.type == "cpu":

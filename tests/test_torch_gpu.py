@@ -1072,3 +1072,60 @@ def test_activation_mxu_gang_kernel_bitwise_vs_plain_on_card(gang, dtype,
     assert not torch.equal(_masked_rows(words, lane_rows),
                            _masked_rows(relu, lane_rows))
     _assert_bitwise(state, rs)
+
+
+# the two-lane K2s at odd lane counts: a lone lane-a half, lane-b halves
+# partly live, a ragged last CTA and, for a scalar core, steps whose values
+# start mid-chunk (n_lanes * I * itemsize not a multiple of 16)
+TRAJ_X2_LANES = {1: (1, 3, 37, 255, 1000 + 37), 8: (1, 3, 17, 37),
+                 32: (1, 3, 5, 13)}
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("system", ["chen", "hyperlorenz"])
+def test_bf16x2_traj_kernel_bitwise_vs_plain_on_card(system, activation):
+    """The scalar bf16 K2 on the bf16x2 step with staged 16-byte stores
+    (``bf16x2_traj_kernel``): every lane count's trajectory bitwise the
+    plain version's first lanes, one launch a call."""
+    _need_card()
+    w, x0, _ = _inputs(system, max(TRAJ_X2_LANES[1]), torch.bfloat16, 61)
+    want = ref.chaotic_ann_ref(*w, x0, 24, activation)
+    for n in TRAJ_X2_LANES[1]:
+        n0 = chaotic_ann.chaotic_ann_traj.launches
+        traj = chaotic_ann.chaotic_ann_traj(*w, x0[:n].contiguous(),
+                                            n_steps=24, activation=activation)
+        assert chaotic_ann.chaotic_ann_traj.launches == n0 + 1
+        torch.cuda.synchronize()
+        _assert_bitwise(traj, want[:, :n])
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("system", MXU_SYSTEMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mxu_traj_x2_kernels_bitwise_vs_plain_on_card(system, dtype,
+                                                      activation):
+    """The mxu K2 on two lanes a thread with staged 16-byte stores
+    (``mxu_x2_traj_kernel``, ``bf16x2_mxu_traj_kernel``) at every
+    MXU_SHAPES entry: every lane count's trajectory bitwise the plain
+    version's first lanes, one launch a call."""
+    _need_card()
+    rng = np.random.default_rng(62)
+    p = params_from_numpy(default_params(system=system), device="cuda")
+    w = [p[k] for k in ("w1", "b1", "w2", "b2")]
+    kw = dict(compute_unit="mxu", lattice=None, coupling=None)
+    if "lattice_meta" in p:
+        from repro_torch.core.ann import lattice_meta_tuple
+        kw.update(lattice=lattice_meta_tuple(p["lattice_meta"]),
+                  coupling=p["coupling"])
+    counts = TRAJ_X2_LANES[kw["lattice"][0] if kw["lattice"] else 1]
+    x0 = torch.from_numpy(_x0_np(rng, (max(counts), w[0].shape[0]))).to(
+        "cuda", dtype)
+    want = ref.chaotic_ann_ref(*w, x0, 8, activation, **kw)
+    for n in counts:
+        n0 = chaotic_ann.chaotic_ann_mxu_traj.launches
+        traj = chaotic_ann.chaotic_ann_traj(*w, x0[:n].contiguous(),
+                                            n_steps=8, activation=activation,
+                                            **kw)
+        assert chaotic_ann.chaotic_ann_mxu_traj.launches == n0 + 1
+        torch.cuda.synchronize()
+        _assert_bitwise(traj, want[:, :n])

@@ -14,14 +14,19 @@ directory and run the two in turns, each in its own process:
         python3 tools/kernel_times.py $t $t; done
 
 Each kernel at its path's shape (65,536 lanes; the lattice kernels x 256
-steps, the mxu K3 x 64 steps, the 3-8-3 mxu K3 x 256 steps), bf16 unless
-named, on the registry weights, by CUDA events after a device spin (as
-``chip_smoke.py``'s ``cuda_ms``): the bf16 lattice K4 / K3 / K1 at
-chen@ring8 (the four bases as lattices of one descriptor) with relu, tanh
-and sigmoid; the bf16 lattice K2 at chen@ring32 (relu) and chen@ring8
-(tanh, sigmoid); the mxu K3 at chen@ring32 (four cores, s_block 128) in
-f32 and bf16 with each activation; the mxu K3 of the four 3-8-3 nets at
-s_block 128 (half its two-lane kernel's lane slots without a lane b).
+steps, the mxu kernels x 64 steps, the 3-8-3 mxu K3 and the scalar
+kernels x 256 and 1,024 steps), bf16 unless named, on the registry
+weights, by CUDA events after a device spin (as ``chip_smoke.py``'s
+``cuda_ms``): the bf16 lattice K4 / K3 / K1 at chen@ring8 (the four bases
+as lattices of one descriptor) with relu, tanh and sigmoid; the bf16
+lattice K2 at chen@ring32 (relu) and chen@ring8 (tanh, sigmoid); the mxu
+K3 at chen@ring32 (four cores, s_block 128) in f32 and bf16 with each
+activation; the mxu K3 of the four 3-8-3 nets at s_block 128 (half its
+two-lane kernel's lane slots without a lane b); the mxu K1 and K2 at
+chen@ring32 in f32 and bf16 with each activation, the mxu K2 at
+chen@ring8 in bf16 with tanh and sigmoid (the generated min-latency
+cores' ``generate``); the scalar K1 and K2 at chen (relu in f32 and
+bf16; K2 in bf16 with each activation).
 """
 import pathlib
 import subprocess
@@ -127,6 +132,39 @@ def main() -> int:
             torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
                 *ws, xx, cm, offm, n_steps=256, s_block=128, t_block=256,
                 unroll=8, compute_unit="mxu"))
+    pm = params_from_numpy(default_params(system="chen@ring32"), device=dev)
+    wk = [pm[k] for k in KEYS]
+    kw32 = dict(compute_unit="mxu", coupling=pm["coupling"],
+                lattice=lattice_meta_tuple(pm["lattice_meta"]))
+    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+        xx = xm.to(dtype)
+        for act in ("relu", "tanh", "sigmoid"):
+            out[f"{tag} mxu K1 chen@ring32 {act}"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_bits(
+                    *wk, xx, offm, n_steps=64, activation=act, **kw32))
+            out[f"{tag} mxu K2 chen@ring32 {act}"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_traj(
+                    *wk, xx, n_steps=64, activation=act, **kw32), reps=3)
+    p8 = params_from_numpy(default_params(system="chen@ring8"), device=dev)
+    x8 = xs.reshape(-1, 24).contiguous()
+    for act in ("tanh", "sigmoid"):
+        out[f"bf16 mxu K2 chen@ring8 {act}"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_traj(
+                *[p8[k] for k in KEYS], x8, n_steps=64, activation=act,
+                compute_unit="mxu", coupling=p8["coupling"],
+                lattice=lattice_meta_tuple(p8["lattice_meta"])), reps=3)
+    pc = params_from_numpy(default_params(system="chen"), device=dev)
+    wc = [pc[k] for k in KEYS]
+    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+        xx = x3.to(dtype)
+        out[f"{tag} K1 chen relu, 1,024 steps"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_bits(*wc, xx, offm,
+                                                        n_steps=1024))
+        for act in ("relu",) if tag == "f32" else ("relu", "tanh",
+                                                   "sigmoid"):
+            out[f"{tag} K2 chen {act}, 1,024 steps"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_traj(
+                    *wc, xx, n_steps=1024, activation=act), reps=3)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

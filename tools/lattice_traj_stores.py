@@ -27,23 +27,21 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-STAGED = '''    uint4* const buf = stage[t & 1][warp];
-    unsigned short* const v = reinterpret_cast<unsigned short*>(buf);
+STAGED = '''    lattice_step2<D, HB, N, TOPO, ACT>(th.x, th.w, p.node, th.eps2);
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      st.put(k, static_cast<unsigned short>(th.x[k]),
+             static_cast<unsigned short>(th.x[k] >> 16));
+    st.copy();
+'''
+DIRECT = '''    lattice_step2<D, HB, N, TOPO, ACT>(th.x, th.w, p.node, th.eps2);
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      v[lane * D + k] = static_cast<unsigned short>(th.x[k]);
-      v[kRun + lane * D + k] = static_cast<unsigned short>(th.x[k] >> 16);
-    }
-    __syncwarp();
-    if (copies) out[t * step_chunks] = buf[lane];
-'''
-DIRECT = '''#pragma unroll
-    for (int k = 0; k < D; ++k) {
       if (p.live_a)
-        store_half(traj, (t * n_lanes + p.lane_a) * I + p.node * D + k,
+        store_half(traj, (t * n_lanes + p.lane_a) * (N * D) + p.node * D + k,
                    th.x[k]);
       if (p.live_b)
-        store_half(traj, (t * n_lanes + p.lane_b) * I + p.node * D + k,
+        store_half(traj, (t * n_lanes + p.lane_b) * (N * D) + p.node * D + k,
                    th.x[k] >> 16);
     }
 '''

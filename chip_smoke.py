@@ -59,12 +59,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    both with staged 16-byte stores, bitwise their plain versions at odd
    lane counts (a ragged last CTA, lane-b halves partly live and, for a
    scalar core, steps whose values start mid-chunk) at 3-8, 4-16 and, for
-   mxu, chen@ring8 and ring32, with relu, tanh and sigmoid; their
-   registers and spills; and, where ``cuobjdump`` is on PATH or beside
-   nvcc, the SASS counts (the conversions F2F and F2FP, SHFL, REDUX, FFMA
-   and the 16-byte stores among them) of the bf16x2 K1 and K2 forms, the
-   bf16x2 lattice K2/K3/K4 and the two-lane mxu K1, K2 and K3 beside the
-   f32 K1.
+   mxu, chen@ring8 and ring32, with relu, tanh and sigmoid; the scalar
+   bf16 K3 and K4 on the same row loop as the bf16x2 K1
+   (``bf16x2_gang_bits_kernel``, ``bf16x2_gang_stacked_kernel``) bitwise
+   their plain versions at 3-8 and 4-16 with relu, tanh and sigmoid (K3:
+   six blocks with 0, partial and full rows at ``s_block`` 128, 256 and
+   384; K4: three cores at 1, 5, 37 and 257 lanes, a 0-row and a partial
+   core); their registers and spills; and, where ``cuobjdump`` is on PATH
+   or beside nvcc, the SASS counts (the conversions F2F and F2FP, SHFL,
+   REDUX, FFMA and the 16-byte stores among them) of the bf16x2 K1-K4
+   forms, the bf16x2 lattice K2/K3/K4 and the two-lane mxu K1, K2 and K3
+   beside the f32 K1.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -96,6 +101,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    pending, restored onto a fresh farm.  Then the gang kernels' times at
    F1's and F2's shapes, their plain versions' times and their bounds,
    and the ``gang=False`` cost of F1's 3-8-3 words (four K1 launches).
+   In bf16 the K3 and K4 are the bf16x2 kernels on the K1's row loop;
+   K3's ragged F2 is printed beside its chain floor (one thread's rows at
+   the loop's SASS count, after the SASS phase).
 6. The lattice path, per dtype: phase 3 on chen@ring32 (32 chen nodes on
    a ring, I = 96, vpu; derived from chen's committed weights), 512
    clients x 128 lanes, 16,384 words per client per flush (128 word
@@ -184,7 +192,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``gang=False`` farm; every gang launch of the flushes against the
    plain gang scan on each core's first and last lane block (lanes are
    independent) over its first 32 word rows, bitwise, and timed at its
-   shape beside relu's launch of the same flush and its bound.
+   shape beside relu's launch of the same flush and its bound (in bf16
+   the bf16x2 K3 and K4; F2's K3 also beside its chain floor).
 12. Lattices of tanh and sigmoid nets: phase 10's chen nets and phase
    11's chua, lorenz and rossler nets expanded to 8-node rings (coupling
    0.05), chen's also to the 8-node torus; nothing is trained again.
@@ -314,6 +323,20 @@ LATTICE_GANG_X2_CORE_MAP = [2, 0, 3, 1, 1, 2]
 LATTICE_GANG_X2_K3_ROWS = [0, 3, 99, 1, 99, 5]   # clamped to steps // 2
 LATTICE_GANG_X2_LANES = (1, 5, 37)
 LATTICE_GANG_X2_K4_ROWS = [99, 0, 3]
+# the scalar bf16 K3 and K4 on the bf16x2 row loop (bf16x2_gang_bits_kernel,
+# bf16x2_gang_stacked_kernel) at 3-8 and 4-16, every activation, words and
+# state bitwise one plain run each: K3 six blocks of the gang's cores (the
+# LATTICE_GANG_X2 core map modulo the cores) with 0, partial and full rows
+# at each (shape, s_blocks, steps) entry's s_blocks (a K3 CTA spans 128
+# lanes: 128 is the served farms' s_block, 384 three CTAs a block), each
+# s_block's blocks held to the first lanes of the plain run's at the
+# largest; K4 on three cores (4-16: its two, the first again) with a 0-row
+# and a partial core at GANG_X2_LANES lanes a core (a lone lane-a half, a
+# ragged CTA), each count held to the plain run's first lanes of every
+# core
+GANG_X2_CHECKS = (("3-8", (128, 256, 384), 16),
+                  ("4-16", (128, 256, 384), 16))
+GANG_X2_LANES = (1, 5, 37, 257)
 # the bf16 lattice K2 on the bf16x2 step (bf16x2_lattice_traj_kernel) at
 # odd lane counts, every activation: a CTA holds 2 * 128 / n_nodes lanes
 # (32 at 8 nodes, 8 at 32), so these take a lone lane-a half, lane-b halves
@@ -359,7 +382,8 @@ MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
                  ("chen@ring8", (1, 3, 5), 8),
                  ("chen@ring32", (1, 3, 5), 4))
 # the kernels whose SASS is counted (name, template arguments): the bf16x2
-# K1 and K2 forms (relu; tanh at 3-8) and the bf16x2 lattice K2, K3 and K4
+# K1, K2, K3 and K4 forms (relu; tanh at 3-8; K3 sigmoid too, for its F2
+# chain floor) and the bf16x2 lattice K2, K3 and K4
 # (relu at chen@ring32, K2 tanh and sigmoid and K4 tanh at ring8) beside
 # the f32 K1; the two-lane mxu K1 at chen@ring32 (relu, tanh, sigmoid in
 # bf16; relu and tanh in f32; relu at 3-8) beside the two-lane mxu K2
@@ -377,6 +401,11 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bits_kernel", ("f", 3, 8, 1)),
                 ("bf16x2_traj_kernel", (3, 8, 0)),
                 ("bf16x2_traj_kernel", (3, 8, 1)),
+                ("bf16x2_gang_bits_kernel", (3, 8, 0)),
+                ("bf16x2_gang_bits_kernel", (3, 8, 1)),
+                ("bf16x2_gang_bits_kernel", (3, 8, 2)),
+                ("bf16x2_gang_stacked_kernel", (3, 8, 0)),
+                ("bf16x2_gang_stacked_kernel", (3, 8, 1)),
                 ("bf16x2_lattice_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 32, 0, 0)),
@@ -645,13 +674,14 @@ def sass_dump_start(lib_path):
     return subprocess.Popen([tool, "-sass", str(lib_path)], stdout=out), out
 
 
-def sass_counts(dump) -> str:
+def sass_counts(dump):
     """Per SASS_KERNELS entry: its SASS instructions and those of
     SASS_OPS, in the whole kernel and in its widest loop (the span of its
     longest backward branch: the row loop), from the dump
-    ``sass_dump_start`` started; says so when there is no cuobjdump."""
+    ``sass_dump_start`` started; says so when there is no cuobjdump.
+    Returns (report, {"name<args>": instructions in its widest loop})."""
     if dump is None:
-        return "no cuobjdump on PATH or beside nvcc: SASS not counted"
+        return "no cuobjdump on PATH or beside nvcc: SASS not counted", {}
     proc, out = dump
     check(proc.wait(timeout=600) == 0, "cuobjdump -sass failed")
     want = {mangled(n, a): f"{n}<{', '.join(map(str, a))}>"
@@ -692,11 +722,42 @@ def sass_counts(dump) -> str:
         lo, hi = max(spans, key=lambda sp: sp[1] - sp[0])
         return [x for x in ins if lo <= x[0] <= hi]
 
-    return "; ".join(
+    report = "; ".join(
         f"{label}: " + (f"all {count(code[k0])}, loop "
                         f"{count(widest_loop(code[k0]))}"
                         if k0 in code else "not found")
         for k0, label in want.items())
+    return report, {label: len(widest_loop(code[k0]))
+                    for k0, label in want.items() if k0 in code}
+
+
+def fill_chain_floors(rows, loops) -> None:
+    """``chain_floor_ms_f2`` of each ``kernels`` row of the scalar bf16 K3
+    that ran a ragged F2 (its ``f2_hot_rows``): one thread's chain of the
+    hot block's rows, at the SASS instructions a row of its row loop
+    (``bf16x2_gang_bits_kernel`` at 3-8 in SASS_KERNELS; a row is two
+    steps), one warp issuing at most one instruction a clock at the boost
+    clock.  The hot blocks are a few CTAs (the farm's F2: chen's 128 of
+    512, about one an SM, a warp a scheduler), so that chain, not the
+    card's op rate, bounds the launch when it is the larger.  None without
+    the count."""
+    codes = {"relu": 0, "tanh": 1, "sigmoid": 2}
+    for row in rows:
+        if row.get("kernel") != "bf16x2_gang_bits_kernel" \
+                or "f2_hot_rows" not in row:
+            continue
+        act = row["name"].split("/")[1] if row["name"].count("/") == 2 \
+            else "relu"
+        n = loops.get(f"bf16x2_gang_bits_kernel<3, 8, {codes[act]}>")
+        row["loop_sass"] = n
+        row["chain_floor_ms_f2"] = (None if n is None else
+                                    n * row["f2_hot_rows"] / H100_BOOST_HZ
+                                    * 1e3)
+        print(f"F2 chain floor {row['name']} ({row['path']}): {n} SASS a "
+              f"row x {row['f2_hot_rows']} rows at {H100_BOOST_HZ / 1e9} "
+              f"GHz = {row['chain_floor_ms_f2']} ms; ops bound "
+              f"{row.get('bound_ms_f2', row['bound_ms'])} ms; measured "
+              f"{row.get('ms_f2', row['ms'])} ms")
 
 
 def sass_dump_stop(dump) -> None:
@@ -1264,11 +1325,16 @@ def phase_bf16x2(torch, device, log, errs) -> None:
     check_mxu_gang_x2(torch, device, errs)
     t3 = time.perf_counter()
     check_traj_x2(torch, device, errs)
+    t4 = time.perf_counter()
+    check_gang_x2(torch, device, errs)
     print(f"bf16x2 lattice K3/K4 checks {t1 - t0:.1f} s, lattice K2 "
           f"{t2 - t1:.1f} s, two-lane mxu K3 {t3 - t2:.1f} s, scalar bf16 "
-          f"and mxu K2 {time.perf_counter() - t3:.1f} s")
+          f"and mxu K2 {t4 - t3:.1f} s, scalar bf16 K3/K4 "
+          f"{time.perf_counter() - t4:.1f} s")
     if log:
         for kernel in ("bf16x2_bits_kernel", "bf16x2_traj_kernel",
+                       "bf16x2_gang_bits_kernel",
+                       "bf16x2_gang_stacked_kernel",
                        "bf16x2_lattice_bits_kernel",
                        "bf16x2_lattice_traj_kernel",
                        "bf16x2_lattice_gang_bits_kernel",
@@ -1347,6 +1413,84 @@ def check_lattice_gang_x2(torch, device, errs) -> None:
             for name, e in (("chaotic_ann_lattice_gang_bits", e3),
                             ("chaotic_ann_lattice_gang_stacked", e4)):
                 errs[(name, "bf16")] = max(errs.get((name, "bf16"), 0.0), e)
+
+
+def check_gang_x2(torch, device, errs) -> None:
+    """The scalar bf16 K3 and K4 on the bf16x2 row loop bitwise their plain
+    versions (GANG_X2_CHECKS), relu, tanh and sigmoid: the words each block
+    or core computed, and the final states."""
+    from repro_torch.kernels import chaotic_ann, ref
+
+    rng = np.random.default_rng(27)
+    n_blocks = len(LATTICE_GANG_X2_CORE_MAP)
+    n_max = max(GANG_X2_LANES)
+    for shape, s_blocks, n_steps in GANG_X2_CHECKS:
+        w = gang_weights(torch, device, shape)
+        n_cores, i_dim = w[0].shape[:2]
+        w3 = [a[np.arange(3) % n_cores] for a in w]
+        core_map = np.array(LATTICE_GANG_X2_CORE_MAP) % n_cores
+        rows = np.minimum(LATTICE_GANG_X2_K3_ROWS, n_steps // 2)
+        srows = np.minimum(LATTICE_GANG_X2_K4_ROWS, n_steps // 2)
+        core_rows = torch.as_tensor(srows, device=device)[:, None]
+        s_max = max(s_blocks)
+        x0 = torch.as_tensor(rng.uniform(-0.9, 0.9, (n_blocks, s_max, i_dim)),
+                             dtype=torch.float32, device=device).to(
+                                 torch.bfloat16)
+        off_np = rng.integers(0, 1 << 32, (n_blocks, s_max), dtype=np.int64)
+        off_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
+        off = torch.as_tensor(off_np, device=device)
+        xs = torch.as_tensor(rng.uniform(-0.9, 0.9, (3, n_max, i_dim)),
+                             dtype=torch.float32, device=device).to(
+                                 torch.bfloat16)
+        offs_np = rng.integers(0, 1 << 32, (3, n_max), dtype=np.int64)
+        offs_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3
+        offs = torch.as_tensor(offs_np, device=device)
+        for act in ("relu", "tanh", "sigmoid"):
+            words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                *w, x0.reshape(-1, i_dim), core_map, n_steps,
+                off.reshape(-1), rows, act)
+            words_p = words_p.view(torch.int32).reshape(-1, n_blocks, s_max)
+            state_p = state_p.reshape(n_blocks, s_max, i_dim)
+            e3 = 0.0
+            for s_block in s_blocks:
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x0[:, :s_block].reshape(-1, i_dim), core_map,
+                    off[:, :s_block].reshape(-1), rows, n_steps=n_steps,
+                    s_block=s_block, t_block=n_steps, unroll=1,
+                    activation=act)
+                lane_rows = torch.as_tensor(np.repeat(rows, s_block),
+                                            device=device)
+                want = (words_p[:, :, :s_block].reshape(-1, n_blocks * s_block)
+                        .contiguous().view(torch.uint32))
+                e = max(masked_err(torch, words_k, want, lane_rows),
+                        max_abs_err(torch, state_k, state_p[:, :s_block]
+                                    .reshape(-1, i_dim)))
+                check(e == 0.0, f"bf16x2_gang_bits_kernel != plain ({shape}, "
+                                f"{act}, s_block {s_block})")
+                e3 = max(e3, e)
+            words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                *w3, xs, n_steps, offs, srows, act)
+            e4 = 0.0
+            for n in GANG_X2_LANES:
+                words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                    *w3, xs[:, :n].contiguous(), offs[:, :n].contiguous(),
+                    srows, n_steps=n_steps, activation=act)
+                e = max(masked_err(torch, words_k, words_p[:, :, :n],
+                                   core_rows),
+                        max_abs_err(torch, state_k, state_p[:, :n]))
+                check(e == 0.0, f"bf16x2_gang_stacked_kernel != plain "
+                                f"({shape}, {act}, {n} lanes)")
+                e4 = max(e4, e)
+            print(f"check bf16x2 gang {shape} bf16 {act}: "
+                  f"chaotic_ann_gang_bits ({n_blocks} blocks of {n_cores} "
+                  f"cores x s_block {s_blocks}, rows {rows.tolist()}, "
+                  f"steps={n_steps}) max_abs_err={e3}; "
+                  f"chaotic_ann_gang_stacked (3 cores x {GANG_X2_LANES} "
+                  f"lanes, rows {srows.tolist()}) max_abs_err={e4}")
+            for name, e in (("chaotic_ann_gang_bits", e3),
+                            ("chaotic_ann_gang_stacked", e4)):
+                key = (name, "bf16") if act == "relu" else (name, act, "bf16")
+                errs[key] = max(errs.get(key, 0.0), e)
 
 
 def check_lattice_traj_x2(torch, device, errs) -> None:
@@ -1528,6 +1672,13 @@ BF16X2_LATTICE_KERNELS = {
     "chaotic_ann_lattice_traj": "bf16x2_lattice_traj_kernel",
     "chaotic_ann_lattice_gang_bits": "bf16x2_lattice_gang_bits_kernel",
     "chaotic_ann_lattice_gang_stacked": "bf16x2_lattice_gang_stacked_kernel"}
+# the CUDA kernels behind the bf16 scalar K3 and K4 wrappers (the bf16x2 K1's
+# row loop, two lanes a thread); f32 keeps the one-lane forms
+BF16X2_GANG_KERNELS = {
+    "chaotic_ann_gang_bits": "bf16x2_gang_bits_kernel",
+    "chaotic_ann_gang_stacked": "bf16x2_gang_stacked_kernel"}
+# both gangs' bf16 kernels, scalar and lattice
+BF16X2_GANG_X2_KERNELS = {**BF16X2_LATTICE_KERNELS, **BF16X2_GANG_KERNELS}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
            "chaotic_ann_gang_stacked", "chaotic_ann_lattice_bits",
            "chaotic_ann_lattice_traj", "chaotic_ann_mxu_bits",
@@ -1997,7 +2148,7 @@ def phase_farm(torch, device, dtype, tag, card):
         return bound(rows_per_lane_sum * 2 * step_flops(i_dim, h_dim),
                      n_bytes, tag)
 
-    t = {}
+    t = {"rows_f2": rows_f2}
     steps_f1, steps_f2 = 2 * rows_f1, 2 * rows_f2
     t["k4_f1"] = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
         *w, x0s, offs, n_steps=steps_f1), reps=10, warmup=2)
@@ -2987,6 +3138,7 @@ class GangRecorder:
                                tag, f32_flops=n_words * 2 * extra)
         t["ops_step"] = ops_step
         t["words"] = n_words
+        t["hot_rows"] = int(lane_rows.max())
         return e, t
 
 
@@ -3257,13 +3409,14 @@ def gang_act_rows(names, tag, path_name, path, times, walls, splits, errs,
                 "flush_wall_ms": {k: v * 1e3 for k, v in walls.items()},
                 "flush_split_ms": splits, "form": form(act),
             }
-            if tag == "bf16" and name in BF16X2_LATTICE_KERNELS:
-                row["kernel"] = BF16X2_LATTICE_KERNELS[name]
+            if tag == "bf16" and name in BF16X2_GANG_X2_KERNELS:
+                row["kernel"] = BF16X2_GANG_X2_KERNELS[name]
             f2 = times.get((name, act, "F2"))
             if f2:
                 row.update(ms_f2=f2["ms"], plain_ms_f2=f2["plain_ms"],
                            bound_ms_f2=f2["bound"][0],
-                           relu_ms_f2=times[(name, "relu", "F2")]["ms"])
+                           relu_ms_f2=times[(name, "relu", "F2")]["ms"],
+                           f2_hot_rows=f2["hot_rows"])
             rows.append(row)
     return rows
 
@@ -4372,6 +4525,12 @@ def run_phases(torch, device, card, log, sass) -> int:
                 "bound_by": t[f"{key}_bound"][1], "library_ms": None,
                 "shape": "F2 ragged" if key == "k3_f2" else "F1 padded",
             })
+            if key == "k3_f2":
+                rows[-1].update(ms_f1_padded=t["k3_f1"],
+                                bound_ms_f1_padded=t["k3_f1_bound"][0],
+                                f2_hot_rows=t["rows_f2"])
+            if tag == "bf16":
+                rows[-1]["kernel"] = BF16X2_GANG_KERNELS[name]
     phase_done("farm path")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         launches, t, words = phase_served(
@@ -4471,8 +4630,9 @@ def run_phases(torch, device, card, log, sass) -> int:
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
     t0 = time.perf_counter()
-    report = sass_counts(sass)
+    report, loops = sass_counts(sass)
     print(f"sass (waited {time.perf_counter() - t0:.1f} s): {report}")
+    fill_chain_floors(rows, loops)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -698,11 +698,19 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     separate ops per word, plus H times the activation's formula ops a
     step (tanh 16, sigmoid 21 per hidden unit: 224 / 264 ops a 3-8-3 step
     against relu's 96), summed over the rows each block really computes,
-    against 4 bytes written per word.  Design: K1's
-    thread per lane; a 128-lane CTA lies inside one lane block (``s_block``
-    is a multiple of 128), reads its block's core and rows, and stages
-    that core's weights in shared memory.  The TPU's scalar-prefetched
-    maps become two small int32 arrays the CTA reads itself.
+    against 4 bytes written per word; bf16 ops at the packed bf16x2 rate,
+    twice f32's.  Design: a CTA lies inside one lane block, reads its
+    block's core and rows, and stages that core's weights in shared
+    memory; the TPU's scalar-prefetched maps become two small int32 arrays
+    the CTA reads itself.  f32 (``gang_bits_kernel``): the f32 K1's thread
+    per lane, a CTA of 128 lanes, ``s_block`` a multiple of 128.  bf16
+    (``bf16x2_gang_bits_kernel``): the bf16x2 K1's row loop, two lanes a
+    thread packed in one register, every op one ``add/sub/mul.rn.bf16x2``
+    with no f32 round trip, the weights held in registers; a CTA of 64
+    threads holds 128 lanes of one block, CTAs indexed by (block, CTA in
+    the block), so every CTA has both lane halves live (the served farms'
+    ``s_block`` is 128, a client's lanes).  Both take the same ``s_block``
+    values.
     """
     _check_unit(compute_unit)
     if compute_unit == "mxu":
@@ -770,7 +778,11 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     (K4).  Bound on the H100: operations, as K3 (the activation's formula
     ops included), summed over the rows each core really computes.
     Design: a 2-D grid, ``blockIdx.y`` the core, whose weights the CTA
-    stages in shared memory; each thread runs one lane of that core.  The
+    stages in shared memory; a thread's lanes are counted inside its core.
+    f32 (``gang_stacked_kernel``): one lane a thread.  bf16
+    (``bf16x2_gang_stacked_kernel``): the bf16x2 K1's row loop, two lanes
+    a thread packed in one register, no f32 round trip, the weights held
+    in registers; a ragged edge mirrors the core's own last lane.  The
     TPU's sublane stacking (one vreg sweep advancing all C cores) has no
     counterpart: C cores are C times the threads.  A frozen core's threads
     stop at its rows.

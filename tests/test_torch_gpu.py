@@ -1129,3 +1129,60 @@ def test_mxu_traj_x2_kernels_bitwise_vs_plain_on_card(system, dtype,
         assert chaotic_ann.chaotic_ann_mxu_traj.launches == n0 + 1
         torch.cuda.synchronize()
         _assert_bitwise(traj, want[:, :n])
+
+
+GANG_X2_S_BLOCKS = (128, 256, 384)        # off, on and off the 256-lane span
+GANG_X2_LANES = (1, 5, 37, 257)           # K4 lanes a core
+
+
+@pytest.mark.parametrize("activation", ("relu",) + ACTIVATIONS)
+@pytest.mark.parametrize("gang", sorted(GANGS))
+def test_bf16x2_gang_kernels_bitwise_vs_plain_on_card(gang, activation):
+    """The scalar bf16 K3 and K4 on the bf16x2 row loop
+    (``bf16x2_gang_bits_kernel``, ``bf16x2_gang_stacked_kernel``): K3 in
+    six blocks with 0, partial and full rows at each s_block (an odd
+    multiple of 128 leaves a block's last CTA one live half), K4 with a
+    0-row and a partial core at each lane count (a ragged CTA), each
+    launch's words (the rows asked for) and state bitwise the plain
+    version's, one launch a call."""
+    _need_card()
+    w = _gang_weights(gang)
+    n_cores, i_dim = w[0].shape[:2]
+    rng = np.random.default_rng(63)
+    n_steps = 16
+    core_map = np.array([2, 0, 3, 1, 1, 2]) % n_cores
+    rows = np.array([0, 3, 8, 1, 8, 5])
+    for s_block in GANG_X2_S_BLOCKS:
+        n_lanes = len(core_map) * s_block
+        x0 = torch.from_numpy(_x0_np(rng, (n_lanes, i_dim))).to(
+            "cuda", torch.bfloat16)
+        off = torch.from_numpy(_off_np(rng, n_lanes)).cuda()
+        n0 = chaotic_ann.chaotic_ann_gang_bits.launches
+        words, state = chaotic_ann.chaotic_ann_gang_bits(
+            *w, x0, core_map, off, rows, n_steps=n_steps, s_block=s_block,
+            t_block=n_steps, unroll=1, activation=activation)
+        assert chaotic_ann.chaotic_ann_gang_bits.launches == n0 + 1
+        rw, rs = ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps,
+                                               off, rows, activation)
+        torch.cuda.synchronize()
+        for g, r in enumerate(rows):
+            lanes = slice(g * s_block, (g + 1) * s_block)
+            _assert_bitwise(words[:r, lanes], rw[:r, lanes])
+        _assert_bitwise(state, rs)
+    srows = [0, 5, 8, 3][:n_cores]
+    xs = torch.from_numpy(_x0_np(rng, (n_cores, max(GANG_X2_LANES), i_dim))
+                          ).to("cuda", torch.bfloat16)
+    offs = torch.from_numpy(_off_np(rng, (n_cores, max(GANG_X2_LANES))))
+    offs = offs.cuda()
+    rw, rs = ref.chaotic_ann_gang_stacked_ref(*w, xs, n_steps, offs, srows,
+                                              activation)
+    for n in GANG_X2_LANES:
+        n0 = chaotic_ann.chaotic_ann_gang_stacked.launches
+        words, state = chaotic_ann.chaotic_ann_gang_stacked(
+            *w, xs[:, :n].contiguous(), offs[:, :n].contiguous(), srows,
+            n_steps=n_steps, activation=activation)
+        assert chaotic_ann.chaotic_ann_gang_stacked.launches == n0 + 1
+        torch.cuda.synchronize()
+        for c, r in enumerate(srows):
+            _assert_bitwise(words[:r, c], rw[:r, c, :n].contiguous())
+        _assert_bitwise(state, rs[:, :n].contiguous())

@@ -26,7 +26,11 @@ two-lane kernel's lane slots without a lane b); the mxu K1 and K2 at
 chen@ring32 in f32 and bf16 with each activation, the mxu K2 at
 chen@ring8 in bf16 with tanh and sigmoid (the generated min-latency
 cores' ``generate``); the scalar K1 and K2 at chen (relu in f32 and
-bf16; K2 in bf16 with each activation).
+bf16; K1 and K2 in bf16 with each activation); the scalar bf16 K3 and K4
+of the four 3-8-3 nets at the farm's flush shapes (128 clients x 128 lanes
+a core, s_block 128, t_block 256, unroll 8) with each activation: K4 at F1
+(4 x 16,384 lanes, 128 rows each), K3 at F3 (one more lorenz client: 513
+blocks, 128 rows) and at F2 (chen's blocks 512 rows, the others' 8).
 """
 import pathlib
 import subprocess
@@ -157,14 +161,42 @@ def main() -> int:
     wc = [pc[k] for k in KEYS]
     for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
         xx = x3.to(dtype)
-        out[f"{tag} K1 chen relu, 1,024 steps"] = cuda_ms(
-            torch, lambda: chaotic_ann.chaotic_ann_bits(*wc, xx, offm,
-                                                        n_steps=1024))
+        for act in ("relu",) if tag == "f32" else ("relu", "tanh",
+                                                   "sigmoid"):
+            out[f"{tag} K1 chen {act}, 1,024 steps"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_bits(
+                    *wc, xx, offm, n_steps=1024, activation=act))
         for act in ("relu",) if tag == "f32" else ("relu", "tanh",
                                                    "sigmoid"):
             out[f"{tag} K2 chen {act}, 1,024 steps"] = cuda_ms(
                 torch, lambda: chaotic_ann.chaotic_ann_traj(
                     *wc, xx, n_steps=1024, activation=act), reps=3)
+    # the scalar bf16 gang kernels at the farm's flush shapes
+    pool = LANES // 4
+    gkw = dict(s_block=128, t_block=256, unroll=8)
+    xg = x3.to(bf16)
+    xs3 = xg.reshape(4, pool, 3)
+    blocks = np.array([pool // 128] * 4)
+    blocks_f3 = blocks + np.array([0, 0, 1, 0])        # lorenz + 1 client
+    cm_f3 = np.repeat(np.arange(4), blocks_f3)
+    x_f3 = torch.as_tensor(rng.uniform(-0.9, 0.9, (128 * cm_f3.size, 3)),
+                           dtype=torch.float32, device=dev).to(bf16)
+    off_f3 = torch.zeros(x_f3.shape[0], dtype=torch.int64, device=dev)
+    cm_f2 = np.repeat(np.arange(4), blocks)
+    rows_f2 = np.repeat([512, 8, 8, 8], blocks)         # chen hot
+    for act in ("relu", "tanh", "sigmoid"):
+        out[f"bf16 K4 3-8-3 F1 {act}, 4 x 16,384 lanes, 128 rows"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                *ws, xs3, offm.reshape(4, pool), n_steps=256,
+                activation=act))
+        out[f"bf16 K3 3-8-3 F3 {act}, 65,664 lanes, 128 rows"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                *ws, x_f3, cm_f3, off_f3, n_steps=256, activation=act,
+                **gkw))
+        out[f"bf16 K3 3-8-3 F2 {act}, chen 512 rows, others 8"] = cuda_ms(
+            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                *ws, xg, cm_f2, offm, rows_f2, n_steps=1024,
+                activation=act, **gkw))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -389,16 +389,21 @@ MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
 # bf16; relu and tanh in f32; relu at 3-8) beside the two-lane mxu K2
 # (relu in both dtypes, tanh and sigmoid in bf16 at chen@ring32; relu in
 # f32 at 3-8, whose steps may start mid-chunk) and K3 (relu in both
-# dtypes; tanh and sigmoid in bf16).  The round trip's conversion is
-# F2F.BF16.F32 (F2F.BF16 counts it apart from sigmoid's f32 <-> f64 F2F in
-# exp's scaling), the bf16x2 pack F2FP; FCHK guards an IEEE divide's slow
-# path; STG.128 counts 16-byte stores.  Each is counted whole and in its
-# row loop; the two-lane mxu loops are not unrolled, so a mxu K1/K3 loop
-# is two steps, a mxu K2 loop one
+# dtypes; tanh and sigmoid in bf16), and the f32 K1 with tanh and
+# sigmoid, scalar at 3-8 and lattice at chen@ring8.  The round trip's
+# conversion is F2F.BF16.F32 (F2F.BF16 counts it), the bf16x2 pack F2FP;
+# F2F.F64 counts conversions to and from f64, DMUL f64 multiplies, F2I
+# float-to-integer conversions, FRND a float rounded to an integer (exp's
+# floor; its f64 scaling had the rest; SASS_FREE checks the loops that
+# must have none), MUFU the reciprocal's approximation;
+# FCHK guards an IEEE divide's slow path; STG.128 counts 16-byte stores.
+# Each is counted whole and in its row loop; the two-lane mxu loops are
+# not unrolled, so a mxu K1/K3 loop is two steps, a mxu K2 loop one
 SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_bits_kernel", (3, 8, 1)),
                 ("bits_kernel", ("f", 3, 8, 0)),
                 ("bits_kernel", ("f", 3, 8, 1)),
+                ("bits_kernel", ("f", 3, 8, 2)),
                 ("bf16x2_traj_kernel", (3, 8, 0)),
                 ("bf16x2_traj_kernel", (3, 8, 1)),
                 ("bf16x2_gang_bits_kernel", (3, 8, 0)),
@@ -411,6 +416,8 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 8, 0, 1)),
                 ("lattice_bits_kernel", ("f", 3, 8, 32, 0, 0)),
+                ("lattice_bits_kernel", ("f", 3, 8, 8, 0, 1)),
+                ("lattice_bits_kernel", ("f", 3, 8, 8, 0, 2)),
                 ("bf16x2_lattice_traj_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_traj_kernel", (3, 8, 8, 0, 1)),
                 ("bf16x2_lattice_traj_kernel", (3, 8, 8, 0, 2)),
@@ -430,9 +437,20 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 1)),
                 ("bf16x2_mxu_gang_bits_kernel", (3, 8, 32, 0, 2)),
                 ("mxu_x2_gang_bits_kernel", (3, 8, 32, 0, 0)))
-SASS_OPS = ("F2F", "F2F.BF16", "F2FP", "HADD2", "HMUL2", "HFMA2", "FADD",
-            "FMUL", "FFMA", "FCHK", "LDS", "SHFL", "REDUX", "STS", "STG",
-            "STG.128")
+SASS_OPS = ("F2F", "F2F.BF16", "F2F.F64", "F2I", "FRND", "DMUL", "F2FP",
+            "HADD2", "HMUL2", "HFMA2", "FADD", "FMUL", "FFMA", "MUFU", "FCHK",
+            "LDS", "SHFL", "REDUX", "STS", "STG", "STG.128")
+# the SASS_OPS each row loop must not hold: the f32 K1's tanh and sigmoid
+# divide by div_fast and scale exp's result in f32 bits, so neither an
+# IEEE divide's check nor a conversion is left (sigmoid's floor stays
+# FRND, measured faster than its integer-add form: PERF.md); no sigmoid
+# loop converts to or from f64
+F32_K1_FREE = {1: ("F2F", "F2I", "FRND", "DMUL", "FCHK"),
+               2: ("F2F", "F2I", "DMUL", "FCHK")}
+SASS_FREE = {(name, ("f", 3, 8) + lat + (a,)): ops
+             for name, lat in (("bits_kernel", ()),
+                               ("lattice_bits_kernel", (8, 0)))
+             for a, ops in F32_K1_FREE.items()}
 N_CLIENTS = 512
 LANES_PER_CLIENT = 128
 WORDS_PER_CLIENT = 65_536
@@ -519,7 +537,10 @@ ACT_F32_INPUTS = 1 << 24
 # a fused multiply-add too:
 # tanh: clamp 2, x^2 1, 9 FMAs, x * P 1, divide 1, |x| < 0.0004 1, select 1;
 # sigmoid: negate 1, exp (clamp 2, 1 + 2 + 5 + 1 FMAs, floor 1, r^2 1,
-# + 1 1, 2^fx 1, the f64 scaling 1, flush 1), 1 + e 1, divide 1, flush 1.
+# + 1 1, the scaling by 2^fx 2: an add to the exponent field and its
+# range compare (the kernels scale in f32 bits; an f64 product, 2^fx
+# built from its bits, counted the same 2), flush 1), 1 + e 1, divide 1,
+# flush 1.
 # These are f32 ops in both state dtypes (bf16 takes the f32 formula).
 ACT_OPS = {"relu": 0, "tanh": 16, "sigmoid": 21}
 # phase 11, a farm of generated tanh and sigmoid cores: ``generate_farm``'s
@@ -679,6 +700,8 @@ def sass_counts(dump):
     SASS_OPS, in the whole kernel and in its widest loop (the span of its
     longest backward branch: the row loop), from the dump
     ``sass_dump_start`` started; says so when there is no cuobjdump.
+    Fails where a row loop holds an op that SASS_FREE excludes, or a
+    sigmoid loop (activation code 2) an f64 conversion.
     Returns (report, {"name<args>": instructions in its widest loop})."""
     if dump is None:
         return "no cuobjdump on PATH or beside nvcc: SASS not counted", {}
@@ -686,6 +709,7 @@ def sass_counts(dump):
     check(proc.wait(timeout=600) == 0, "cuobjdump -sass failed")
     want = {mangled(n, a): f"{n}<{', '.join(map(str, a))}>"
             for n, a in SASS_KERNELS}
+    free = {mangled(n, a): ops for (n, a), ops in SASS_FREE.items()}
     code, current = {}, None          # kernel -> [(address, opcode, line)]
     op_re = re.compile(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)(.*)")
@@ -702,15 +726,22 @@ def sass_counts(dump):
             code[current].append((int(m.group(1), 16), m.group(2),
                                   m.group(3)))
 
-    def count(ins):
+    def ops(ins):
         c = dict.fromkeys(SASS_OPS, 0)
         for _, op, rest in ins:
             if op in c:
                 c[op] += 1
-            if op == "STG" and ".128" in rest.split(" ", 1)[0]:
+            mods = rest.split(" ", 1)[0]
+            if op == "STG" and ".128" in mods:
                 c["STG.128"] += 1
-            if op == "F2F" and ".BF16" in rest.split(" ", 1)[0]:
+            if op == "F2F" and ".BF16" in mods:
                 c["F2F.BF16"] += 1
+            if op == "F2F" and ".F64" in mods:
+                c["F2F.F64"] += 1
+        return c
+
+    def count(ins):
+        c = ops(ins)
         return f"{len(ins)} ({', '.join(f'{k} {v}' for k, v in c.items())})"
 
     def widest_loop(ins):
@@ -727,6 +758,13 @@ def sass_counts(dump):
                         f"{count(widest_loop(code[k0]))}"
                         if k0 in code else "not found")
         for k0, label in want.items())
+    for k0, label in want.items():
+        check(k0 in code, f"SASS of {label} not found")
+        loop = ops(widest_loop(code[k0]))
+        banned = free.get(k0, ()) + (("F2F.F64",) if label.endswith(", 2>")
+                                    else ())
+        held = {op: loop[op] for op in banned if loop[op]}
+        check(not held, f"{label}'s row loop holds {held}")
     return report, {label: len(widest_loop(code[k0]))
                     for k0, label in want.items() if k0 in code}
 
@@ -1216,10 +1254,12 @@ BF16X2_CHECK_OPS = (
     "2^16 inputs",
     "cvt.rn.bf16x2.f32 vs __float2bfloat16_rn on 2^32 f32 inputs, both "
     "halves",
-    "f32 tanh with div_fast (the f32 mxu step's) vs __fdiv_rn's on 2^32 f32 "
-    "inputs",
-    "f32 sigmoid with div_fast (the f32 mxu step's) vs __fdiv_rn's on 2^32 "
-    "f32 inputs")
+    "f32 tanh with div_fast (every f32 step's, phi_f32) vs __fdiv_rn's on "
+    "2^32 f32 inputs",
+    "f32 sigmoid with div_fast and exp_f32 (every f32 step's, phi_f32) vs "
+    "__fdiv_rn's and exp_f32_f64 on 2^32 f32 inputs",
+    "exp_f32 (2^fx added to the exponent field in f32 bits) vs "
+    "exp_f32_f64 (the f64 scaling) on 2^32 f32 inputs")
 
 
 def bf16x2_exhaustive(torch, device) -> None:
@@ -1231,10 +1271,11 @@ def bf16x2_exhaustive(torch, device) -> None:
     path) against the round-trip kernels' on every bf16 input, and the f32
     results the bf16 mxu K1 reads from them against the __fdiv_rn form's,
     bitwise in f32; cvt.rn.bf16x2.f32 against __float2bfloat16_rn on every
-    f32 input in either half; the f32 mxu K1's tanh and sigmoid
-    (div_fast) against the __fdiv_rn form on every f32 input; on the card,
-    through the library's check hook; a NaN counts equal to any NaN.
-    Fails on any mismatch."""
+    f32 input in either half; the f32 kernels' tanh and sigmoid
+    (div_fast, exp_f32's scaling in f32 bits) against the __fdiv_rn form
+    with exp's f64 scaling, and exp_f32 against that f64 form, on every
+    f32 input; on the card, through the library's check hook; a NaN counts
+    equal to any NaN.  Fails on any mismatch."""
     from repro_torch.kernels import chaotic_ann
     fn = chaotic_ann._lib().chaotic_ann_bf16x2_check_launch
     n_ops = len(BF16X2_CHECK_OPS)
@@ -1332,7 +1373,8 @@ def phase_bf16x2(torch, device, log, errs) -> None:
           f"and mxu K2 {t4 - t3:.1f} s, scalar bf16 K3/K4 "
           f"{time.perf_counter() - t4:.1f} s")
     if log:
-        for kernel in ("bf16x2_bits_kernel", "bf16x2_traj_kernel",
+        for kernel in ("bits_kernel", "lattice_bits_kernel",
+                       "bf16x2_bits_kernel", "bf16x2_traj_kernel",
                        "bf16x2_gang_bits_kernel",
                        "bf16x2_gang_stacked_kernel",
                        "bf16x2_lattice_bits_kernel",

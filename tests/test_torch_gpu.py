@@ -1186,3 +1186,68 @@ def test_bf16x2_gang_kernels_bitwise_vs_plain_on_card(gang, activation):
         for c, r in enumerate(srows):
             _assert_bitwise(words[:r, c], rw[:r, c, :n].contiguous())
         _assert_bitwise(state, rs[:, :n].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The f32 vpu K1's tanh and sigmoid: quotients by div_fast, exp's 2^fx in
+# f32 bits
+# ---------------------------------------------------------------------------
+
+# the library's check hook: its op count, and the index of exp_f32 against
+# exp_f32_f64 on all 2**32 f32 inputs (kCheckAll, kCheckCvt + 3 in the
+# source)
+CHECK_OPS, CHECK_EXP = 12, 11
+
+
+def test_f32_exp_check_hook_reports_no_mismatch():
+    """The check hook's exhaustive checks, the new one among them: the
+    kernels' exp (2^fx added to the exponent field) against the f64
+    scaling on every f32 bit pattern, 0 mismatches in every op."""
+    _need_card()
+    fn = chaotic_ann._lib().chaotic_ann_bf16x2_check_launch
+    mismatches = torch.zeros(CHECK_OPS, dtype=torch.int64, device="cuda")
+    n_examples = torch.zeros(CHECK_OPS, dtype=torch.int32, device="cuda")
+    examples = torch.zeros((CHECK_OPS, 4, 4), dtype=torch.int32,
+                           device="cuda")
+    rc = fn(0, mismatches.data_ptr(), n_examples.data_ptr(),
+            examples.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert mismatches[CHECK_EXP].item() == 0
+    assert mismatches.tolist() == [0] * CHECK_OPS
+
+
+F32_K1_LANES = {"chen": (1, 3, 37, 129, 255, 1000 + 37),
+                "hyperlorenz": (1, 3, 37, 129, 255),
+                "chen@ring8": (1, 3, 17, 37, 103),
+                "chen@grid8": (1, 3, 17, 37)}
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("system", sorted(F32_K1_LANES))
+def test_f32_k1_tanh_sigmoid_bitwise_vs_plain_at_odd_lane_counts(system,
+                                                                 activation):
+    """The f32 K1, scalar (``bits_kernel``) and lattice
+    (``lattice_bits_kernel``), with tanh and sigmoid: each lane count's
+    words and final state bitwise the plain version's first lanes, one
+    launch a call."""
+    _need_card()
+    lanes = F32_K1_LANES[system]
+    if "@" in system:
+        w, lattice, x0, off = _lattice_inputs(system, max(lanes),
+                                              torch.float32, seed=67)
+        counter = chaotic_ann.chaotic_ann_lattice_bits
+    else:
+        (w, x0, off), lattice = _inputs(system, max(lanes), torch.float32,
+                                        67), None
+        counter = chaotic_ann.chaotic_ann_bits
+    kw = dict(lattice=lattice, activation=activation)
+    rw, rs = ref.chaotic_ann_bits_ref(*w, x0, 24, off, **kw)
+    for n in lanes:
+        n0 = counter.launches
+        words, state = chaotic_ann.chaotic_ann_bits(
+            *w, x0[:n].contiguous(), off[:n].contiguous(), n_steps=24, **kw)
+        assert counter.launches == n0 + 1
+        torch.cuda.synchronize()
+        _assert_bitwise(words, rw[:, :n].contiguous())
+        _assert_bitwise(state, rs[:n])

@@ -15,22 +15,24 @@ directory and run the two in turns, each in its own process:
 
 Each kernel at its path's shape (65,536 lanes; the lattice kernels x 256
 steps, the mxu kernels x 64 steps, the 3-8-3 mxu K3 and the scalar
-kernels x 256 and 1,024 steps), bf16 unless named, on the registry
-weights, by CUDA events after a device spin (as ``chip_smoke.py``'s
-``cuda_ms``): the bf16 lattice K4 / K3 / K1 at chen@ring8 (the four bases
-as lattices of one descriptor) with relu, tanh and sigmoid; the bf16
-lattice K2 at chen@ring32 (relu) and chen@ring8 (tanh, sigmoid); the mxu
+kernels x 256 and 1,024 steps), on the registry weights, by CUDA events
+after a device spin (as ``chip_smoke.py``'s ``cuda_ms``): the lattice
+K4 / K3 / K1 at chen@ring8 (the four bases as lattices of one descriptor)
+in f32 and bf16 with relu, tanh and sigmoid; the f32 lattice K1 at
+chen@ring32 with each activation; the bf16 lattice K2 at chen@ring32
+(relu) and chen@ring8 (tanh, sigmoid), the f32 one at chen@ring8 (tanh,
+sigmoid); the mxu
 K3 at chen@ring32 (four cores, s_block 128) in f32 and bf16 with each
 activation; the mxu K3 of the four 3-8-3 nets at s_block 128 (half its
 two-lane kernel's lane slots without a lane b); the mxu K1 and K2 at
 chen@ring32 in f32 and bf16 with each activation, the mxu K2 at
 chen@ring8 in bf16 with tanh and sigmoid (the generated min-latency
-cores' ``generate``); the scalar K1 and K2 at chen (relu in f32 and
-bf16; K1 and K2 in bf16 with each activation); the scalar bf16 K3 and K4
-of the four 3-8-3 nets at the farm's flush shapes (128 clients x 128 lanes
-a core, s_block 128, t_block 256, unroll 8) with each activation: K4 at F1
-(4 x 16,384 lanes, 128 rows each), K3 at F3 (one more lorenz client: 513
-blocks, 128 rows) and at F2 (chen's blocks 512 rows, the others' 8).
+cores' ``generate``); the scalar K1 and K2 at chen in f32 and bf16 with
+each activation; the scalar K3 and K4 of the four 3-8-3 nets at the
+farm's flush shapes (128 clients x 128 lanes a core, s_block 128, t_block
+256, unroll 8) in f32 and bf16 with each activation: K4 at F1 (4 x 16,384
+lanes, 128 rows each), K3 at F3 (one more lorenz client: 513 blocks, 128
+rows) and at F2 (chen's blocks 512 rows, the others' 8).
 """
 import pathlib
 import subprocess
@@ -86,31 +88,48 @@ def main() -> int:
 
     per, w = stacked([f"{b}@ring8" for b in BASES])
     lat = lattice_meta_tuple(per[0]["lattice_meta"])
-    xs = torch.as_tensor(rng.uniform(-0.9, 0.9, (4, LANES // 4, 24)),
-                         dtype=torch.float32, device=dev).to(bf16)
+    xs_f = torch.as_tensor(rng.uniform(-0.9, 0.9, (4, LANES // 4, 24)),
+                           dtype=torch.float32, device=dev)
     offs = torch.zeros((4, LANES // 4), dtype=torch.int64, device=dev)
-    x, off = xs.reshape(-1, 24).contiguous(), offs.reshape(-1)
+    off = offs.reshape(-1)
     cmap = np.repeat(np.arange(4), LANES // 4 // 256)
+    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+        xs = xs_f.to(dtype)
+        x = xs.reshape(-1, 24).contiguous()
+        for act in ("relu", "tanh", "sigmoid"):
+            kw = dict(n_steps=256, lattice=lat, activation=act)
+            out[f"{tag} lattice K4 chen@ring8 {act}, 4 x 16,384 lanes"] = (
+                cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                    *w, xs, offs, **kw)))
+            out[f"{tag} lattice K3 chen@ring8 {act}, s_block 256"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                    *w, x, cmap, off, s_block=256, t_block=256, unroll=8,
+                    **kw))
+            out[f"{tag} lattice K1 chen@ring8 {act} (chen)"] = cuda_ms(
+                torch, lambda: chaotic_ann.chaotic_ann_bits(
+                    *[a[0] for a in w], x, off, **kw))
+    p32 = params_from_numpy(default_params(system="chen@ring32"), device=dev)
+    x32 = torch.as_tensor(rng.uniform(-0.9, 0.9, (LANES, 96)),
+                          dtype=torch.float32, device=dev)
     for act in ("relu", "tanh", "sigmoid"):
-        kw = dict(n_steps=256, lattice=lat, activation=act)
-        out[f"bf16 lattice K4 chen@ring8 {act}, 4 x 16,384 lanes"] = cuda_ms(
-            torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
-                *w, xs, offs, **kw))
-        out[f"bf16 lattice K3 chen@ring8 {act}, s_block 256"] = cuda_ms(
-            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
-                *w, x, cmap, off, s_block=256, t_block=256, unroll=8, **kw))
-        out[f"bf16 lattice K1 chen@ring8 {act} (chen)"] = cuda_ms(
+        out[f"f32 lattice K1 chen@ring32 {act}"] = cuda_ms(
             torch, lambda: chaotic_ann.chaotic_ann_bits(
-                *[a[0] for a in w], x, off, **kw))
-    for system, act in (("chen@ring32", "relu"), ("chen@ring8", "tanh"),
-                        ("chen@ring8", "sigmoid")):
+                *[p32[k] for k in KEYS], x32, off, n_steps=256,
+                activation=act,
+                lattice=lattice_meta_tuple(p32["lattice_meta"])))
+    for tag, system, act in (("bf16", "chen@ring32", "relu"),
+                             ("bf16", "chen@ring8", "tanh"),
+                             ("bf16", "chen@ring8", "sigmoid"),
+                             ("f32", "chen@ring8", "tanh"),
+                             ("f32", "chen@ring8", "sigmoid")):
         p = params_from_numpy(default_params(system=system), device=dev)
         w1 = [p[k] for k in KEYS]
         x1 = torch.as_tensor(rng.uniform(-0.9, 0.9, (LANES, w1[0].shape[0])),
-                             dtype=torch.float32, device=dev).to(bf16)
+                             dtype=torch.float32, device=dev)
+        x1 = x1.to(bf16) if tag == "bf16" else x1
         kw = dict(n_steps=256, activation=act,
                   lattice=lattice_meta_tuple(p["lattice_meta"]))
-        out[f"bf16 lattice K2 {system} {act}"] = cuda_ms(
+        out[f"{tag} lattice K2 {system} {act}"] = cuda_ms(
             torch, lambda: chaotic_ann.chaotic_ann_traj(*w1, x1, **kw),
             reps=3)
     per, wm = stacked([f"{b}@ring32" for b in BASES])
@@ -161,42 +180,41 @@ def main() -> int:
     wc = [pc[k] for k in KEYS]
     for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
         xx = x3.to(dtype)
-        for act in ("relu",) if tag == "f32" else ("relu", "tanh",
-                                                   "sigmoid"):
+        for act in ("relu", "tanh", "sigmoid"):
             out[f"{tag} K1 chen {act}, 1,024 steps"] = cuda_ms(
                 torch, lambda: chaotic_ann.chaotic_ann_bits(
                     *wc, xx, offm, n_steps=1024, activation=act))
-        for act in ("relu",) if tag == "f32" else ("relu", "tanh",
-                                                   "sigmoid"):
+        for act in ("relu", "tanh", "sigmoid"):
             out[f"{tag} K2 chen {act}, 1,024 steps"] = cuda_ms(
                 torch, lambda: chaotic_ann.chaotic_ann_traj(
                     *wc, xx, n_steps=1024, activation=act), reps=3)
-    # the scalar bf16 gang kernels at the farm's flush shapes
+    # the scalar gang kernels at the farm's flush shapes
     pool = LANES // 4
     gkw = dict(s_block=128, t_block=256, unroll=8)
-    xg = x3.to(bf16)
-    xs3 = xg.reshape(4, pool, 3)
     blocks = np.array([pool // 128] * 4)
     blocks_f3 = blocks + np.array([0, 0, 1, 0])        # lorenz + 1 client
     cm_f3 = np.repeat(np.arange(4), blocks_f3)
-    x_f3 = torch.as_tensor(rng.uniform(-0.9, 0.9, (128 * cm_f3.size, 3)),
-                           dtype=torch.float32, device=dev).to(bf16)
-    off_f3 = torch.zeros(x_f3.shape[0], dtype=torch.int64, device=dev)
+    x_f3_f = torch.as_tensor(rng.uniform(-0.9, 0.9, (128 * cm_f3.size, 3)),
+                             dtype=torch.float32, device=dev)
+    off_f3 = torch.zeros(x_f3_f.shape[0], dtype=torch.int64, device=dev)
     cm_f2 = np.repeat(np.arange(4), blocks)
     rows_f2 = np.repeat([512, 8, 8, 8], blocks)         # chen hot
-    for act in ("relu", "tanh", "sigmoid"):
-        out[f"bf16 K4 3-8-3 F1 {act}, 4 x 16,384 lanes, 128 rows"] = cuda_ms(
-            torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
-                *ws, xs3, offm.reshape(4, pool), n_steps=256,
-                activation=act))
-        out[f"bf16 K3 3-8-3 F3 {act}, 65,664 lanes, 128 rows"] = cuda_ms(
-            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
-                *ws, x_f3, cm_f3, off_f3, n_steps=256, activation=act,
-                **gkw))
-        out[f"bf16 K3 3-8-3 F2 {act}, chen 512 rows, others 8"] = cuda_ms(
-            torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
-                *ws, xg, cm_f2, offm, rows_f2, n_steps=1024,
-                activation=act, **gkw))
+    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+        xg, x_f3 = x3.to(dtype), x_f3_f.to(dtype)
+        xs3 = xg.reshape(4, pool, 3)
+        for act in ("relu", "tanh", "sigmoid"):
+            out[f"{tag} K4 3-8-3 F1 {act}, 4 x 16,384 lanes, 128 rows"] = (
+                cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                    *ws, xs3, offm.reshape(4, pool), n_steps=256,
+                    activation=act)))
+            out[f"{tag} K3 3-8-3 F3 {act}, 65,664 lanes, 128 rows"] = (
+                cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                    *ws, x_f3, cm_f3, off_f3, n_steps=256, activation=act,
+                    **gkw)))
+            out[f"{tag} K3 3-8-3 F2 {act}, chen 512 rows, others 8"] = (
+                cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                    *ws, xg, cm_f2, offm, rows_f2, n_steps=1024,
+                    activation=act, **gkw)))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -60,8 +60,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    lane counts (a ragged last CTA, lane-b halves partly live and, for a
    scalar core, steps whose values start mid-chunk) at 3-8, 4-16 and, for
    mxu, chen@ring8 and ring32, with relu, tanh and sigmoid; the scalar
-   bf16 K3 and K4 on the same row loop as the bf16x2 K1
-   (``bf16x2_gang_bits_kernel``, ``bf16x2_gang_stacked_kernel``) bitwise
+   K3 and K4 on their K1's row loop, bf16 on bf16x2
+   (``bf16x2_gang_bits_kernel``, ``bf16x2_gang_stacked_kernel``) and f32
+   (``f32_gang_bits_kernel``, ``f32_gang_stacked_kernel``), bitwise
    their plain versions at 3-8 and 4-16 with relu, tanh and sigmoid (K3:
    six blocks with 0, partial and full rows at ``s_block`` 128, 256 and
    384; K4: three cores at 1, 5, 37 and 257 lanes, a 0-row and a partial
@@ -69,7 +70,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    or beside nvcc, the SASS counts (the conversions F2F and F2FP, SHFL,
    REDUX, FFMA and the 16-byte stores among them) of the bf16x2 K1-K4
    forms, the bf16x2 lattice K2/K3/K4 and the two-lane mxu K1, K2 and K3
-   beside the f32 K1.
+   beside the f32 K1, K3 and K4.
 3. The main path, per dtype: ``PRNGService`` on chen with 512 clients x
    128 lanes (register, then three flushes), each client drawing 65,536
    words per flush (33.5 M words a flush).  Then the unfused path
@@ -323,8 +324,10 @@ LATTICE_GANG_X2_CORE_MAP = [2, 0, 3, 1, 1, 2]
 LATTICE_GANG_X2_K3_ROWS = [0, 3, 99, 1, 99, 5]   # clamped to steps // 2
 LATTICE_GANG_X2_LANES = (1, 5, 37)
 LATTICE_GANG_X2_K4_ROWS = [99, 0, 3]
-# the scalar bf16 K3 and K4 on the bf16x2 row loop (bf16x2_gang_bits_kernel,
-# bf16x2_gang_stacked_kernel) at 3-8 and 4-16, every activation, words and
+# the scalar K3 and K4, bf16 on the bf16x2 row loop (bf16x2_gang_bits_kernel,
+# bf16x2_gang_stacked_kernel) and f32 on the f32 row loop
+# (f32_gang_bits_kernel, f32_gang_stacked_kernel) at 3-8 and 4-16, every
+# activation, words and
 # state bitwise one plain run each: K3 six blocks of the gang's cores (the
 # LATTICE_GANG_X2 core map modulo the cores) with 0, partial and full rows
 # at each (shape, s_blocks, steps) entry's s_blocks (a K3 CTA spans 128
@@ -383,7 +386,8 @@ MXU_X2_CHECKS = (("chen", (1, 2, 3, 129, 257), 32),
                  ("chen@ring32", (1, 3, 5), 4))
 # the kernels whose SASS is counted (name, template arguments): the bf16x2
 # K1, K2, K3 and K4 forms (relu; tanh at 3-8; K3 sigmoid too, for its F2
-# chain floor) and the bf16x2 lattice K2, K3 and K4
+# chain floor), the f32 K3 (each activation, for its F2 chain floor) and K4,
+# and the bf16x2 lattice K2, K3 and K4
 # (relu at chen@ring32, K2 tanh and sigmoid and K4 tanh at ring8) beside
 # the f32 K1; the two-lane mxu K1 at chen@ring32 (relu, tanh, sigmoid in
 # bf16; relu and tanh in f32; relu at 3-8) beside the two-lane mxu K2
@@ -411,6 +415,10 @@ SASS_KERNELS = (("bf16x2_bits_kernel", (3, 8, 0)),
                 ("bf16x2_gang_bits_kernel", (3, 8, 2)),
                 ("bf16x2_gang_stacked_kernel", (3, 8, 0)),
                 ("bf16x2_gang_stacked_kernel", (3, 8, 1)),
+                ("f32_gang_bits_kernel", (3, 8, 0)),
+                ("f32_gang_bits_kernel", (3, 8, 1)),
+                ("f32_gang_bits_kernel", (3, 8, 2)),
+                ("f32_gang_stacked_kernel", (3, 8, 0)),
                 ("bf16x2_lattice_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_bits_kernel", (3, 8, 32, 0, 0)),
                 ("bf16x2_lattice_gang_stacked_kernel", (3, 8, 32, 0, 0)),
@@ -770,32 +778,34 @@ def sass_counts(dump):
 
 
 def fill_chain_floors(rows, loops) -> None:
-    """``chain_floor_ms_f2`` of each ``kernels`` row of the scalar bf16 K3
-    that ran a ragged F2 (its ``f2_hot_rows``): one thread's chain of the
-    hot block's rows, at the SASS instructions a row of its row loop
-    (``bf16x2_gang_bits_kernel`` at 3-8 in SASS_KERNELS; a row is two
-    steps), one warp issuing at most one instruction a clock at the boost
-    clock.  The hot blocks are a few CTAs (the farm's F2: chen's 128 of
-    512, about one an SM, a warp a scheduler), so that chain, not the
-    card's op rate, bounds the launch when it is the larger.  None without
-    the count."""
+    """``chain_floor_ms_f2`` of each ``kernels`` row of the scalar K3 that
+    ran a ragged F2 (its ``f2_hot_rows``): one thread's chain of the hot
+    block's rows, at the SASS instructions a row of its row loop
+    (``bf16x2_gang_bits_kernel`` or ``f32_gang_bits_kernel`` at 3-8 in
+    SASS_KERNELS; a row is two steps), one warp issuing at most one
+    instruction a clock at the boost clock.  The hot blocks are a few CTAs
+    (the farm's F2: chen's 128 of 512, about one an SM, a warp a
+    scheduler), so that chain, not the card's op rate, bounds the launch
+    when it is the larger.  None without the count."""
     codes = {"relu": 0, "tanh": 1, "sigmoid": 2}
+    labels = {"bf16x2_gang_bits_kernel": "bf16x2_gang_bits_kernel<3, 8, {}>",
+              "f32_gang_bits_kernel": "f32_gang_bits_kernel<3, 8, {}>"}
     for row in rows:
-        if row.get("kernel") != "bf16x2_gang_bits_kernel" \
-                or "f2_hot_rows" not in row:
+        if row.get("kernel") not in labels or "f2_hot_rows" not in row:
             continue
         act = row["name"].split("/")[1] if row["name"].count("/") == 2 \
             else "relu"
-        n = loops.get(f"bf16x2_gang_bits_kernel<3, 8, {codes[act]}>")
+        label = labels[row["kernel"]].format(codes[act])
+        n = loops.get(label)
         row["loop_sass"] = n
         row["chain_floor_ms_f2"] = (None if n is None else
                                     n * row["f2_hot_rows"] / H100_BOOST_HZ
                                     * 1e3)
-        print(f"F2 chain floor {row['name']} ({row['path']}): {n} SASS a "
-              f"row x {row['f2_hot_rows']} rows at {H100_BOOST_HZ / 1e9} "
-              f"GHz = {row['chain_floor_ms_f2']} ms; ops bound "
-              f"{row.get('bound_ms_f2', row['bound_ms'])} ms; measured "
-              f"{row.get('ms_f2', row['ms'])} ms")
+        print(f"F2 chain floor {row['name']} ({row['path']}): {label} {n} "
+              f"SASS a row x {row['f2_hot_rows']} rows at "
+              f"{H100_BOOST_HZ / 1e9} GHz = {row['chain_floor_ms_f2']} ms; "
+              f"ops bound {row.get('bound_ms_f2', row['bound_ms'])} ms; "
+              f"measured {row.get('ms_f2', row['ms'])} ms")
 
 
 def sass_dump_stop(dump) -> None:
@@ -1367,16 +1377,17 @@ def phase_bf16x2(torch, device, log, errs) -> None:
     t3 = time.perf_counter()
     check_traj_x2(torch, device, errs)
     t4 = time.perf_counter()
-    check_gang_x2(torch, device, errs)
+    check_scalar_gangs(torch, device, errs)
     print(f"bf16x2 lattice K3/K4 checks {t1 - t0:.1f} s, lattice K2 "
           f"{t2 - t1:.1f} s, two-lane mxu K3 {t3 - t2:.1f} s, scalar bf16 "
-          f"and mxu K2 {t4 - t3:.1f} s, scalar bf16 K3/K4 "
+          f"and mxu K2 {t4 - t3:.1f} s, scalar K3/K4 (bf16, f32) "
           f"{time.perf_counter() - t4:.1f} s")
     if log:
         for kernel in ("bits_kernel", "lattice_bits_kernel",
                        "bf16x2_bits_kernel", "bf16x2_traj_kernel",
                        "bf16x2_gang_bits_kernel",
                        "bf16x2_gang_stacked_kernel",
+                       "f32_gang_bits_kernel", "f32_gang_stacked_kernel",
                        "bf16x2_lattice_bits_kernel",
                        "bf16x2_lattice_traj_kernel",
                        "bf16x2_lattice_gang_bits_kernel",
@@ -1457,82 +1468,88 @@ def check_lattice_gang_x2(torch, device, errs) -> None:
                 errs[(name, "bf16")] = max(errs.get((name, "bf16"), 0.0), e)
 
 
-def check_gang_x2(torch, device, errs) -> None:
-    """The scalar bf16 K3 and K4 on the bf16x2 row loop bitwise their plain
-    versions (GANG_X2_CHECKS), relu, tanh and sigmoid: the words each block
-    or core computed, and the final states."""
+def check_scalar_gangs(torch, device, errs) -> None:
+    """The scalar K3 and K4 bitwise their plain versions (GANG_X2_CHECKS),
+    relu, tanh and sigmoid, bf16 on the bf16x2 row loop and f32 on the
+    f32 row loop: the words each block or core computed, and the final
+    states."""
     from repro_torch.kernels import chaotic_ann, ref
 
     rng = np.random.default_rng(27)
     n_blocks = len(LATTICE_GANG_X2_CORE_MAP)
     n_max = max(GANG_X2_LANES)
-    for shape, s_blocks, n_steps in GANG_X2_CHECKS:
-        w = gang_weights(torch, device, shape)
-        n_cores, i_dim = w[0].shape[:2]
-        w3 = [a[np.arange(3) % n_cores] for a in w]
-        core_map = np.array(LATTICE_GANG_X2_CORE_MAP) % n_cores
-        rows = np.minimum(LATTICE_GANG_X2_K3_ROWS, n_steps // 2)
-        srows = np.minimum(LATTICE_GANG_X2_K4_ROWS, n_steps // 2)
-        core_rows = torch.as_tensor(srows, device=device)[:, None]
-        s_max = max(s_blocks)
-        x0 = torch.as_tensor(rng.uniform(-0.9, 0.9, (n_blocks, s_max, i_dim)),
-                             dtype=torch.float32, device=device).to(
-                                 torch.bfloat16)
-        off_np = rng.integers(0, 1 << 32, (n_blocks, s_max), dtype=np.int64)
-        off_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
-        off = torch.as_tensor(off_np, device=device)
-        xs = torch.as_tensor(rng.uniform(-0.9, 0.9, (3, n_max, i_dim)),
-                             dtype=torch.float32, device=device).to(
-                                 torch.bfloat16)
-        offs_np = rng.integers(0, 1 << 32, (3, n_max), dtype=np.int64)
-        offs_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3
-        offs = torch.as_tensor(offs_np, device=device)
-        for act in ("relu", "tanh", "sigmoid"):
-            words_p, state_p = ref.chaotic_ann_gang_bits_ref(
-                *w, x0.reshape(-1, i_dim), core_map, n_steps,
-                off.reshape(-1), rows, act)
-            words_p = words_p.view(torch.int32).reshape(-1, n_blocks, s_max)
-            state_p = state_p.reshape(n_blocks, s_max, i_dim)
-            e3 = 0.0
-            for s_block in s_blocks:
-                words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
-                    *w, x0[:, :s_block].reshape(-1, i_dim), core_map,
-                    off[:, :s_block].reshape(-1), rows, n_steps=n_steps,
-                    s_block=s_block, t_block=n_steps, unroll=1,
-                    activation=act)
-                lane_rows = torch.as_tensor(np.repeat(rows, s_block),
-                                            device=device)
-                want = (words_p[:, :, :s_block].reshape(-1, n_blocks * s_block)
-                        .contiguous().view(torch.uint32))
-                e = max(masked_err(torch, words_k, want, lane_rows),
-                        max_abs_err(torch, state_k, state_p[:, :s_block]
-                                    .reshape(-1, i_dim)))
-                check(e == 0.0, f"bf16x2_gang_bits_kernel != plain ({shape}, "
-                                f"{act}, s_block {s_block})")
-                e3 = max(e3, e)
-            words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
-                *w3, xs, n_steps, offs, srows, act)
-            e4 = 0.0
-            for n in GANG_X2_LANES:
-                words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
-                    *w3, xs[:, :n].contiguous(), offs[:, :n].contiguous(),
-                    srows, n_steps=n_steps, activation=act)
-                e = max(masked_err(torch, words_k, words_p[:, :, :n],
-                                   core_rows),
-                        max_abs_err(torch, state_k, state_p[:, :n]))
-                check(e == 0.0, f"bf16x2_gang_stacked_kernel != plain "
-                                f"({shape}, {act}, {n} lanes)")
-                e4 = max(e4, e)
-            print(f"check bf16x2 gang {shape} bf16 {act}: "
-                  f"chaotic_ann_gang_bits ({n_blocks} blocks of {n_cores} "
-                  f"cores x s_block {s_blocks}, rows {rows.tolist()}, "
-                  f"steps={n_steps}) max_abs_err={e3}; "
-                  f"chaotic_ann_gang_stacked (3 cores x {GANG_X2_LANES} "
-                  f"lanes, rows {srows.tolist()}) max_abs_err={e4}")
-            for name, e in (("chaotic_ann_gang_bits", e3),
-                            ("chaotic_ann_gang_stacked", e4)):
-                key = (name, "bf16") if act == "relu" else (name, act, "bf16")
-                errs[key] = max(errs.get(key, 0.0), e)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        names = BF16X2_GANG_KERNELS if tag == "bf16" else F32_GANG_KERNELS
+        for shape, s_blocks, n_steps in GANG_X2_CHECKS:
+            w = gang_weights(torch, device, shape)
+            n_cores, i_dim = w[0].shape[:2]
+            w3 = [a[np.arange(3) % n_cores] for a in w]
+            core_map = np.array(LATTICE_GANG_X2_CORE_MAP) % n_cores
+            rows = np.minimum(LATTICE_GANG_X2_K3_ROWS, n_steps // 2)
+            srows = np.minimum(LATTICE_GANG_X2_K4_ROWS, n_steps // 2)
+            core_rows = torch.as_tensor(srows, device=device)[:, None]
+            s_max = max(s_blocks)
+            x0 = torch.as_tensor(
+                rng.uniform(-0.9, 0.9, (n_blocks, s_max, i_dim)),
+                dtype=torch.float32, device=device).to(dtype)
+            off_np = rng.integers(0, 1 << 32, (n_blocks, s_max),
+                                  dtype=np.int64)
+            off_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3      # wrap mid-run
+            off = torch.as_tensor(off_np, device=device)
+            xs = torch.as_tensor(rng.uniform(-0.9, 0.9, (3, n_max, i_dim)),
+                                 dtype=torch.float32, device=device).to(dtype)
+            offs_np = rng.integers(0, 1 << 32, (3, n_max), dtype=np.int64)
+            offs_np[:, :2] = (1 << 32) - 1, (1 << 32) - 3
+            offs = torch.as_tensor(offs_np, device=device)
+            for act in ("relu", "tanh", "sigmoid"):
+                words_p, state_p = ref.chaotic_ann_gang_bits_ref(
+                    *w, x0.reshape(-1, i_dim), core_map, n_steps,
+                    off.reshape(-1), rows, act)
+                words_p = words_p.view(torch.int32).reshape(-1, n_blocks,
+                                                            s_max)
+                state_p = state_p.reshape(n_blocks, s_max, i_dim)
+                e3 = 0.0
+                for s_block in s_blocks:
+                    words_k, state_k = chaotic_ann.chaotic_ann_gang_bits(
+                        *w, x0[:, :s_block].reshape(-1, i_dim), core_map,
+                        off[:, :s_block].reshape(-1), rows, n_steps=n_steps,
+                        s_block=s_block, t_block=n_steps, unroll=1,
+                        activation=act)
+                    lane_rows = torch.as_tensor(np.repeat(rows, s_block),
+                                                device=device)
+                    want = (words_p[:, :, :s_block]
+                            .reshape(-1, n_blocks * s_block)
+                            .contiguous().view(torch.uint32))
+                    e = max(masked_err(torch, words_k, want, lane_rows),
+                            max_abs_err(torch, state_k, state_p[:, :s_block]
+                                        .reshape(-1, i_dim)))
+                    check(e == 0.0, f"{names['chaotic_ann_gang_bits']} != "
+                                    f"plain ({shape}, {act}, s_block "
+                                    f"{s_block})")
+                    e3 = max(e3, e)
+                words_p, state_p = ref.chaotic_ann_gang_stacked_ref(
+                    *w3, xs, n_steps, offs, srows, act)
+                e4 = 0.0
+                for n in GANG_X2_LANES:
+                    words_k, state_k = chaotic_ann.chaotic_ann_gang_stacked(
+                        *w3, xs[:, :n].contiguous(), offs[:, :n].contiguous(),
+                        srows, n_steps=n_steps, activation=act)
+                    e = max(masked_err(torch, words_k, words_p[:, :, :n],
+                                       core_rows),
+                            max_abs_err(torch, state_k, state_p[:, :n]))
+                    check(e == 0.0, f"{names['chaotic_ann_gang_stacked']} "
+                                    f"!= plain ({shape}, {act}, {n} lanes)")
+                    e4 = max(e4, e)
+                print(f"check scalar gang {shape} {tag} {act}: "
+                      f"chaotic_ann_gang_bits ({n_blocks} blocks of "
+                      f"{n_cores} cores x s_block {s_blocks}, rows "
+                      f"{rows.tolist()}, steps={n_steps}) max_abs_err={e3}; "
+                      f"chaotic_ann_gang_stacked (3 cores x {GANG_X2_LANES} "
+                      f"lanes, rows {srows.tolist()}) max_abs_err={e4}")
+                for name, e in (("chaotic_ann_gang_bits", e3),
+                                ("chaotic_ann_gang_stacked", e4)):
+                    key = (name, tag) if act == "relu" else (name, act, tag)
+                    errs[key] = max(errs.get(key, 0.0), e)
 
 
 def check_lattice_traj_x2(torch, device, errs) -> None:
@@ -1715,10 +1732,17 @@ BF16X2_LATTICE_KERNELS = {
     "chaotic_ann_lattice_gang_bits": "bf16x2_lattice_gang_bits_kernel",
     "chaotic_ann_lattice_gang_stacked": "bf16x2_lattice_gang_stacked_kernel"}
 # the CUDA kernels behind the bf16 scalar K3 and K4 wrappers (the bf16x2 K1's
-# row loop, two lanes a thread); f32 keeps the one-lane forms
+# row loop, two lanes a thread), and the f32 ones (the f32 K1's row loop, a
+# thread a lane)
 BF16X2_GANG_KERNELS = {
     "chaotic_ann_gang_bits": "bf16x2_gang_bits_kernel",
     "chaotic_ann_gang_stacked": "bf16x2_gang_stacked_kernel"}
+F32_GANG_KERNELS = {
+    "chaotic_ann_gang_bits": "f32_gang_bits_kernel",
+    "chaotic_ann_gang_stacked": "f32_gang_stacked_kernel"}
+# the scalar K3 and K4 wrappers, which pass the callers' int64 offsets to
+# their kernels in both dtypes (the lattice and mxu ones pass uint32)
+SCALAR_GANG_WRAPPERS = tuple(F32_GANG_KERNELS)
 # both gangs' bf16 kernels, scalar and lattice
 BF16X2_GANG_X2_KERNELS = {**BF16X2_LATTICE_KERNELS, **BF16X2_GANG_KERNELS}
 KERNELS = ("chaotic_ann_bits", "chaotic_ann_traj", "chaotic_ann_gang_bits",
@@ -2183,9 +2207,9 @@ def phase_farm(torch, device, dtype, tag, card):
                                           2 * rows_f2, cfg.t_block, cfg.unroll)
 
     def gang_bound(rows_per_lane_sum):
-        # each input read once (x0, offsets, weights, maps), each output
-        # written once (the words computed, the state)
-        n_bytes = (2 * n_cores * s_pool * i_dim * item + n_cores * s_pool * 4
+        # each input read once (x0, int64 offsets, weights, maps), each
+        # output written once (the words computed, the state)
+        n_bytes = (2 * n_cores * s_pool * i_dim * item + n_cores * s_pool * 8
                    + weight_bytes + rows_per_lane_sum * 4)
         return bound(rows_per_lane_sum * 2 * step_flops(i_dim, h_dim),
                      n_bytes, tag)
@@ -3162,9 +3186,11 @@ class GangRecorder:
         n_words = int(lane_rows.sum()) * (x0.shape[1] if x0.ndim == 3 else 1)
         item = x0.element_size()
         n_maps = n_cores if x0.ndim == 3 else 2 * len(kw["core_map"])
-        # x0 read, state written, offsets, weights (and the coupling
-        # operand on the mxu) and maps read, the words computed written
-        n_bytes = (2 * n_lanes * i_dim * item + n_lanes * 4
+        # x0 read, state written, offsets (int64 in the scalar gangs,
+        # uint32 in the others), weights (and the coupling operand on the
+        # mxu) and maps read, the words computed written
+        scalar = rec["kernel"] in SCALAR_GANG_WRAPPERS
+        n_bytes = (2 * n_lanes * i_dim * item + n_lanes * (8 if scalar else 4)
                    + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
                    + n_maps * 4 + n_words * 4)
         extra = act_flops(h_dim, act)
@@ -3453,6 +3479,8 @@ def gang_act_rows(names, tag, path_name, path, times, walls, splits, errs,
             }
             if tag == "bf16" and name in BF16X2_GANG_X2_KERNELS:
                 row["kernel"] = BF16X2_GANG_X2_KERNELS[name]
+            elif tag == "f32" and name in F32_GANG_KERNELS:
+                row["kernel"] = F32_GANG_KERNELS[name]
             f2 = times.get((name, act, "F2"))
             if f2:
                 row.update(ms_f2=f2["ms"], plain_ms_f2=f2["plain_ms"],
@@ -4571,8 +4599,8 @@ def run_phases(torch, device, card, log, sass) -> int:
                 rows[-1].update(ms_f1_padded=t["k3_f1"],
                                 bound_ms_f1_padded=t["k3_f1_bound"][0],
                                 f2_hot_rows=t["rows_f2"])
-            if tag == "bf16":
-                rows[-1]["kernel"] = BF16X2_GANG_KERNELS[name]
+            rows[-1]["kernel"] = (BF16X2_GANG_KERNELS if tag == "bf16"
+                                  else F32_GANG_KERNELS)[name]
     phase_done("farm path")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         launches, t, words = phase_served(

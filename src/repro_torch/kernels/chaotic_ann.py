@@ -110,6 +110,21 @@ def _int32_on_card(a: np.ndarray, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _offsets_i64(word_offset, shape, device) -> torch.Tensor:
+    """The scalar K1/K3/K4's word-row offsets: a contiguous int64 tensor of
+    ``shape`` on ``device``, whose low 32 bits the kernels read (the offset
+    mod 2**32, as ``ops.word_offsets`` gives it).  An int64 tensor of that
+    shape on the device, as the farm and the services pass, goes as it is,
+    so that no device op runs before the kernel."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    if (isinstance(word_offset, torch.Tensor)
+            and word_offset.dtype == torch.int64
+            and word_offset.device == device
+            and tuple(word_offset.shape) == shape):
+        return word_offset.contiguous()
+    return ops.word_offsets(word_offset, shape, device).contiguous()
+
+
 def _check_steps(n_steps: int) -> None:
     if n_steps < 2 or n_steps % 2:
         raise ValueError(f"n_steps must be even and >= 2, got {n_steps}")
@@ -199,7 +214,7 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                                         word_offset, activation)
     weights, code = _operands(w1, b1, w2, b2, x0)
     n_lanes, n_rows = x0.shape[0], n_steps // 2
-    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    offsets = _offsets_i64(word_offset, n_lanes, x0.device)
     words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
                         device=x0.device)
     state = torch.empty_like(x0)
@@ -702,8 +717,9 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     twice f32's.  Design: a CTA lies inside one lane block, reads its
     block's core and rows, and stages that core's weights in shared
     memory; the TPU's scalar-prefetched maps become two small int32 arrays
-    the CTA reads itself.  f32 (``gang_bits_kernel``): the f32 K1's thread
-    per lane, a CTA of 128 lanes, ``s_block`` a multiple of 128.  bf16
+    the CTA reads itself.  f32 (``f32_gang_bits_kernel``): the f32 K1's
+    row loop (``f32_rows``), a thread a lane, CTAs of 128 lanes indexed by
+    (block, CTA in the block), ``s_block`` a multiple of 128.  bf16
     (``bf16x2_gang_bits_kernel``): the bf16x2 K1's row loop, two lanes a
     thread packed in one register, every op one ``add/sub/mul.rn.bf16x2``
     with no f32 round trip, the weights held in registers; a CTA of 64
@@ -738,7 +754,7 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     weights, code = _operands(w1, b1, w2, b2, x0, lead=(n_cores,))
     n_lanes, n_rows = x0.shape[0], n_steps // 2
     maps = _int32_on_card(np.stack([cmap, rows]), x0.device)
-    offsets = ops.to_uint32(ops.word_offsets(word_offset, n_lanes, x0.device))
+    offsets = _offsets_i64(word_offset, n_lanes, x0.device)
     words = torch.empty((n_rows, n_lanes), dtype=torch.uint32,
                         device=x0.device)
     state = torch.empty_like(x0)
@@ -779,7 +795,7 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     ops included), summed over the rows each core really computes.
     Design: a 2-D grid, ``blockIdx.y`` the core, whose weights the CTA
     stages in shared memory; a thread's lanes are counted inside its core.
-    f32 (``gang_stacked_kernel``): one lane a thread.  bf16
+    f32 (``f32_gang_stacked_kernel``): ``f32_rows``, a thread a lane.  bf16
     (``bf16x2_gang_stacked_kernel``): the bf16x2 K1's row loop, two lanes
     a thread packed in one register, no f32 round trip, the weights held
     in registers; a ragged edge mirrors the core's own last lane.  The
@@ -807,8 +823,7 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
                               x_dims=("C", "S", "I"))
     n_lanes = x0.shape[1]
     rows_d = _int32_on_card(rows, x0.device)
-    offsets = ops.to_uint32(ops.word_offsets(
-        word_offset, (n_cores, n_lanes), x0.device))
+    offsets = _offsets_i64(word_offset, (n_cores, n_lanes), x0.device)
     words = torch.empty((n_rows, n_cores, n_lanes), dtype=torch.uint32,
                         device=x0.device)
     state = torch.empty_like(x0)

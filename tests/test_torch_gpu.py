@@ -1251,3 +1251,62 @@ def test_f32_k1_tanh_sigmoid_bitwise_vs_plain_at_odd_lane_counts(system,
         torch.cuda.synchronize()
         _assert_bitwise(words, rw[:, :n].contiguous())
         _assert_bitwise(state, rs[:n])
+
+
+# ---------------------------------------------------------------------------
+# The f32 scalar K3/K4 on the f32 K1's row loop (f32_rows)
+# ---------------------------------------------------------------------------
+
+F32_GANG_S_BLOCKS = (128, 256, 384)
+F32_GANG_LANES = (1, 5, 37, 257)           # K4 lanes a core: ragged CTAs
+F32_GANG_WIDE = 16_384 + 37                # K4 lanes a core: the farm's F1
+
+
+@pytest.mark.parametrize("activation", ("relu",) + ACTIVATIONS)
+@pytest.mark.parametrize("gang", sorted(GANGS))
+def test_f32_gang_kernels_bitwise_vs_plain_on_card(gang, activation):
+    """The f32 K3 and K4 (``f32_gang_bits_kernel``,
+    ``f32_gang_stacked_kernel``): K3 in six blocks with 0, partial and full
+    rows at each s_block, K4 on four cores with a frozen and a partial
+    core at ragged lane counts and at the farm's F1 width, each launch's
+    words (the rows asked for) and state bitwise the plain version's, one
+    launch a call."""
+    _need_card()
+    w = _gang_weights(gang)
+    n_cores, i_dim = w[0].shape[:2]
+    rng = np.random.default_rng(29)
+    n_steps = 16
+    core_map = np.array([2, 0, 3, 1, 1, 2]) % n_cores
+    rows = np.array([0, 3, 8, 1, 8, 5])
+    k3, k4 = chaotic_ann.chaotic_ann_gang_bits, chaotic_ann.chaotic_ann_gang_stacked
+    for s_block in F32_GANG_S_BLOCKS:
+        n_lanes = len(core_map) * s_block
+        x0 = torch.from_numpy(_x0_np(rng, (n_lanes, i_dim))).cuda()
+        off = torch.from_numpy(_off_np(rng, n_lanes)).cuda()
+        n0 = k3.launches
+        words, state = k3(*w, x0, core_map, off, rows, n_steps=n_steps,
+                          s_block=s_block, t_block=n_steps, unroll=1,
+                          activation=activation)
+        assert k3.launches == n0 + 1
+        rw, rs = ref.chaotic_ann_gang_bits_ref(*w, x0, core_map, n_steps,
+                                               off, rows, activation)
+        torch.cuda.synchronize()
+        for g, r in enumerate(rows):
+            lanes = slice(g * s_block, (g + 1) * s_block)
+            _assert_bitwise(words[:r, lanes], rw[:r, lanes])
+        _assert_bitwise(state, rs)
+    w4 = [a[torch.arange(4, device="cuda") % n_cores] for a in w]
+    srows = [0, 5, 8, 3]
+    for n in F32_GANG_LANES + (F32_GANG_WIDE,):
+        xs = torch.from_numpy(_x0_np(rng, (4, n, i_dim))).cuda()
+        offs = torch.from_numpy(_off_np(rng, (4, n))).cuda()
+        n0 = k4.launches
+        words, state = k4(*w4, xs, offs, srows, n_steps=n_steps,
+                          activation=activation)
+        assert k4.launches == n0 + 1
+        rw, rs = ref.chaotic_ann_gang_stacked_ref(*w4, xs, n_steps, offs,
+                                                  srows, activation)
+        torch.cuda.synchronize()
+        for c, r in enumerate(srows):
+            _assert_bitwise(words[:r, c], rw[:r, c])
+        _assert_bitwise(state, rs)

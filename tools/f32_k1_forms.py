@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Three choices in the f32 vpu K1 (``bits_kernel`` and
+"""Four choices in the f32 vpu K1 (``bits_kernel`` and
 ``lattice_bits_kernel`` in ``src/repro_torch/kernels/csrc/chaotic_ann.cu``),
-timed: the library as built (the scalar K1 leaves its weights in shared
-memory, from where ptxas loads them before the row loop; ``exp_f32``
-floors with ``floorf``, SASS FRND; the formulas clamp with ``clamp_nan``,
-max.NaN and min.NaN) against three copies of the source: one whose scalar
-K1 copies the weights into registers first, as ``bf16x2_traj_kernel``
-does ("registers"), one whose ``exp_f32`` floors by adding
-and subtracting 1.5 * 2^23, one less where that rounded up ("magic"), and
-one whose ``clamp_nan`` is ``clampf``'s compares and selects ("ternary").
+timed: the library as built (the f32 row loop, ``f32_rows``, copies the
+weights from shared memory into registers first, as ``bf16x2_traj_kernel``
+does; ``exp_f32`` floors with ``floorf``, SASS FRND; the formulas clamp
+with ``clamp_nan``, max.NaN and min.NaN) against four copies of the
+source: one whose row loop reads the weights from shared memory, from
+where ptxas loads them before the loop ("shared"), one whose sums start
+from +0 plus their first term, as the plain version's (``f32_step`` starts
+from the first term: "plus0"), one whose ``exp_f32`` floors by adding and
+subtracting 1.5 * 2^23, one less where that rounded up ("magic"), and one
+whose ``clamp_nan`` is ``clampf``'s compares and selects ("ternary").
 Needs a CUDA card and nvcc.
 
     python3 tools/f32_k1_forms.py
@@ -36,12 +38,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # (text as built, text in the form) of each form's patches
 FORMS = {
     "built": (),
-    "registers": ((
-        "  emit_rows<T, I, H, ACT>(x, w, offsets[lane], words + lane, "
-        "n_lanes, n_rows);\n",
-        "  const Weights<I, H> wr = w;\n"
-        "  emit_rows<T, I, H, ACT>(x, wr, offsets[lane], words + lane, "
-        "n_lanes, n_rows);\n"),),
+    "shared": ((
+        "  const Weights<I, H> w = ws;\n",
+        "  const Weights<I, H>& w = ws;\n"),),
+    "plus0": ((
+        "h[k] = __fmul_rn(w.w1[k], x[0]);",
+        "h[k] = __fadd_rn(0.0f, __fmul_rn(w.w1[k], x[0]));"), (
+        "y[i] = __fmul_rn(w.w2[i], h[0]);",
+        "y[i] = __fadd_rn(0.0f, __fmul_rn(w.w2[i], h[0]));")),
     "magic": ((
         "  const float fx = floorf(__fmaf_rn(x, 0x1.715476p+0f, 0.5f));\n"
         "  const uint32_t k = __float_as_uint(__fadd_rn(fx, kRound));\n",

@@ -85,8 +85,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    pool's state before the first flush).
 4. NIST monobit / runs / block frequency on 2**20 served words per dtype,
    under the JAX package's policy (``repro/prng/quality.py``): f32 words
-   must pass outright; a bf16 core must not be quarantined by the offline
-   gate recipe.  The 2**20 served bf16 words are tested and printed, not
+   must pass outright; bf16 chen must not be quarantined by the offline
+   gate (``repro_torch.prng.quality.nist_gate``).  The 2**20 served bf16 words are tested and printed, not
    gated: the reference's bf16 lanes coalesce onto shared orbits, so
    served bf16 words repeat across lanes (ROADMAP.md queue 3).
 5. The farm path, per dtype: ``OscillatorFarm`` over the five committed
@@ -105,6 +105,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    In bf16 the K3 and K4 are the bf16x2 kernels on the K1's row loop;
    K3's ragged F2 is printed beside its chain floor (one thread's rows at
    the loop's SASS count, after the SASS phase).
+5b. The serving tier.  (a) ``sweep_registry()``: the five registry systems
+   in f32 and bf16 at the gate's recipe (30,000 words, 256 lanes, seed 0),
+   each verdict printed with its p-values and ``quarantined_systems``, no
+   f32 pair quarantined (the bf16 verdicts are printed, not gated), each
+   pair's first 8,192 words bitwise the plain version's; the legacy
+   ``draw_words`` (K2) bitwise plain.  (b) The committed farm under
+   ``AsyncOscillatorFarm`` (offload on) with a ``HealthMonitor``, an
+   ``AdmissionController``, a ``FlushJournal`` and a seeded ``FaultPlan``
+   (transient launch failures; chen's monitor samples poisoned, chen with
+   a standby): 128 clients a core, 32 tenant coroutines, rounds of one
+   ``flush_now`` with 10 ms deadlines, until a round serves nothing (the
+   online gate quarantines every bf16 core of this farm on its own
+   coalescing lanes within about 40 rounds) or 64 rounds.  Every served
+   word is held bitwise to a farm with no fault plan serving the same
+   requests (quarantines and rotations mirrored after the same round);
+   the monitor's launch failures must equal the plan's injections, no
+   flush error, chen quarantined by its poisoned window and rotated once,
+   any other quarantine backed by a failing window of its own words, a
+   draw refused only on a core quarantined with no standby, K3 and K4
+   launched by the front end's flushes (the counters read around its own
+   ``register`` and ``flush_now`` calls alone); then ``replay_journal``
+   onto a fresh farm must restore every position and its next flush must
+   equal the served farm's.  Prints the flush wall (round 0, the
+   rotation's, alone; then p50/p90/max, by cores serving, split by the
+   farm's ``profile_stats``) beside the sync farm's, the deadline misses,
+   the host's garbage collections and each kernel's launches.
 6. The lattice path, per dtype: phase 3 on chen@ring32 (32 chen nodes on
    a ring, I = 96, vpu; derived from chen's committed weights), 512
    clients x 128 lanes, 16,384 words per client per flush (128 word
@@ -463,10 +489,34 @@ N_CLIENTS = 512
 LANES_PER_CLIENT = 128
 WORDS_PER_CLIENT = 65_536
 NIST_WORDS = 1 << 20
-# repro/prng/quality.py: alpha, hard alpha, chance failures a bf16 core
-# may lose before quarantine, words and lanes of the offline gate recipe
-NIST_ALPHA, NIST_ALPHA_HARD, NIST_MAX_CHANCE_FAILS = 0.01, 1e-6, 1
-GATE_WORDS, GATE_STREAMS = 30_000, 256
+# the served-word checks' alpha (repro/prng/quality.py's GATE_ALPHA)
+NIST_ALPHA = 0.01
+# the serving tier: the offline sweep at the gate's recipe (30,000 words
+# from 256 fresh lanes, seed 0; repro/prng/quality.py), each pair's words
+# held bitwise to the plain version on the first GATE_CUT_ROWS rows
+GATE_STREAMS, GATE_CUT_ROWS = 256, 32
+# the async front-end over the committed farm: 128 clients a core spread
+# over SERVE_TENANTS tenant coroutines, one flush a round, a client's
+# words a round by the round's shape (U uniform, S skewed: SERVE_HOT's
+# clients hot); from round SERVE_EXTRA_ROUND one more lorenz client makes
+# the pools unequal (K3's lane-concat layout), as the farm phase's F3
+SERVE_CLIENTS, SERVE_TENANTS = 128, 32
+# at most this many rounds: the committed farm's bf16 lanes coalesce, and
+# the online gate has quarantined every core within about 40 rounds
+# (PERF.md section 7); the phase stops at the first round that serves
+# nothing
+SERVE_ROUNDS = "US" * 32
+SERVE_PRINT_EVERY = 8                    # a round's line, and every change
+SERVE_WORDS = {"U": 1_024, "S": 256}
+SERVE_HOT, SERVE_HOT_WORDS = "chua", 4_096
+SERVE_EXTRA_ROUND = 3
+SERVE_POISON = "chen"                    # poisoned samples, has a standby
+SERVE_FAULTS = dict(seed=3, transient_rate=0.2, max_transients=4)
+SERVE_HEALTH = dict(breaker_threshold=5, backoff_base_ms=1.0, seed=0)
+# the async demo's deadline (examples/async_demo.py); flush_now follows
+# the submissions at once, so a miss is how far the flush ran past it
+SERVE_DEADLINE_MS = 10.0
+DRAW_WORDS = (65_536, 256, 16)           # draw_words: words, lanes, burn-in
 
 FARM_DIR = ROOT / "results" / "generated_cores" / "farm"
 # the committed farm's gangs: its four 3-8-3 cores, and hyperlorenz's farm
@@ -4494,8 +4544,7 @@ def nist3(words: np.ndarray):
 
 
 def phase_nist(torch, device, served) -> None:
-    from repro_torch.prng.nist import run_nist_subset
-    from repro_torch.prng.stream import ChaoticPRNG, default_params
+    from repro_torch.prng.quality import nist_gate
 
     for tag, words in served.items():
         p, failed = nist3(words)
@@ -4505,18 +4554,422 @@ def phase_nist(torch, device, served) -> None:
                  f"; failed {failed}, not gated (bf16 lanes coalesce)"))
         if tag == "f32":
             check(not failed, f"f32 served words fail NIST {failed}")
-    # the offline gate recipe of repro/prng/quality.py::nist_gate, bf16
-    eng = ChaoticPRNG(default_params(system="chen"), n_streams=GATE_STREAMS,
-                      dtype=torch.bfloat16, device=device)
-    res = run_nist_subset(eng.next_words(eng.init(seed=0), GATE_WORDS)[0],
-                          alpha=NIST_ALPHA)
-    failed = [k for k, v in res.items() if not v["passed"]]
-    hard = [k for k, v in res.items() if v["p_value"] < NIST_ALPHA_HARD]
-    print(f"nist gate bf16 chen ({GATE_WORDS} words, {GATE_STREAMS} lanes, "
-          f"7 tests): " + ", ".join(f"{k} p={v['p_value']:.4g}"
-                                    for k, v in res.items()))
-    check(len(failed) <= NIST_MAX_CHANCE_FAILS and not hard,
-          f"bf16 chen quarantined by the NIST gate: {failed} (hard {hard})")
+    # the offline gate (repro_torch.prng.quality.nist_gate), bf16 chen
+    res = nist_gate("chen", "bfloat16", device=device)
+    print(f"nist gate bf16 chen ({res['n_words']} words, {GATE_STREAMS} "
+          f"lanes, 7 tests): " + ", ".join(
+              f"{k} p={v:.4g}" for k, v in res["p_values"].items()))
+    check(not res["quarantined"],
+          f"bf16 chen quarantined by the NIST gate: {res['failed_tests']} "
+          f"(hard {res['hard_failed_tests']})")
+
+
+def phase_sweep(torch, device, card) -> dict:
+    """Part (a) of the serving tier: ``sweep_registry`` of the five
+    systems in f32 and bf16 at the gate's recipe on the card, each pair's
+    words held bitwise to the plain version (``backend="ref"``) on the
+    first GATE_CUT_ROWS rows of the 256 lanes; no f32 pair may be
+    quarantined, the bf16 verdicts are printed.  Returns the K1 launches
+    of each dtype's sweep."""
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.prng.quality import quarantined_systems, sweep_registry
+    from repro_torch.prng.stream import ChaoticPRNG, default_params
+
+    launches, sweep = {}, {}
+    t0 = time.perf_counter()
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        zero_launches(chaotic_ann)
+        sweep.update(sweep_registry(dtypes=(dtype,),
+                                    n_streams=GATE_STREAMS, device=device))
+        got = read_launches(chaotic_ann)
+        check(got["chaotic_ann_bits"] > 0 and sum(got.values())
+              == got["chaotic_ann_bits"],
+              f"sweep {tag}: expected chaotic_ann_bits launches alone, got "
+              f"{got}")
+        launches[("chaotic_ann_bits", tag)] = got["chaotic_ann_bits"]
+    t_sweep = time.perf_counter() - t0
+    for key, res in sweep.items():
+        print(f"sweep {key} ({res['n_words']} words, {GATE_STREAMS} lanes): "
+              + ", ".join(f"{k} p={v:.4g}" for k, v in
+                          res["p_values"].items())
+              + f"; failed {res['failed_tests']}, hard "
+                f"{res['hard_failed_tests']}, quarantined "
+                f"{res['quarantined']}")
+    quarantined = quarantined_systems(sweep)
+    print(f"sweep quarantined_systems: {quarantined}; {t_sweep:.1f} s; "
+          f"card {card}")
+    check(not [s for s, d in quarantined.items() if "float32" in d],
+          f"an f32 registry pair is quarantined: {quarantined}")
+    cut = GATE_CUT_ROWS * GATE_STREAMS
+    for key, res in sweep.items():
+        dtype = {"float32": torch.float32,
+                 "bfloat16": torch.bfloat16}[res["dtype"]]
+        words = [eng.next_words(eng.init(seed=0), cut)[0] for eng in (
+            ChaoticPRNG(default_params(system=res["system"]),
+                        n_streams=GATE_STREAMS, dtype=dtype, backend=b,
+                        device=device) for b in ("auto", "ref"))]
+        check(np.array_equal(*words),
+              f"sweep {key}: kernel words differ from the plain version's")
+    print(f"sweep: every pair's first {cut} words bitwise the plain "
+          f"version's")
+    return launches
+
+
+def phase_draw_words(torch, device, card) -> dict:
+    """The legacy one-shot ``draw_words`` (K2 + the packing stage) on
+    chen, f32: bitwise its plain version; returns its K2 launches."""
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.prng.stream import default_params, draw_words
+
+    w = default_params(system="chen")
+    n_words, lanes, burn = DRAW_WORDS
+    args = (w["w1"], w["b1"], w["w2"], w["b2"], 0xC0FFEE, n_words, lanes,
+            burn, "relu")
+    zero_launches(chaotic_ann)
+    got = draw_words(*args, "auto", device=device)
+    torch.cuda.synchronize()
+    n = read_launches(chaotic_ann)
+    check(n["chaotic_ann_traj"] == 1 and sum(n.values()) == 1,
+          f"draw_words: expected one chaotic_ann_traj launch, got {n}")
+    want = draw_words(*args, "ref", device=device)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and got.shape == (n_words,),
+          "draw_words: kernel words differ from the plain version's")
+    print(f"draw_words chen f32: {n_words} words from {lanes} lanes, "
+          f"burn-in {burn}: one chaotic_ann_traj launch, bitwise the plain "
+          f"version; card {card}")
+    return {("chaotic_ann_traj", "f32"): n["chaotic_ann_traj"]}
+
+
+def serving_farm(device, faults=None):
+    """The committed farm (bf16, from ``generate_farm``) with a standby of
+    SERVE_POISON on its own committed weights and solution."""
+    from repro_torch.serve.farm import OscillatorFarm
+    farm = OscillatorFarm.from_generated(FARM_DIR, profile=True,
+                                         faults=faults, device=device)
+    svc = farm.services[SERVE_POISON]
+    farm.add_standby(SERVE_POISON, {k: svc.params[k] for k in
+                                    ("w1", "b1", "w2", "b2")},
+                     config=svc.config, dtype=svc.dtype,
+                     activation=svc.activation)
+    return farm
+
+
+def serve_round(round_, shape, cores):
+    """{(core, client): words} of one round, and its sorted tenant map."""
+    reqs = {}
+    for core in cores:
+        for i in range(SERVE_CLIENTS + (core == "lorenz"
+                                        and round_ >= SERVE_EXTRA_ROUND)):
+            n = SERVE_WORDS[shape]
+            if shape == "S" and core == SERVE_HOT:
+                n = SERVE_HOT_WORDS
+            reqs[(core, f"c{i:03d}")] = n
+    return reqs
+
+
+def phase_frontend(torch, device, card) -> dict:
+    """Part (b) of the serving tier: the committed farm under
+    ``AsyncOscillatorFarm`` (offload on, a ``HealthMonitor``, an
+    ``AdmissionController``, a ``FlushJournal``, a seeded ``FaultPlan``
+    with transient launch failures and SERVE_POISON's samples poisoned),
+    SERVE_TENANTS tenant coroutines, one ``flush_now`` a round.  Every
+    served word is held bitwise to a farm with no fault plan serving the
+    same requests (with the same quarantines and rotations applied after
+    the same round); then ``replay_journal`` onto a fresh farm, whose
+    positions and next flush must equal the served farm's.  The launch
+    counters are read around the front end's own calls alone
+    (``register`` and ``flush_now``), never around the reference farm's."""
+    import asyncio
+    import collections
+    import gc
+    import tempfile
+
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.serve.admission import AdmissionController
+    from repro_torch.serve.async_frontend import (AsyncOscillatorFarm,
+                                                  percentile)
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.health import CoreQuarantined, HealthMonitor
+    from repro_torch.serve.journal import (FlushJournal, farm_positions,
+                                           read_journal, replay_journal)
+
+    t_start = time.perf_counter()
+    plan = FaultPlan(poison={SERVE_POISON}, **SERVE_FAULTS)
+    farm = serving_farm(device, faults=plan)
+    ref = serving_farm(device)
+    cores = farm.cores
+    health = HealthMonitor(**SERVE_HEALTH)
+    admission = AdmissionController(max_queued_rows=1 << 20)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_journal_")
+    jpath = pathlib.Path(tmp.name) / "farm.journal"
+    journal = FlushJournal(jpath)
+    fe_walls, sync_walls, mismatches, refused = [], [], [], []
+    misses = []                 # deadline-miss samples (ms) of each round
+    serving = []                # cores that served words, each round
+    counts = {"register": collections.Counter(),
+              "flush": collections.Counter()}
+    served = 0
+
+    def counted(what, fn, *args, **kwargs):
+        zero_launches(chaotic_ann)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            counts[what].update(read_launches(chaotic_ann))
+
+    def stages():
+        p = farm.profile_stats
+        return {"plan+stack": p["plan"] + p["stack"], "launch": p["launch"],
+                "absorb": p["absorb"]}
+
+    async def run():
+        nonlocal served
+        async with AsyncOscillatorFarm(
+                farm, health=health, admission=admission, journal=journal,
+                stats_window=len(SERVE_ROUNDS) * (len(cores) + 1)
+                * SERVE_CLIENTS) as af:
+            seeds = {(core, f"c{i:03d}"): 7000 + 1000 * k + i
+                     for k, core in enumerate(cores)
+                     for i in range(SERVE_CLIENTS)}
+            for key, seed in seeds.items():
+                counted("register", af.register, *key, seed=seed)
+            for key, seed in seeds.items():
+                ref.register(*key, seed=seed)
+            for r, shape in enumerate(SERVE_ROUNDS):
+                if r == SERVE_EXTRA_ROUND:
+                    key = ("lorenz", f"c{SERVE_CLIENTS:03d}")
+                    counted("register", af.register, *key, seed=99)
+                    ref.register(*key, seed=99)
+                reqs = serve_round(r, shape, cores)
+                keys = sorted(reqs)
+                submitted = []
+
+                async def tenant(t):
+                    futs = {}
+                    for key in keys[t::SERVE_TENANTS]:
+                        try:
+                            futs[key] = af.submit(
+                                *key, reqs[key],
+                                deadline_ms=SERVE_DEADLINE_MS)
+                        except CoreQuarantined as e:
+                            refused.append((r, key, e.core))
+                    submitted.append(t)
+                    out = {}
+                    for key, f in futs.items():
+                        try:
+                            out[key] = await f
+                        except CoreQuarantined as e:
+                            refused.append((r, key, e.core))
+                    return out
+
+                t_submit = time.perf_counter()
+                tasks = [asyncio.ensure_future(tenant(t))
+                         for t in range(SERVE_TENANTS)]
+                while len(submitted) < SERVE_TENANTS:
+                    await asyncio.sleep(0)
+                before, n_miss = stages(), len(af.miss_samples_ms())
+                zero_launches(chaotic_ann)
+                t0 = time.perf_counter()
+                t_submit = t0 - t_submit
+                await af.flush_now()
+                fe_walls.append(time.perf_counter() - t0)
+                counts["flush"].update(read_launches(chaotic_ann))
+                split = {k: v - before[k] for k, v in stages().items()}
+                misses.append(af.miss_samples_ms()[n_miss:])
+                got = {}
+                for out in await asyncio.gather(*tasks):
+                    got.update(out)
+                serving.append(len({core for core, _ in got}))
+                for key, n in reqs.items():
+                    if key in got and key[0] not in ref.quarantined:
+                        ref.request(*key, n)
+                t0 = time.perf_counter()
+                want = ref.flush()
+                torch.cuda.synchronize()
+                sync_walls.append(time.perf_counter() - t0)
+                for key, words in got.items():
+                    served += words.size
+                    if not np.array_equal(words, want[key[0]][key[1]]):
+                        mismatches.append((r, key))
+                # the same topology changes, after the same round
+                changed = False
+                for core in sorted(farm.quarantined - ref.quarantined):
+                    ref.quarantine(core, reason="mirrored")
+                    changed = True
+                for core, n in farm.rotations.items():
+                    while ref.rotations.get(core, 0) < n:
+                        ref.quarantine(core, reason="mirrored")
+                        ref.rotate(core)
+                        changed = True
+                if changed or r % SERVE_PRINT_EVERY == 0 or not got:
+                    split["rest"] = fe_walls[-1] - sum(split.values())
+                    print(f"serving round {r} ({shape}): {len(got)} draws "
+                          f"submitted in {t_submit * 1e3:.1f} ms, "
+                          f"front-end flush {fe_walls[-1] * 1e3:.1f} ms ("
+                          + ", ".join(f"{k} {v * 1e3:.1f}"
+                                      for k, v in split.items())
+                          + f" ms), deadline miss max "
+                            f"{max(misses[-1], default=0.0):.1f} ms, sync "
+                            f"farm flush {sync_walls[-1] * 1e3:.1f} ms; "
+                            f"quarantined "
+                            f"{sorted(farm.quarantined)}, rotations "
+                            f"{farm.rotations}")
+                if not got:
+                    break           # every core quarantined, no standby
+            return af.flushes, list(af.flush_errors)
+
+    # the host's garbage collections while serving: a pause on the loop
+    # or the launch thread lands in a flush wall and its deadline misses
+    pauses, gc_t0 = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0["t"] = time.perf_counter()
+        elif "t" in gc_t0:
+            pauses.append((info["generation"],
+                           time.perf_counter() - gc_t0.pop("t"),
+                           len(fe_walls)))        # the round under way
+
+    gc.callbacks.append(on_gc)
+    try:
+        flushes, errors = asyncio.run(run())
+    finally:
+        gc.callbacks.remove(on_gc)
+    journal.close()
+    t_serve = time.perf_counter() - t_start
+    launches = counts["register"] + counts["flush"]
+    events = read_journal(jpath)[0]
+    reasons = [(ev[1], ev[2]) for ev in events if ev[0] == "quarantine"]
+    stats = dict(health.stats)
+    by_core = {}
+    for r, _, core in refused:
+        first, n = by_core.get(core, (r, 0))
+        by_core[core] = (min(first, r), n + 1)
+    print(f"serving tier: {flushes} flushes, {farm.launches} farm launches, "
+          f"the front end's kernel launches: at registration (burn-ins) "
+          f"{ {k: v for k, v in counts['register'].items() if v} }, in its "
+          f"flushes { {k: v for k, v in counts['flush'].items() if v} }; "
+          f"{served} words served; faults injected {plan.injected}; health "
+          f"{stats}; admission {admission.stats()}; quarantines {reasons}; "
+          f"rotations {farm.rotations}; refused draws {{core: (first round, "
+          f"draws)}} {by_core}; planner decisions {farm.plan_decisions}")
+
+    def dist(xs, scale=1e3):
+        # p99 only where it is not the largest sample or next to it
+        p99 = (f"p99 {percentile(xs, 0.99) * scale:.1f} ms, "
+               if len(xs) >= 100 else "")
+        return (f"p50 {percentile(xs, 0.5) * scale:.1f} ms, p90 "
+                f"{percentile(xs, 0.9) * scale:.1f} ms, {p99}max "
+                f"{max(xs) * scale:.1f} ms")
+
+    # round 0 holds SERVE_POISON's rotation (its standby's burn-ins) and
+    # the executor thread's first launch: it is reported alone
+    work = [r for r in range(1, len(fe_walls)) if serving[r]]
+    by_cores = {}
+    for r in work:
+        by_cores.setdefault(serving[r], []).append(fe_walls[r])
+    p50_by_cores = {k: (len(v), round(percentile(v, 0.5) * 1e3, 1))
+                    for k, v in sorted(by_cores.items(), reverse=True)}
+    print(f"serving tier flush wall, round 0 alone: front-end "
+          f"{fe_walls[0] * 1e3:.1f} ms, sync farm {sync_walls[0] * 1e3:.1f}"
+          f" ms; over the {len(work)} later rounds that served words: "
+          f"front-end {dist([fe_walls[r] for r in work])}; sync farm "
+          f"{dist([sync_walls[r] for r in work])}; front-end {{cores "
+          f"serving: (rounds, p50 ms)}} {p50_by_cores}; {t_serve:.1f} s; "
+          f"card {card}")
+    later = [m for r in work for m in misses[r]]
+    print(f"serving tier deadline misses at {SERVE_DEADLINE_MS:g} ms "
+          f"deadlines: round 0's {len(misses[0])} draws p50 "
+          f"{percentile(misses[0], 0.5):.1f} ms, max {max(misses[0]):.1f} "
+          f"ms; the later rounds' {len(later)} draws {dist(later, 1.0)}, "
+          f"missed {sum(m > 0 for m in later)}; card {card}")
+    gen2 = collections.Counter()
+    for g, t, r in pauses:
+        if g == 2:
+            gen2[r] += round(t * 1e3, 1)
+    print(f"serving tier host garbage collections: {len(pauses)}, "
+          f"{sum(t for _, t, _ in pauses) * 1e3:.1f} ms in all; generation "
+          f"2 {{round: ms}}: {dict(gen2)}")
+    for core, gate in sorted(health.last_gate.items()):
+        print(f"serving tier last window {core}: " + ", ".join(
+            f"{k} p={v:.4g}" for k, v in gate["p_values"].items())
+            + f"; failed {gate['failed_tests']}")
+    check(not errors, f"serving tier: flush errors {errors}")
+    check(stats["launch_failures"] == plan.injected["transient"]
+          + plan.injected["persistent"],
+          f"serving tier: {stats['launch_failures']} launch failures, the "
+          f"plan injected {plan.injected}")
+    check(plan.injected["transient"] > 0 and stats["retries"] > 0,
+          f"serving tier: no transient failure was retried ({plan.injected},"
+          f" {stats})")
+    check(not mismatches, f"serving tier: {len(mismatches)} draws differ "
+                          f"from the fault-free farm: {mismatches[:4]}")
+    check(all(c == key[0] and c in farm.quarantined
+              for _, key, c in refused),
+          f"serving tier: draws refused on a core that is not quarantined "
+          f"with no standby: {refused[:4]}")
+    check(farm.rotations.get(SERVE_POISON) == 1
+          and any(c == SERVE_POISON and r.startswith("online quality hard")
+                  for c, r in reasons),
+          f"serving tier: {SERVE_POISON} not quarantined by its poisoned "
+          f"window and rotated once ({reasons}, {farm.rotations})")
+    # every later quarantine (SERVE_POISON's standby included) comes from
+    # a failing window of the core's own real words
+    poisoned = [c for c, _ in reasons].index(SERVE_POISON)
+    for i, (core, reason) in enumerate(reasons):
+        check(reason.startswith("online quality")
+              or (reason.startswith("circuit breaker")
+                  and "injected" in reason),
+              f"serving tier: {core} quarantined for {reason!r}")
+        if i != poisoned:
+            check(bool(health.last_gate[core]["failed_tests"]),
+                  f"serving tier: {core} quarantined with no failing "
+                  f"window of its own words")
+    check(counts["flush"]["chaotic_ann_gang_bits"] > 0
+          and counts["flush"]["chaotic_ann_gang_stacked"] > 0,
+          f"serving tier: K3 and K4 not both launched by the front end's "
+          f"flushes: {dict(counts['flush'])}")
+
+    # a new process: the same farm and standby, the journal alone
+    plan.disarm()
+    fresh = serving_farm(device)
+    summary = replay_journal(fresh, jpath)
+    check(farm_positions(fresh) == farm_positions(farm)
+          and fresh.quarantined == farm.quarantined
+          and fresh.rotations == farm.rotations,
+          f"serving tier: replay_journal did not restore the positions "
+          f"({summary})")
+    reqs = serve_round(len(SERVE_ROUNDS), "U", cores)
+    for f in (farm, fresh):
+        for key, n in reqs.items():
+            if key[0] not in f.quarantined:
+                f.request(*key, n)
+    check(same_words(farm.flush(), fresh.flush()),
+          "serving tier: the replayed farm's next flush differs")
+    tmp.cleanup()
+    print(f"serving tier journal: {summary}; replayed farm's next flush "
+          f"bitwise the served farm's")
+    return {("chaotic_ann_bits", "bf16"): launches["chaotic_ann_bits"],
+            ("chaotic_ann_gang_bits", "bf16"):
+                launches["chaotic_ann_gang_bits"],
+            ("chaotic_ann_gang_stacked", "bf16"):
+                launches["chaotic_ann_gang_stacked"]}
+
+
+def phase_serving_tier(torch, device, card) -> dict:
+    """The serving tier: the offline sweep, ``draw_words`` and the async
+    front-end over the committed farm.  Returns {(kernel, dtype):
+    launches} of the phase."""
+    t0 = time.perf_counter()
+    launches = phase_sweep(torch, device, card)
+    launches.update(phase_draw_words(torch, device, card))
+    for key, n in phase_frontend(torch, device, card).items():
+        launches[key] = launches.get(key, 0) + n
+    print(f"serving tier phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {f'{k}/{t}': n for (k, t), n in sorted(launches.items())} }; "
+          f"card {card}")
+    return launches
 
 
 def main() -> int:
@@ -4602,6 +5055,8 @@ def run_phases(torch, device, card, log, sass) -> int:
             rows[-1]["kernel"] = (BF16X2_GANG_KERNELS if tag == "bf16"
                                   else F32_GANG_KERNELS)[name]
     phase_done("farm path")
+    tier = phase_serving_tier(torch, device, card)
+    phase_done("serving tier")
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         launches, t, words = phase_served(
             torch, device, dtype, tag, card, LATTICE, LATTICE_WORDS, 2000,
@@ -4697,6 +5152,11 @@ def run_phases(torch, device, card, log, sass) -> int:
     phase_done("lattice activations")
     rows += phase_mxu_activations(torch, device, card, gen_nets, errs)
     phase_done("mxu activations")
+    # the serving tier's launches, beside each kernel's own path's
+    for row in rows:
+        n = tier.get(tuple(row["name"].split("/")))
+        if n is not None and row["path"] in ("served", "unfused", "farm"):
+            row["serving_tier_launches"] = n
     print(f"phases in all: {time.perf_counter() - t_start:.1f} s (after the "
           f"build)")
     t0 = time.perf_counter()

@@ -252,6 +252,32 @@ class ChaoticStream:
             for i in range(n_children)]
 
 
+def draw_words(w1, b1, w2, b2, counter: int, n_words: int, n_streams: int,
+               burn_in: int, activation: str, backend: str,
+               device="cuda") -> torch.Tensor:
+    """Legacy stateless one-shot draw (kept for API compatibility).
+
+    One trajectory launch (``ops.chaotic_trajectory``, the K2 kernel) from
+    splitmix seeds, then the packing stage: a ``(n_words,)`` uint32 tensor
+    on ``device``.  New code should use ``ChaoticPRNG``: it draws through
+    the fused kernel and resumes instead of re-burning in on every call.
+    """
+    dev = resolve_device(device)
+    params = params_from_numpy({"w1": w1, "b1": b1, "w2": w2, "b2": b2},
+                               device=dev)
+    dim = params["w1"].shape[0]
+    x0 = _splitmix_seeds(int(counter) & _M32, n_streams, dim, dev)
+    # 2 samples -> 1 word; streams interleave in the flattened output.
+    steps_needed = 2 * ((n_words + n_streams - 1) // n_streams) + 2 * burn_in
+    steps_needed = max(steps_needed, 4)
+    traj = ops.chaotic_trajectory(params, x0, steps_needed,
+                                  activation=activation, backend=backend)
+    # Drop ALL 2*burn_in burn-in samples: dropping fewer would emit early
+    # words from a half-burned-in, seed-correlated prefix.
+    words = ops.pack_words(traj[2 * burn_in:])
+    return words.reshape(-1)[:n_words]
+
+
 # ---------------------------------------------------------------------------
 # Read-only weight registry
 # ---------------------------------------------------------------------------
@@ -316,3 +342,10 @@ def default_params(seed: int = 0, system: str = "chen"
     bundle = trained_oscillator(system, seed)
     keys = ("w1", "b1", "w2", "b2", "coupling", "lattice_meta")
     return {k: bundle[k] for k in keys if k in bundle}
+
+
+def default_stream(n_streams: int = 256, seed: int = 0,
+                   system: str = "chen", device="cuda") -> ChaoticStream:
+    """A ready-to-use stream over a registry oscillator (Chen by default)."""
+    return ChaoticStream.from_trained(default_params(seed, system),
+                                      n_streams=n_streams, device=device)

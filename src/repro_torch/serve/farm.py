@@ -47,9 +47,18 @@ farm's goes to lane-concat: ``plan_decisions`` and launch counts can
 differ from the JAX farm's, the words cannot (gang and solo words are
 bitwise equal).
 
-Not ported here: ``attach_monitor`` and the serving tier's health hooks,
-fault injection (ROADMAP.md queue 1, 'Serving tier'), and the mesh
-arguments and topology keys (queue 1, 'Multi-device').
+**Supervision seams**, as in the JAX farm: ``faults=`` (a
+``serve.faults.FaultPlan``) is called before every group, solo and
+``gang=False`` launch does any work and at every flush, and
+``attach_monitor`` installs a sampling hook on every core's service that
+feeds each launch's word slab (through the plan's sample corruption) into
+a ``serve.health.HealthMonitor``; ``quarantine`` and ``rotate`` reset the
+monitor's history of the core.
+
+Not ported here: the mesh arguments and topology keys (ROADMAP.md queue 1,
+'Multi-device').  There is one device, so ``snapshot`` records the JAX
+farm's ``topology`` entry as ``None`` for every core, as a one-device JAX
+farm does.
 """
 from __future__ import annotations
 
@@ -126,8 +135,10 @@ class GangScheduler:
     """
 
     def __init__(self, cost_model: Optional[GangCostModel] = None,
-                 planner: bool = True, clock: Optional[Clock] = None):
+                 planner: bool = True, clock: Optional[Clock] = None,
+                 faults=None):
         self.clock: Clock = clock or SystemClock()
+        self.faults = faults          # FaultPlan (chaos harness) or None
         self._plans: Dict[Tuple, Dict] = {}
         self._decisions: Dict[Tuple, Dict] = {}
         self._dispatch_keys = set()   # (plan key, n_rows, ragged) launched
@@ -336,6 +347,11 @@ class GangScheduler:
                       demands: Sequence[int], *, layout: str, ragged: bool,
                       deliver: bool) -> Dict[str, Dict[str, np.ndarray]]:
         """One gang launch (padded or ragged) for ``members``."""
+        if self.faults is not None:
+            # the injection seam sits BEFORE any kernel work or absorb
+            # bookkeeping: a failed launch leaves every member's demand
+            # parked at the same absolute rows, so a retry is bit-exact
+            self.faults.on_launch([name for name, _, _, _ in members])
         t0 = self.clock.now()
         svc0 = members[0][1]
         cfg = svc0.config
@@ -407,6 +423,8 @@ class GangScheduler:
                      deliver: bool) -> Dict[str, Dict[str, np.ndarray]]:
         """A planner-split singleton: a plain per-core launch."""
         name, svc, _, offsets = member
+        if self.faults is not None:
+            self.faults.on_launch([name])
         t0 = self.clock.now()
         words, new_x = svc._launch(n_rows, offsets)
         t0 = self._tick("launch", t0)
@@ -460,20 +478,23 @@ class OscillatorFarm:
     request).  ``profile=True`` accumulates per-stage flush wall times
     (plan / stack / launch / absorb) in ``profile_stats``, read through
     the injectable ``clock``.  Every core's pool lives on ``device``.
+    ``faults`` is a ``FaultPlan`` (chaos harness) or None.
     """
 
     def __init__(self, *, gang: bool = True, planner: bool = True,
                  gang_cost_model: Optional[GangCostModel] = None,
                  auto_flush_rows: Optional[int] = None,
                  profile: bool = False, clock: Optional[Clock] = None,
-                 device="cuda"):
+                 faults=None, device="cuda"):
         self.device = resolve_device(device)
         self.services: Dict[str, PRNGService] = {}
         self.gang = bool(gang)
         self.auto_flush_rows = auto_flush_rows
         self.clock: Clock = clock or SystemClock()
+        self.faults = faults
         self._sched = GangScheduler(cost_model=gang_cost_model,
-                                    planner=planner, clock=self.clock)
+                                    planner=planner, clock=self.clock,
+                                    faults=faults)
         if profile:
             self._sched.profile = {"plan": 0.0, "stack": 0.0,
                                    "launch": 0.0, "absorb": 0.0,
@@ -484,6 +505,7 @@ class OscillatorFarm:
         self._quarantined: set = set()
         self._standbys: Dict[str, PRNGService] = {}
         self._rotations: Dict[str, int] = {}
+        self.monitor = None           # HealthMonitor via attach_monitor()
 
     # -- core management ----------------------------------------------------
 
@@ -507,6 +529,8 @@ class OscillatorFarm:
                             lanes_per_client=lanes_per_client,
                             burn_in=burn_in, backend=backend)
         self.services[core] = svc
+        if self.monitor is not None:
+            self._install_hook(core)
         return svc
 
     @classmethod
@@ -516,7 +540,8 @@ class OscillatorFarm:
                        gang_cost_model: Optional[GangCostModel] = None,
                        auto_flush_rows: Optional[int] = None,
                        profile: bool = False, clock: Optional[Clock] = None,
-                       device="cuda", **service_kw) -> "OscillatorFarm":
+                       faults=None, device="cuda",
+                       **service_kw) -> "OscillatorFarm":
         """Build a farm from a ``generate_farm`` output directory, read
         only: every subdirectory with weights.npz + solution.json becomes
         a core, and its frozen solution (kernel config, dtype, activation)
@@ -534,7 +559,7 @@ class OscillatorFarm:
         farm = cls(gang=gang, planner=planner,
                    gang_cost_model=gang_cost_model,
                    auto_flush_rows=auto_flush_rows, profile=profile,
-                   clock=clock, device=device)
+                   clock=clock, faults=faults, device=device)
         names = sorted(cores) if cores is not None else sorted(
             p.name for p in farm_dir.iterdir()
             if (p / "solution.json").exists() and (p / "weights.npz").exists())
@@ -612,6 +637,8 @@ class OscillatorFarm:
         self._deferred.discard(core)
         self._sched._plans.clear()
         self._sched._decisions.clear()
+        if self.monitor is not None:
+            self.monitor.reset(core)
         return True
 
     def rotate(self, core: str) -> PRNGService:
@@ -632,7 +659,36 @@ class OscillatorFarm:
         self._rotations[core] = self._rotations.get(core, 0) + 1
         self._sched._plans.clear()
         self._sched._decisions.clear()
+        if self.monitor is not None:
+            self.monitor.reset(core)
+            self._install_hook(core)
         return old
+
+    def attach_monitor(self, monitor) -> None:
+        """Wire a ``HealthMonitor``: every core's service gets a sampling
+        hook that feeds each launch's word slab (bounded, and run through
+        the fault plan's sample corruption when one is attached) into
+        ``monitor.ingest``, off the delivery path.  Under an offloaded
+        front-end the hook runs on the launch executor thread; ``ingest``
+        is thread-safe."""
+        self.monitor = monitor
+        for core in self.services:
+            self._install_hook(core)
+
+    def _install_hook(self, core: str) -> None:
+        svc = self.services[core]
+        monitor, faults = self.monitor, self.faults
+        cap = int(monitor.window_words)
+        if faults is not None:
+            faults.bind(core, svc)
+
+        def hook(slab, _core=core, _svc=svc):
+            w = slab.reshape(-1)[:cap]
+            if faults is not None:
+                w = faults.corrupt_sample(_core, _svc, w)
+            monitor.ingest(_core, w)
+
+        svc.sample_hook = hook
 
     def _check_serving(self, core: str) -> None:
         if core in self._quarantined:
@@ -693,6 +749,8 @@ class OscillatorFarm:
         Returns {core: {client: words}} for every client that received
         words (pending requests and previously parked outbox words alike).
         """
+        if self.faults is not None:
+            self.faults.on_flush()
         plans = {core: svc.prepare_rows()
                  for core, svc in self.services.items()
                  if core not in self._quarantined}
@@ -727,6 +785,8 @@ class OscillatorFarm:
                 prof = self._sched.profile
                 for c in cores:
                     svc = self.services[c]
+                    if self.faults is not None:
+                        self.faults.on_launch([c])
                     t0 = self.clock.now()
                     n_rows = _round_rows(plans[c][0], svc.config.t_block)
                     words, new_x = svc._launch(n_rows, plans[c][1])
@@ -795,17 +855,31 @@ class OscillatorFarm:
 
     def snapshot(self) -> Dict[str, object]:
         """Farm-wide snapshot: every core pool, every client, in flight,
-        with the deferral set, quarantine and rotations."""
+        with the deferral set, quarantine and rotations, and each core's
+        device topology (``None``: one device, as a one-device JAX farm
+        records it)."""
         return {"cores": {core: svc.snapshot()
                           for core, svc in self.services.items()},
                 "gang_launches": self._sched.launches,
                 "deferred": sorted(self._deferred),
                 "quarantined": sorted(self._quarantined),
-                "rotations": dict(self._rotations)}
+                "rotations": dict(self._rotations),
+                "topology": {core: None for core in self.services}}
 
-    def restore(self, snap: Dict[str, object]) -> None:
+    def restore(self, snap: Dict[str, object], *,
+                on_topology_mismatch: str = "refuse") -> None:
         """Restore a snapshot() onto a farm with the SAME cores attached
-        (extra or missing cores raise: a mixed restore point)."""
+        (extra or missing cores raise: a mixed restore point).
+
+        A snapshot that records a mesh topology for a core (taken on a
+        sharded JAX farm) differs from this one-device farm:
+        ``on_topology_mismatch="refuse"`` (default) raises, ``"replan"``
+        drops every cached gang plan and planner decision and restores
+        anyway (stream words do not depend on the device count)."""
+        if on_topology_mismatch not in ("refuse", "replan"):
+            raise ValueError(
+                f"on_topology_mismatch must be 'refuse' or 'replan', "
+                f"got {on_topology_mismatch!r}")
         cores = snap["cores"]
         missing = set(cores) - set(self.services)
         extra = set(self.services) - set(cores)
@@ -813,6 +887,18 @@ class OscillatorFarm:
             raise ValueError(
                 f"snapshot/farm core mismatch: snapshot-only {sorted(missing)}, "
                 f"farm-only {sorted(extra)}")
+        changed = sorted(core for core, topo
+                         in dict(snap.get("topology") or {}).items()
+                         if core in self.services and topo is not None)
+        if changed:
+            if on_topology_mismatch == "refuse":
+                raise ValueError(
+                    f"snapshot device topology differs from this farm's "
+                    f"on cores {changed}; restore(snap, "
+                    f"on_topology_mismatch='replan') to drop cached "
+                    f"plans and re-plan on the current topology")
+            self._sched._plans.clear()
+            self._sched._decisions.clear()
         # rotations replay BEFORE the per-core restores: they re-point
         # routing slots at standbys, whose pools the snapshot then sets
         want = {c: int(n) for c, n in dict(snap.get("rotations", {})).items()}

@@ -66,6 +66,12 @@ class PRNGService:
         self.clients: Dict[str, _Client] = {}
         self.pool_x: Optional[torch.Tensor] = None    # (n_clients * L, I)
         self.launches = 0                             # batched pool launches
+        # Optional observation hook: called with each launch's raw word
+        # slab inside absorb(), off the delivery path (the farm's
+        # health-monitoring seam, ``OscillatorFarm.attach_monitor``).  It
+        # must be cheap and thread-safe: under an offloaded front-end,
+        # absorb() runs on the launch executor thread.
+        self.sample_hook = None
         # Words already served by a flush but not yet returned to their
         # requester (a draw() for one client must not drop co-tenants'
         # flushed requests).
@@ -149,6 +155,8 @@ class PRNGService:
         L = self.lanes_per_client
         if n_rows > 0:
             words = np.asarray(words)
+            if self.sample_hook is not None:
+                self.sample_hook(words)
             active = [c for c in self._by_slot() if c.pending - len(c.buf) > 0]
             for c in active:
                 mine = words[:, c.slot * L:(c.slot + 1) * L].reshape(-1)

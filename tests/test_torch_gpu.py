@@ -1310,3 +1310,77 @@ def test_f32_gang_kernels_bitwise_vs_plain_on_card(gang, activation):
         for c, r in enumerate(srows):
             _assert_bitwise(words[:r, c], rw[:r, c])
         _assert_bitwise(state, rs)
+
+
+# ---------------------------------------------------------------------------
+# The word-quality gate and the serving tier on the card
+# ---------------------------------------------------------------------------
+
+SWEEP_SYSTEMS = ("chen", "chua", "hyperlorenz", "lorenz", "rossler")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("system", SWEEP_SYSTEMS)
+def test_gate_words_kernel_vs_plain_on_card(system, dtype):
+    """The offline gate's recipe (``ChaoticPRNG``, 256 lanes, seed 0) on
+    the card: the K1 kernel's words bitwise the plain version's
+    (``backend="ref"``) on a cut of rows, and ``nist_gate`` there reaches
+    the verdict of the same gate over the plain words."""
+    _need_card()
+    from repro_torch.prng import quality
+    from repro_torch.prng.stream import ChaoticPRNG
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    engs = [ChaoticPRNG(default_params(system=system), n_streams=256,
+                        dtype=tdt, backend=b) for b in ("auto", "ref")]
+    n0 = chaotic_ann.chaotic_ann_bits.launches
+    kw, rw = [e.next_words(e.init(seed=0), 256 * 64)[0] for e in engs]
+    assert chaotic_ann.chaotic_ann_bits.launches > n0
+    np.testing.assert_array_equal(kw, rw)
+    got = quality.nist_gate(system, dtype, n_words=8_192)
+    plain = quality.nist_gate(system, dtype, n_words=8_192, backend="ref")
+    assert got == plain
+
+
+def test_retried_flush_under_the_frontend_on_card():
+    """One flush of the committed farm's 3-8-3 cores under the async
+    front-end on the card, offloaded to its executor thread, fails once by
+    plan and is retried: every tenant's words are bitwise those of a farm
+    with no fault plan, and the gang kernel launched."""
+    _need_card()
+    import asyncio
+    from repro_torch.serve.async_frontend import AsyncOscillatorFarm
+    from repro_torch.serve.clock import FakeClock
+    from repro_torch.serve.farm import OscillatorFarm
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.health import HealthMonitor
+    cores = ["chen", "chua", "lorenz", "rossler"]
+
+    async def serve(faults):
+        fc = FakeClock()
+        farm = OscillatorFarm.from_generated(FARM, cores=cores, clock=fc,
+                                             faults=faults)
+        health = HealthMonitor(window_words=1 << 20, backoff_base_ms=1.0)
+        async with AsyncOscillatorFarm(farm, clock=fc,
+                                       health=health) as af:
+            for c in cores:
+                af.register(c, "t", seed=5)
+            futs = [af.submit(c, "t", 128 * 40) for c in cores]
+            for _ in range(10_000):
+                await asyncio.sleep(0.001)
+                fc.advance(0.01)
+                if all(f.done() for f in futs):
+                    break
+            words = [f.result() for f in futs]
+        return words, health.stats, farm.gang_launches
+
+    k3, k4 = (chaotic_ann.chaotic_ann_gang_bits,
+              chaotic_ann.chaotic_ann_gang_stacked)
+    n0 = k3.launches + k4.launches
+    plan = FaultPlan(seed=0, transient_rate=1.0, max_transients=1)
+    got, stats, gang = asyncio.run(serve(plan))
+    assert plan.injected["transient"] == 1
+    assert stats["retries"] == 1 and stats["launch_failures"] == 1
+    assert gang >= 1 and k3.launches + k4.launches > n0
+    want, _, _ = asyncio.run(serve(None))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

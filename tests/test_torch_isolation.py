@@ -32,6 +32,16 @@ def test_scan_covers_every_port_module():
             "repro_torch.kernels.chaotic_ann"} <= mods
     assert PORT / "core" / "chaotic.py" in PORT_FILES
     assert PORT / "core" / "codegen.py" in PORT_FILES
+    # the word-quality gates and the serving tier
+    serving = {"repro_torch.prng.quality", "repro_torch.atomicio",
+               "repro_torch.serve.clock", "repro_torch.serve.faults",
+               "repro_torch.serve.health", "repro_torch.serve.admission",
+               "repro_torch.serve.journal",
+               "repro_torch.serve.async_frontend"}
+    assert serving <= mods
+    for mod in serving:
+        path = ROOT / "src" / (mod.replace(".", "/") + ".py")
+        assert path in PORT_FILES, path
 
 
 def test_port_imports_with_jax_blocked():
@@ -90,3 +100,38 @@ def test_chip_smoke_refuses_without_a_card():
                        cwd=str(ROOT))
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_journal_cli_runs_with_jax_blocked(tmp_path):
+    """``python -m repro_torch.serve.journal <path>`` summarises a port
+    journal in a process where ``import jax`` fails; exit 2 on mid-file
+    damage, 0 after ``--repair``."""
+    from repro_torch.clock import FakeClock
+    from repro_torch.serve.journal import FlushJournal
+    jpath = tmp_path / "farm.journal"
+    with FlushJournal(jpath, clock=FakeClock()) as j:
+        for c in ("a", "b", "c"):
+            j.record_register("core0", c, seed=1)
+
+    def cli(*args):
+        script = "\n".join([
+            "import runpy, sys",
+            "sys.modules['jax'] = None",
+            f"sys.path[:0] = [{str(ROOT / 'src')!r}]",
+            f"sys.argv = ['journal', *{list(args)!r}]",
+            "runpy.run_module('repro_torch.serve.journal', "
+            "run_name='__main__')",
+        ])
+        return subprocess.run([sys.executable, "-c", script],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=str(tmp_path))
+
+    r = cli(str(jpath))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "registrations: 3" in r.stdout
+    lines = jpath.read_text().splitlines()
+    lines[1] = lines[1].replace('"ts"', '"tz"', 1)
+    jpath.write_text("\n".join(lines) + "\n")
+    assert cli(str(jpath)).returncode == 2
+    r = cli(str(jpath), "--repair")
+    assert r.returncode == 0 and "dropped 3" in r.stdout

@@ -408,7 +408,12 @@ def on_path(tmp_path):
     sys.path.insert(0, str(tmp_path))
     yield tmp_path
     sys.path.remove(str(tmp_path))
-    for name in [m for m in sys.modules if m.startswith("ml_")]:
+    # forget only the generated packages: a prefix match on "ml_" also
+    # evicted ml_dtypes, whose re-import registers a second bfloat16 that
+    # JAX rejects in every later test of the process
+    for name in [m for m, mod in sys.modules.items()
+                 if str(getattr(mod, "__file__", None) or "").startswith(
+                     str(tmp_path))]:
         del sys.modules[name]
 
 

@@ -277,6 +277,45 @@ Phases, each fatal on failure (exit code 1, no result line):
    word rows, and timed.  Last, mxu K1/K2 with tanh and sigmoid at
    chen@ring32, 65,536 lanes x 64 steps, timed beside relu's, held
    bitwise against plain on the first 1,024 lanes.
+14. Every shape the reference's kernels take (``src/repro/kernels/
+   chaotic_ann.py`` pads any (I, H) and takes any lattice of whole 8-row
+   sublanes; the card takes up to 32 nodes).  The phase's shape libraries
+   (``kernels/build.py``: 3-4 and 3-16 on both units, chen@ring16,
+   chen@grid24, hyperlorenz@grid4 and hyperlorenz@ring6 on both) built
+   first, in one
+   parallel build, each library's seconds and registers printed.  (a) The
+   paper's sweep across ANN sizes: chen 3-4-3 and 3-16-3 relu nets and a
+   3-16-3 tanh net trained on the card on phase 10's dataset (20 epochs,
+   from init seeds that keep the nets in the attractor box);
+   ``select`` in the three user modes, held to the JAX package's; a
+   ``generate_core`` for each net and mode and every testbench on the
+   card, each of which must pass; the min-latency cores'
+   ``generate`` (K2) and ``generate_bits`` (K1), an f32 stream (K1) and
+   the net iterated from test inputs (K2), and for the 3-16
+   relu net an mxu stream and trajectory (mxu K1, K2) in both dtypes, each
+   beside the plain path; then per net and dtype a farm of its three
+   cores (two gang: K4 at F1, K3 at F3; one alone, K1), the 3-16 relu net
+   also as two mxu cores (mxu K3), each flush bitwise a ``gang=False``
+   farm.  (b) ``PRNGService`` on chen@ring16, chen@grid24,
+   hyperlorenz@grid4 and hyperlorenz@ring6 (6 nodes in slots of 8
+   threads, four slots a warp), 16 clients x 1,024 lanes, per dtype on a
+   vpu config
+   (lattice K1, and K2 unfused on the same flush) and with no config (the
+   JAX choice: mxu K1; the vpu at f32 grid4), two clients bitwise one
+   plain K1 run; each lattice iterated on the mxu unit (mxu K2).  (c) A
+   farm of chen, chua, lorenz and rossler @grid24 on a vpu config (lattice
+   K4 at F1, K3 at F3) beside the same four with no config (mxu K3), 8
+   clients x 128 lanes a core, each flush bitwise ``gang=False``.  Each
+   part with the launch counters zeroed just before it and read just
+   after, its launches attributed to its (shape, dtype).  Then every
+   (kernel, shape, dtype) the parts launched against its plain version
+   at a cut of lanes and rows, bitwise (words each lane asked for, final
+   states), timed beside the plain time and the bound (a row of the
+   ``kernels`` line with a ``shape`` field); every kernel form in both
+   dtypes must have launched on a shape outside the default library, at
+   24 nodes, at 6 and on the 4-D base.  Last, W's cost: the lattice K1 at
+   chen@grid24 (24 of a slot's 32 threads working) beside chen@grid32 at
+   the same lanes and steps, each over its ops bound.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -292,6 +331,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -2781,7 +2821,8 @@ def phase_paper_flow(torch, device, card, errs):
     ``ChaoticStream.from_trained``, and the NIST subset; then the scalar
     vpu K1/K2 with that activation against their plain versions and timed.
     Returns ({(kernel, activation, tag): path launches}, {...: times},
-    {activation: (the trained net's numpy bundle, scale, offset)})."""
+    {activation: (the trained net's numpy bundle, scale, offset)}, the
+    chen dataset)."""
     import importlib
     import tempfile
     from repro_torch.core.ann import (AnnConfig, extract_parameters,
@@ -2852,8 +2893,8 @@ def phase_paper_flow(torch, device, card, errs):
             # and read just after: the stream (K1 f32), the trained net
             # iterated on the card (K2 f32), the min-latency core (bf16)
             def counted(fn, name, tag):
-                out, launches[(name, act, tag)] = counted_path(
-                    torch, fn, name, f"{act} {tag}")
+                out, got = counted_path(torch, fn, name, f"{act} {tag}")
+                launches[(name, act, tag)] = got[name]
                 return out
 
             stream = ChaoticStream.from_trained(bundle, activation=act,
@@ -2944,7 +2985,7 @@ def phase_paper_flow(torch, device, card, errs):
           f"{mse['sigmoid']:.4g} (the JAX test's ordering: tanh < sigmoid)")
     check(mse["tanh"] < mse["sigmoid"],
           f"Table II ordering tanh < sigmoid fails: {mse}")
-    return launches, times, nets
+    return launches, times, nets, ds
 
 
 def paper_kernel_times(torch, device, w, act, dtype, tag, card, errs):
@@ -3696,18 +3737,19 @@ def check_lattice_act_kernels(torch, device, nets, errs) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def counted_path(torch, fn, name, what):
+def counted_path(torch, fn, want, what):
     """``fn()`` with the launch counters zeroed just before and read just
-    after: it must launch ``name`` and no other kernel.  Returns (its
-    result, the launches)."""
+    after: it must launch every kernel of ``want`` (a name, or a set of
+    names) and no other.  Returns (its result, {kernel: launches})."""
     from repro_torch.kernels import chaotic_ann
+    want = {want} if isinstance(want, str) else set(want)
     zero_launches(chaotic_ann)
     out = fn()
     torch.cuda.synchronize()
-    got = read_launches(chaotic_ann)
-    check(got[name] > 0 and sum(got.values()) == got[name],
-          f"{what}: the path must launch {name} only, got {got}")
-    return out, got[name]
+    got = {k: v for k, v in read_launches(chaotic_ann).items() if v}
+    check(set(got) == want,
+          f"{what}: the path must launch {sorted(want)} only, got {got}")
+    return out, got
 
 
 def lattice_act_paths(torch, device, nets):
@@ -3761,10 +3803,11 @@ def lattice_act_paths(torch, device, nets):
             check(cfg == Candidate(**LAT_STREAM_CONFIG),
                   f"lattice stream {act}: config {cfg} is not the JAX "
                   f"package's select_config")
-            words, launches[("chaotic_ann_lattice_bits", act, "f32")] = \
-                counted_path(torch, lambda: stream.bits(NIST_WORDS).numpy(),
-                             "chaotic_ann_lattice_bits",
-                             f"lattice stream {act}")
+            words, n = counted_path(
+                torch, lambda: stream.bits(NIST_WORDS).numpy(),
+                "chaotic_ann_lattice_bits", f"lattice stream {act}")
+            launches[("chaotic_ann_lattice_bits", act, "f32")] = \
+                n["chaotic_ann_lattice_bits"]
             plain = ChaoticStream.from_trained(
                 params, activation=act, device=device, backend="ref")
             path_out[(act, "stream words")] = (
@@ -3779,10 +3822,11 @@ def lattice_act_paths(torch, device, nets):
             x_att = torch.as_tensor(np.random.default_rng(14).uniform(
                 -0.5, 0.5, (ATTRACTOR_LANES, 24)).astype(np.float32),
                 device=device)
-            traj, launches[("chaotic_ann_lattice_traj", act, "f32")] = \
-                counted_path(torch, lambda: ops.chaotic_trajectory(
-                    p_dev, x_att, LAT_ATTRACTOR_STEPS, activation=act),
-                    "chaotic_ann_lattice_traj", f"lattice {act} iterated")
+            traj, n = counted_path(torch, lambda: ops.chaotic_trajectory(
+                p_dev, x_att, LAT_ATTRACTOR_STEPS, activation=act),
+                "chaotic_ann_lattice_traj", f"lattice {act} iterated")
+            launches[("chaotic_ann_lattice_traj", act, "f32")] = \
+                n["chaotic_ann_lattice_traj"]
             amax = float(traj.abs().max())
             print(f"lattice {act}: chen@ring8 iterated {LAT_ATTRACTOR_STEPS} "
                   f"steps on {ATTRACTOR_LANES} lanes: max|x| {amax:.4g}, std "
@@ -3803,7 +3847,7 @@ def lattice_act_paths(torch, device, nets):
                                                  device=device),
                     "chaotic_ann_lattice_traj", f"core {name} generate")
                 key = ("chaotic_ann_lattice_traj", act, "bf16")
-                launches[key] = launches.get(key, 0) + n
+                launches[key] = launches.get(key, 0) + n[key[0]]
                 path_out[(act, f"{name} generate")] = (got, core.generate(
                     x0, LAT_CORE_STEPS, backend="ref", device=device))
                 got, n = counted_path(
@@ -3811,7 +3855,7 @@ def lattice_act_paths(torch, device, nets):
                         x0, 2 * LAT_CORE_STEPS, device=device),
                     "chaotic_ann_lattice_bits", f"core {name} generate_bits")
                 key = ("chaotic_ann_lattice_bits", act, "bf16")
-                launches[key] = launches.get(key, 0) + n
+                launches[key] = launches.get(key, 0) + n[key[0]]
                 path_out[(act, f"{name} generate_bits")] = (
                     got, core.generate_bits(x0, 2 * LAT_CORE_STEPS,
                                             backend="ref", device=device))
@@ -4208,7 +4252,8 @@ def mxu_act_paths(torch, device, nets):
                 words, n = counted_path(
                     torch, lambda: draw(stream, NIST_WORDS),
                     "chaotic_ann_mxu_bits", what)
-                count(("chaotic_ann_mxu_bits", act, tag), n)
+                count(("chaotic_ann_mxu_bits", act, tag),
+                      n["chaotic_ann_mxu_bits"])
                 t0 = time.perf_counter()
                 want_w = draw(plain, MXU_STREAM_CHECK_WORDS)
                 print(f"{what}: the plain path's first "
@@ -4228,7 +4273,8 @@ def mxu_act_paths(torch, device, nets):
                 traj, n = counted_path(torch, lambda: ops.chaotic_trajectory(
                     p_dev, x_att, steps, activation=act, config=cfg),
                     "chaotic_ann_mxu_traj", f"{what} iterated")
-                count(("chaotic_ann_mxu_traj", act, tag), n)
+                count(("chaotic_ann_mxu_traj", act, tag),
+                      n["chaotic_ann_mxu_traj"])
                 amax = float(traj.float().abs().max())
                 print(f"{what}: iterated {steps} steps on {ATTRACTOR_LANES} "
                       f"lanes: max|x| {amax:.4g}")
@@ -4247,14 +4293,16 @@ def mxu_act_paths(torch, device, nets):
                     torch, lambda: core.generate(x0, MXU_CORE_STEPS,
                                                  device=device),
                     "chaotic_ann_mxu_traj", f"core {name} generate")
-                count(("chaotic_ann_mxu_traj", act, "bf16"), n)
+                count(("chaotic_ann_mxu_traj", act, "bf16"),
+                      n["chaotic_ann_mxu_traj"])
                 path_out[(act, f"{name} generate")] = (got, core.generate(
                     x0, MXU_CORE_STEPS, backend="ref", device=device))
                 got, n = counted_path(
                     torch, lambda: core.generate_bits(
                         x0, 2 * MXU_CORE_STEPS, device=device),
                     "chaotic_ann_mxu_bits", f"core {name} generate_bits")
-                count(("chaotic_ann_mxu_bits", act, "bf16"), n)
+                count(("chaotic_ann_mxu_bits", act, "bf16"),
+                      n["chaotic_ann_mxu_bits"])
                 path_out[(act, f"{name} generate_bits")] = (
                     got, core.generate_bits(x0, 2 * MXU_CORE_STEPS,
                                             backend="ref", device=device))
@@ -4972,6 +5020,704 @@ def phase_serving_tier(torch, device, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: every shape the reference's kernels take
+# ---------------------------------------------------------------------------
+
+# the shape libraries the phase builds up front, in one parallel build
+# (kernels/build.py's keys): the paper's 3-4 and 3-16 nets on both units,
+# chen@ring16, chen@grid24 (24 nodes: a lane slot of 32 threads, 8 idle)
+# hyperlorenz@grid4 (the 4-16 base) and hyperlorenz@ring6 (6 nodes: slots
+# of 8 threads, 2 idle, four slots a warp) on both
+SHAPE_KEYS = (("scalar", (3, 4)), ("scalar", (3, 16)),
+              ("mxu", (3, 4, 1, 0)), ("mxu", (3, 16, 1, 0)),
+              ("lattice", (3, 8, 16, 0)), ("lattice", (3, 8, 24, 1)),
+              ("lattice", (4, 16, 4, 1)), ("lattice", (4, 16, 6, 0)),
+              ("mxu", (3, 8, 16, 0)), ("mxu", (3, 8, 24, 1)),
+              ("mxu", (4, 16, 4, 1)), ("mxu", (4, 16, 6, 0)))
+# the paper's sweep across ANN sizes (Figs. 3 and 5 at H = 4, 8, 16): chen
+# 3-H-3 nets trained on the card, (label, H, activation, init seed), on
+# phase 10's dataset and recipe (PAPER_SAMPLES, lr 3e-3, batch 256) for a
+# third of its epochs: 60 epochs took 23-26 s a net on the H100, over half
+# the phase's budget.  A relu net's testbench trajectory leaves the
+# attractor box at some seeds and epochs and not at others; the seeds are
+# ones whose nets stay in it at every epoch from 10 to 45 or 60
+# (tools/sweep_net_seeds.py), so every testbench must pass
+SHAPE_NETS = (("3-4", 4, "relu", 4), ("3-16", 16, "relu", 1),
+              ("3-16-tanh", 16, "tanh", 0))
+SHAPE_EPOCHS = 20
+SHAPE_MODES = ("min_latency", "lowest_cost", "pareto")
+# the JAX package's select(3, H, mode) (tests/test_torch_paper_flow.py
+# holds the copied DSE to it): vpu bf16 at every mode, p 5 / 0 / 3
+SHAPE_SELECT = {
+    mode: dict(p=p, compute_unit="vpu", dtype_bytes=2, unroll=un,
+               t_block=tb, n_nodes=1)
+    for mode, p, un, tb in (("min_latency", 5, 8, 256),
+                            ("lowest_cost", 0, 1, 32),
+                            ("pareto", 3, 8, 256))}
+SHAPE_CORE_STEPS = 256
+SHAPE_STREAM_WORDS = 1 << 16          # a scalar net's f32 stream
+SHAPE_CHECK_WORDS = 1 << 12           # its first words held to the plain path
+# lattice streams: 16 clients x 1,024 lanes (16,384 lanes), 4 word rows a
+# client a flush; the plain version computes two clients' rows
+SHAPE_LATTICES = ("chen@ring16", "chen@grid24", "hyperlorenz@grid4",
+                  "hyperlorenz@ring6")
+SHAPE_CLIENTS, SHAPE_LANES, SHAPE_WORDS = 16, 1_024, 4_096
+SHAPE_PLAIN_CLIENTS = 2
+# the farms: 8 clients x 128 lanes a core, 16 word rows a flush
+SHAPE_FARM_BASES = ("chen", "chua", "lorenz", "rossler")     # @grid24
+SHAPE_FARM_CLIENTS, SHAPE_FARM_WORDS = 8, 2_048
+# each (kernel, shape) row's check against its plain version: (lanes,
+# steps) by (lattice, unit); K3 blocks of 128 lanes, K4 two or four cores
+# of lanes / cores lanes
+SHAPE_CHECK = {(False, "vpu"): (16_384 + 37, 64),
+               (False, "mxu"): (4_096 + 37, 32),
+               (True, "vpu"): (4_096 + 37, 16),
+               (True, "mxu"): (1_024 + 37, 4)}
+# ... and each kernel timed at the path's width: 65,536 lanes (K3 512
+# blocks of 128, K4 two or four cores), steps by (lattice, unit)
+SHAPE_TIME = {(False, "vpu"): (65_536, 256), (False, "mxu"): (65_536, 64),
+              (True, "vpu"): (65_536, 64), (True, "mxu"): (65_536, 16)}
+# W's cost: the lattice K1 at chen@grid24 beside chen@grid32 (the default
+# library), lanes x steps
+SHAPE_W_LANES, SHAPE_W_STEPS = 16_384, 64
+
+
+def shape_label(key) -> str:
+    family, dims = key
+    return f"{family} " + "-".join(map(str, dims))
+
+
+def phase_shape_build(card) -> float:
+    """The phase's shape libraries in one parallel build (``nvcc``
+    processes of every library started together), then loaded through
+    ``prepare`` (which builds nothing more).  Prints each library's
+    seconds from the start and its registers and spills, and the wall."""
+    from repro_torch.kernels import build, chaotic_ann
+    t0 = time.perf_counter()
+    built = build.build_libraries(SHAPE_KEYS)
+    wall = time.perf_counter() - t0
+    check(not any(chaotic_ann.prepare(SHAPE_KEYS).values()),
+          "prepare rebuilt a library the phase had built")
+    for key in SHAPE_KEYS:
+        secs, log = built.get(key, (0.0, ""))
+        print(f"shape library {shape_label(key)} "
+              f"({build.library_path(key=key).name}): "
+              + (f"built in {secs:.1f} s; ptxas: {register_report(log)}"
+                 if log else "reused"))
+    print(f"shape libraries: {len(built)} built in {wall:.1f} s, one "
+          f"parallel build (their seconds from the start sum to "
+          f"{sum(s for s, _ in built.values()):.1f} s); card {card}")
+    return wall
+
+
+def shape_counted(torch, launches, key, fn, want, what):
+    """``counted_path``, its launches added to ``launches[(kernel,) +
+    key]``, key (shape, dtype)."""
+    out, got = counted_path(torch, fn, want, what)
+    for name, n in got.items():
+        launches[(name,) + key] = launches.get((name,) + key, 0) + n
+    return out
+
+
+def same_bits(torch, got, want, what) -> None:
+    """Every tensor of ``got`` bitwise its twin in ``want`` (numpy uint32
+    words compared as integers)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+
+    def err(g, w):
+        if isinstance(g, np.ndarray):
+            d = np.abs(g.astype(np.int64) - w.astype(np.int64))
+            return float(d.max()) if d.size else 0.0
+        return max_abs_err(torch, g, w)
+
+    e = max(err(g, w) for g, w in zip(got, want))
+    print(f"check shapes {what}: max_abs_err={e}")
+    check(e == 0.0, f"shapes {what}: kernel path != plain path")
+
+
+def shape_nets(torch, device, card, ds):
+    """The paper's sweep: chen 3-H-3 nets trained on the card
+    (SHAPE_NETS) on ``ds`` (phase 10's chen dataset, or the same one made
+    here on the card).  Returns {label: (H, activation, numpy bundle, scale,
+    offset, the first ATTRACTOR_LANES test inputs)}."""
+    from repro_torch.core.ann import AnnConfig, extract_parameters, train
+    from repro_torch.core.chaotic import make_dataset
+    if ds is None:
+        t0 = time.perf_counter()
+        ds = make_dataset("chen", n_samples=PAPER_SAMPLES, device=device)
+        print(f"shapes: chen dataset, {PAPER_SAMPLES} samples on the "
+              f"card in {time.perf_counter() - t0:.1f} s")
+    nets = {}
+    for label, h_dim, act, seed in SHAPE_NETS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, hist = train(AnnConfig(dim=3, hidden=h_dim, activation=act),
+                             ds, epochs=SHAPE_EPOCHS, batch_size=256,
+                             lr=3e-3, seed=seed, device=device)
+        torch.cuda.synchronize()
+        m = hist["test_metrics"]
+        print(f"shapes: chen 3-{h_dim}-3 {act} (seed {seed}) trained "
+              f"{SHAPE_EPOCHS} epochs on the card in {time.perf_counter() - t0:.1f} s; "
+              f"MSE={m['mse']:.4g} R2={m['r2']:.6f}; card {card}")
+        check(np.isfinite(list(m.values())).all() and m["r2"] > 0.99,
+              f"3-{h_dim}-3 {act} training: {m}")
+        nets[label] = (h_dim, act, extract_parameters(params), ds.scale,
+                       ds.offset, np.asarray(ds.x_test[:ATTRACTOR_LANES]))
+    return nets
+
+
+def shape_cores(torch, device, nets, tmp, launches):
+    """``select`` in the three user modes (held to the JAX package's),
+    ``generate_core`` for each net and mode, every testbench on the card,
+    and per net the min-latency core's ``generate`` (K2) and
+    ``generate_bits`` (K1) beside ``backend="ref"``, a no-config f32
+    stream (K1) and the net iterated (K2) beside the plain path, and on
+    the 3-16 relu net an mxu stream (mxu K1) and trajectory (mxu K2) in
+    both dtypes.  Returns the generated packages."""
+    import importlib
+    from repro_torch.core.ann import params_from_numpy
+    from repro_torch.core.codegen import generate_core
+    from repro_torch.core.dse import Candidate, select, select_config
+    from repro_torch.kernels import ops
+    from repro_torch.prng.stream import ChaoticPRNG, ChaoticStream
+    pkgs = {}
+    for label, (h_dim, act, bundle, scale, offset, _) in nets.items():
+        for mode in SHAPE_MODES:
+            cand = select(3, h_dim, mode)
+            check(cand == Candidate(i_dim=3, h_dim=h_dim,
+                                    **SHAPE_SELECT[mode]),
+                  f"select(3, {h_dim}, {mode!r}) = {cand}: not the JAX "
+                  f"package's")
+            name = f"chen_3{h_dim}3_{act}_{mode}"
+            pkgs[(label, mode)] = generate_core(
+                name, tmp, params=bundle, candidate=cand, system="chen",
+                activation=act, scale=scale, offset=offset)
+        print(f"shapes {label}: select(3, {h_dim}, mode) for "
+              f"{SHAPE_MODES}, each the JAX package's: " + ", ".join(
+                  str(select(3, h_dim, m)) for m in SHAPE_MODES))
+    t0 = time.perf_counter()
+    run_testbenches(list(pkgs.values()))
+    print(f"shapes: {len(pkgs)} testbenches in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for label, (h_dim, act, bundle, _, _, x_att) in nets.items():
+        core = importlib.import_module(pkgs[(label, "min_latency")].name)
+        x0 = np.random.default_rng(h_dim).uniform(
+            -0.5, 0.5, (core.S_BLOCK, 3)).astype(np.float32)
+        key = (label, "bf16")
+        same_bits(torch, shape_counted(
+            torch, launches, key, lambda: core.generate(
+                x0, SHAPE_CORE_STEPS, device=device),
+            {"chaotic_ann_traj"}, f"{label} core generate"),
+            core.generate(x0, SHAPE_CORE_STEPS, backend="ref",
+                          device=device), f"{label} core generate")
+        same_bits(torch, shape_counted(
+            torch, launches, key, lambda: core.generate_bits(
+                x0, 2 * SHAPE_CORE_STEPS, device=device),
+            {"chaotic_ann_bits"}, f"{label} core generate_bits"),
+            core.generate_bits(x0, 2 * SHAPE_CORE_STEPS, backend="ref",
+                               device=device), f"{label} core generate_bits")
+        stream = ChaoticStream.from_trained(bundle, activation=act,
+                                            device=device)
+        words = shape_counted(
+            torch, launches, (label, "f32"),
+            lambda: stream.bits(SHAPE_STREAM_WORDS).numpy(),
+            {"chaotic_ann_bits"}, f"{label} f32 stream")
+        plain = ChaoticStream.from_trained(bundle, activation=act,
+                                           device=device, backend="ref")
+        same_bits(torch, words[:SHAPE_CHECK_WORDS],
+                  plain.bits(SHAPE_CHECK_WORDS).numpy(),
+                  f"{label} f32 stream, first {SHAPE_CHECK_WORDS} words")
+        p_dev = params_from_numpy(bundle, device=device)
+        x_att = torch.as_tensor(x_att, device=device)
+        traj = shape_counted(
+            torch, launches, (label, "f32"), lambda: ops.chaotic_trajectory(
+                p_dev, x_att, ATTRACTOR_STEPS, activation=act),
+            {"chaotic_ann_traj"}, f"{label} iterated")
+        print(f"shapes {label}: {ATTRACTOR_STEPS} autonomous steps of "
+              f"{ATTRACTOR_LANES} lanes from test inputs, max|x| "
+              f"{float(traj.abs().max()):.4g} (the net's own; not gated)")
+        same_bits(torch, traj, ops.chaotic_trajectory(
+            p_dev, x_att, ATTRACTOR_STEPS, activation=act, backend="ref"),
+            f"{label} iterated")
+        if label != "3-16":
+            continue
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            # t_block 16: a check-sized launch (t_block changes no value)
+            cfg = dataclasses.replace(select_config(
+                3, h_dim, s_total=256, dtype=dtype, unit="mxu"), t_block=16)
+            eng = ChaoticPRNG(bundle, config=cfg, dtype=dtype, device=device)
+            ref_eng = ChaoticPRNG(bundle, config=cfg, dtype=dtype,
+                                  device=device, backend="ref")
+            got = shape_counted(
+                torch, launches, (label, tag),
+                lambda: eng.next_words(eng.init(5), SHAPE_CHECK_WORDS)[0],
+                {"chaotic_ann_mxu_bits"}, f"{label} mxu {tag} stream")
+            want = ref_eng.next_words(ref_eng.init(5), SHAPE_CHECK_WORDS)[0]
+            same_bits(torch, got, want, f"{label} mxu {tag} stream ({cfg})")
+            xm = torch.as_tensor(x0, device=device).to(dtype)
+            same_bits(torch, shape_counted(
+                torch, launches, (label, tag), lambda: ops.chaotic_trajectory(
+                    p_dev, xm, 64, compute_unit="mxu"),
+                {"chaotic_ann_mxu_traj"}, f"{label} mxu {tag} iterated"),
+                ops.chaotic_trajectory(p_dev, xm, 64, compute_unit="mxu",
+                                       backend="ref"),
+                f"{label} mxu {tag} iterated")
+        sys.modules.pop(pkgs[(label, "min_latency")].name, None)
+    return pkgs
+
+
+def shape_farm_flushes(torch, launches, key, farms, grow, words, want):
+    """F1 uniform and F3 one more client on each core of ``grow``, the
+    counters zeroed around each flush and its launches attributed to
+    ``key``; each flush's words held bitwise to the gang=False farm.
+    ``farms`` is (gang, solo); ``want`` {flush: kernels it must launch}."""
+    farm, solo = farms
+    register_all(torch, farms, [f"c{i}" for i in range(SHAPE_FARM_CLIENTS)],
+                 31_000)
+    for flush in ("F1", "F3"):
+        if flush == "F3":
+            for f in farms:
+                for k, core in enumerate(f.cores):
+                    if core in grow:
+                        f.register(core, "extra", seed=32_000 + k)
+        request_all(farms, dict.fromkeys(farm.cores, words))
+        out = shape_counted(torch, launches, key, farm.flush, want[flush],
+                            f"{key[0]} {key[1]} farm {flush}")
+        n = sum(w.size for c in out.values() for w in c.values())
+        check(same_words(out, solo.flush()),
+              f"{key[0]} {key[1]} farm {flush}: gang words differ from "
+              f"gang=False")
+        print(f"shapes {key[0]} {key[1]} farm {flush}: {n} words, bitwise "
+              f"gang=False; decisions {farm.plan_decisions}")
+
+
+def shape_scalar_farms(torch, device, nets, pkgs, launches):
+    """Per net and dtype, a farm of its three generated cores (bf16:
+    ``from_generated``; f32: the same solutions at dtype_bytes=4): the
+    min-latency and Pareto cores gang once their stream block is clamped
+    to a client's lanes (K4 at F1, K3 at F3), the lowest-cost core runs
+    alone (K1); the 3-16 relu net also as two cores on an mxu config
+    (mxu K3)."""
+    from repro_torch.core.dse import Candidate, select_config
+    from repro_torch.serve.farm import OscillatorFarm
+    for label, (h_dim, act, bundle, _, _, _) in nets.items():
+        names = [pkgs[(label, m)].name for m in SHAPE_MODES]
+        tmp = pkgs[(label, SHAPE_MODES[0])].parent
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            def make(gang):
+                if tag == "bf16":
+                    farm = OscillatorFarm.from_generated(
+                        tmp, cores=names, gang=gang, device=device)
+                else:
+                    farm = OscillatorFarm(gang=gang, device=device)
+                    for name in names:
+                        sol = json.loads((tmp / name / "solution.json")
+                                         .read_text())
+                        cand = dataclasses.replace(
+                            Candidate(**sol["candidate"]), dtype_bytes=4,
+                            p=0)
+                        farm.add_core(name, bundle, config=cand,
+                                      dtype=dtype, activation=act)
+                if label == "3-16":
+                    cfg = select_config(3, h_dim, s_total=128, dtype=dtype,
+                                        unit="mxu")
+                    for name in ("mxu_a", "mxu_b"):
+                        farm.add_core(name, bundle, config=cfg, dtype=dtype,
+                                      activation=act)
+                return farm
+
+            want = {"chaotic_ann_gang_stacked", "chaotic_ann_bits"}
+            want3 = {"chaotic_ann_gang_bits", "chaotic_ann_bits"}
+            if label == "3-16":
+                want = want | {"chaotic_ann_mxu_gang_bits"}
+                want3 = want3 | {"chaotic_ann_mxu_gang_bits"}
+            shape_farm_flushes(torch, launches, (label, tag),
+                               (make(True), make(False)),
+                               {names[2], "mxu_b"}, SHAPE_FARM_WORDS,
+                               {"F1": want, "F3": want3})
+
+
+def shape_lattice_streams(torch, device, launches):
+    """Per lattice of SHAPE_LATTICES and dtype: ``PRNGService`` at 16,384
+    lanes on an explicit vpu config (lattice K1 served, lattice K2
+    unfused on the same flush) and with no config (the JAX package's
+    choice: mxu K1, the vpu at f32 on the 4-16 base); each flush's first
+    two clients bitwise one plain K1 run from the pool and offsets it
+    launched from, the unfused words bitwise every client's; the lattice
+    iterated on the mxu unit (mxu K2) beside the plain path."""
+    from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
+    from repro_torch.core.dse import default_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.prng_service import PRNGService
+    rows = SHAPE_WORDS // SHAPE_LANES
+    n_plain = SHAPE_PLAIN_CLIENTS * SHAPE_LANES
+    for system in SHAPE_LATTICES:
+        p = default_params(system=system)
+        lat = lattice_meta_tuple(p["lattice_meta"])
+        i_dim, h_dim = p["w1"].shape
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            key = (system, tag)
+            for cfg in (default_config(i_dim, h_dim, dtype, n_nodes=lat[0]),
+                        None):
+                svc = PRNGService(p, lanes_per_client=SHAPE_LANES,
+                                  config=cfg, dtype=dtype, device=device)
+                unit = svc.config.compute_unit
+                k1 = ("chaotic_ann_mxu_bits" if unit == "mxu"
+                      else "chaotic_ann_lattice_bits")
+                shape_counted(torch, launches, key, lambda: [
+                    svc.register(f"c{i}", seed=41_000 + i)
+                    for i in range(SHAPE_CLIENTS)], {k1},
+                    f"{system} {tag} {unit} register")
+                for name in svc.clients:
+                    svc.request(name, SHAPE_WORDS)
+                pools, offs = launch_inputs(torch, device, [svc])
+                t0 = time.perf_counter()
+                out = shape_counted(torch, launches, key, svc.flush, {k1},
+                                    f"{system} {tag} {unit} flush")
+                wall = time.perf_counter() - t0
+                served = np.concatenate(
+                    [out[n].reshape(rows, -1) for n in svc.clients], axis=1)
+                w = [svc.params[k] for k in ("w1", "b1", "w2", "b2")]
+                want, _ = ref.chaotic_ann_bits_ref(
+                    *w, pools[0][:n_plain], 2 * rows, offs[0][:n_plain],
+                    "relu", lat, unit, svc.params.get("coupling"))
+                check(np.array_equal(ops.from_uint32(want).cpu().numpy(),
+                                     served[:, :n_plain].astype(np.int64)),
+                      f"{system} {tag} {unit}: served words != plain")
+                print(f"shapes {system} {tag} "
+                      f"({'no config' if cfg is None else 'vpu config'}: "
+                      f"{svc.config}): {SHAPE_CLIENTS} clients x "
+                      f"{SHAPE_LANES} lanes, {SHAPE_WORDS} words a client, "
+                      f"flush {wall * 1e3:.1f} ms; the first {n_plain} "
+                      f"lanes bitwise the plain K1")
+                if cfg is None:
+                    continue
+                traj = shape_counted(
+                    torch, launches, key, lambda: ops.chaotic_trajectory(
+                        svc.params, pools[0], 2 * rows, config=svc.config),
+                    {"chaotic_ann_lattice_traj"},
+                    f"{system} {tag} unfused")
+                words = ops.pack_words(traj, offs[0])
+                check(np.array_equal(ops.from_uint32(words).cpu().numpy(),
+                                     served.astype(np.int64)),
+                      f"{system} {tag}: unfused words != served")
+            p_dev = params_from_numpy(p, device=device)
+            x = torch.as_tensor(np.random.default_rng(17).uniform(
+                -0.9, 0.9, (1_024 + 37, i_dim)).astype(np.float32),
+                device=device).to(dtype)
+            same_bits(torch, shape_counted(
+                torch, launches, key, lambda: ops.chaotic_trajectory(
+                    p_dev, x, 8, compute_unit="mxu"),
+                {"chaotic_ann_mxu_traj"}, f"{system} {tag} mxu iterated"),
+                ops.chaotic_trajectory(p_dev, x, 8, compute_unit="mxu",
+                                       backend="ref"),
+                f"{system} {tag} mxu iterated")
+
+
+def shape_lattice_farm(torch, device, launches):
+    """Per dtype, a farm of chen, chua, lorenz and rossler @grid24 on a
+    vpu config (lattice K4 at F1, K3 at F3) beside the same four with no
+    config (the mxu unit: mxu K3 at both), 8 clients x 128 lanes a core;
+    each flush bitwise a gang=False farm."""
+    from repro_torch.core.dse import default_config
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.farm import OscillatorFarm
+    params = {b: default_params(system=f"{b}@grid24")
+              for b in SHAPE_FARM_BASES}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cfg = default_config(72, 192, dtype, n_nodes=24)
+
+        def make(gang):
+            farm = OscillatorFarm(gang=gang, device=device)
+            for b, p in params.items():
+                farm.add_core(f"{b}@grid24", p, config=cfg, dtype=dtype)
+                farm.add_core(f"{b}@grid24_mxu", p, dtype=dtype)
+            return farm
+
+        farms = (make(True), make(False))
+        check(farms[0].services["chen@grid24_mxu"].config.compute_unit
+              == "mxu", "no-config grid24 cores are not on the mxu unit")
+        shape_farm_flushes(
+            torch, launches, ("chen@grid24", tag), farms,
+            {"lorenz@grid24", "lorenz@grid24_mxu"}, SHAPE_FARM_WORDS,
+            {"F1": {"chaotic_ann_lattice_gang_stacked",
+                    "chaotic_ann_mxu_gang_bits"},
+             "F3": {"chaotic_ann_lattice_gang_bits",
+                    "chaotic_ann_mxu_gang_bits"}})
+
+
+def shape_operands(torch, device, nets):
+    """Each row shape's operands: {shape: (weights, stacked gang weights,
+    activation, lattice, coupling)}: a trained net with a scaled copy as
+    its gang; a lattice with the four bases @grid24 as chen@grid24's gang,
+    else with a scaled copy."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.prng.stream import default_params
+    keys = ("w1", "b1", "w2", "b2")
+    ops_ = {}
+
+    def on(p):
+        return [torch.as_tensor(np.asarray(p[k], np.float32), device=device)
+                for k in keys]
+
+    for label, (_, act, bundle, _, _, _) in nets.items():
+        w = on(bundle)
+        ops_[label] = (w, [torch.stack([t, t * 0.9375]) for t in w], act,
+                       None, None)
+    for system in SHAPE_LATTICES:
+        p = default_params(system=system)
+        w = on(p)
+        if system == "chen@grid24":
+            gang = [torch.stack(ts) for ts in zip(*(
+                on(default_params(system=f"{b}@grid24"))
+                for b in SHAPE_FARM_BASES))]
+        else:
+            gang = [torch.stack([t, t * 0.9375]) for t in w]
+        ops_[system] = (w, gang, "relu", lattice_meta_tuple(p["lattice_meta"]),
+                        torch.as_tensor(p["coupling"], device=device))
+    return ops_
+
+
+def shape_launch(torch, device, name, tag, operands, lanes, steps, seed):
+    """One (kernel, shape, dtype) launch of ``lanes`` lanes and ``steps``
+    steps on seeded inputs: (kernel call, plain call, the two results'
+    ``max_abs_err`` over what each lane asked for, lane-steps computed,
+    bytes in and out once, a label).  K3 runs blocks of 128 lanes with
+    ragged rows, K4 two or four cores with unequal rows."""
+    from repro_torch.kernels import chaotic_ann, ref
+    w, gang, act, lattice, cpl = operands
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[tag]
+    unit = "mxu" if "mxu" in name else "vpu"
+    c = cpl if unit == "mxu" else None
+    i_dim, h_dim = w[0].shape
+    item = 2 if tag == "bf16" else 4
+    rng = np.random.default_rng(seed)
+
+    def states(shape_):
+        return torch.as_tensor(rng.uniform(-0.9, 0.9, shape_).astype(
+            np.float32), device=device).to(dtype)
+
+    def offsets(shape_):
+        return torch.as_tensor(rng.integers(0, 1 << 32, shape_),
+                               device=device)
+
+    weight_bytes = (2 * i_dim * h_dim + h_dim + i_dim) * item + (
+        i_dim * i_dim * item if c is not None else 0)
+    kw = dict(activation=act, lattice=lattice, compute_unit=unit, coupling=c)
+    half = steps // 2
+    if name.endswith("_traj"):
+        x = states((lanes, i_dim))
+        return (lambda: chaotic_ann.chaotic_ann_traj(*w, x, n_steps=steps,
+                                                     **kw),
+                lambda: ref.chaotic_ann_ref(*w, x, steps, act, lattice, unit,
+                                            c),
+                lambda got, want: max_abs_err(torch, got, want),
+                lanes * steps,
+                lanes * i_dim * item * (1 + steps) + weight_bytes,
+                f"{lanes} lanes x {steps} steps")
+    if "gang" not in name:
+        x, off = states((lanes, i_dim)), offsets(lanes)
+        return (lambda: chaotic_ann.chaotic_ann_bits(*w, x, off,
+                                                     n_steps=steps, **kw),
+                lambda: ref.chaotic_ann_bits_ref(*w, x, steps, off, act,
+                                                 lattice, unit, c),
+                lambda got, want: max(max_abs_err(torch, g, p)
+                                      for g, p in zip(got, want)),
+                lanes * steps,
+                2 * lanes * i_dim * item + lanes * 8 + weight_bytes
+                + half * lanes * 4,
+                f"{lanes} lanes x {steps} steps")
+    n_cores = gang[0].shape[0]
+    if "gang_bits" in name:
+        s_block = 128
+        n_blocks = max(2, lanes // s_block)
+        core_map = np.arange(n_blocks) % n_cores
+        row_map = np.resize([0, 3, half, 5, half, 1, half // 2, half],
+                            n_blocks)
+        rows = chaotic_ann.gang_effective_rows(row_map, steps, 4, 1)
+        x, off = states((n_blocks * s_block, i_dim)), offsets(n_blocks
+                                                              * s_block)
+        lane_rows = torch.as_tensor(np.repeat(rows, s_block), device=device)
+        return (lambda: chaotic_ann.chaotic_ann_gang_bits(
+                    *gang, x, core_map, off, row_map, n_steps=steps,
+                    s_block=s_block, t_block=4, unroll=1, **kw),
+                lambda: ref.chaotic_ann_gang_bits_ref(
+                    *gang, x, core_map, steps, off, rows, act, lattice, unit,
+                    c),
+                lambda got, want: max(
+                    masked_err(torch, got[0], want[0], lane_rows),
+                    max_abs_err(torch, got[1], want[1])),
+                2 * s_block * int(rows.sum()),
+                2 * x.numel() * item + x.shape[0] * 8
+                + weight_bytes * n_cores + s_block * int(rows.sum()) * 4,
+                f"{n_blocks} blocks x {s_block} lanes, rows "
+                f"{rows[:8].tolist()}... of {half}")
+    per_core = lanes // n_cores
+    row_map = np.array([half, half // 3, half, 1][:n_cores])
+    x, off = states((n_cores, per_core, i_dim)), offsets((n_cores, per_core))
+    lane_rows = torch.as_tensor(row_map, device=device).reshape(-1, 1)
+    return (lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                *gang, x, off, row_map, n_steps=steps, activation=act,
+                lattice=lattice),
+            lambda: ref.chaotic_ann_gang_stacked_ref(
+                *gang, x, steps, off, row_map, act, lattice),
+            lambda got, want: max(masked_err(torch, got[0], want[0],
+                                             lane_rows),
+                                  max_abs_err(torch, got[1], want[1])),
+            2 * per_core * int(row_map.sum()),
+            2 * x.numel() * item + n_cores * per_core * 8
+            + weight_bytes * n_cores + per_core * int(row_map.sum()) * 4,
+            f"{n_cores} cores x {per_core} lanes, rows {row_map.tolist()} of "
+            f"{half}")
+
+
+def shape_row(torch, device, name, shape, tag, operands, launches, card,
+              errs):
+    """One (kernel, shape, dtype) row: the kernel against its plain
+    version at a cut of lanes and rows (SHAPE_CHECK), bitwise, the words
+    each lane asked for and the final states, the plain version timed
+    there; the kernel timed (CUDA events) at the path's width
+    (SHAPE_TIME) beside its bound there."""
+    from repro_torch.kernels import build, ops
+    w, _, act, lattice, _ = operands
+    unit = "mxu" if "mxu" in name else "vpu"
+    i_dim, h_dim = w[0].shape
+    seed = zlib.crc32(f"{name} {shape} {tag}".encode())
+    kernel, plain, err, _, _, cut = shape_launch(
+        torch, device, name, tag, operands,
+        *SHAPE_CHECK[(lattice is not None, unit)], seed)
+    want, plain_ms = timed_once(torch, plain)
+    e = err(kernel(), want)
+    del want
+    kernel, _, _, lane_steps, n_bytes, time_cut = shape_launch(
+        torch, device, name, tag, operands,
+        *SHAPE_TIME[(lattice is not None, unit)], seed + 1)
+    ms = cuda_ms(torch, kernel, reps=3, warmup=1)
+    if unit == "mxu":
+        step = mxu_step_flops(i_dim, h_dim, lattice, act)
+        b = mxu_bound(lane_steps, step, n_bytes, tag)
+        ops_step = sum(step)
+    else:
+        base = (lattice_step_flops(lattice, h_dim) if lattice is not None
+                else step_flops(i_dim, h_dim))
+        extra = act_flops(h_dim, act)
+        b = bound(lane_steps * base, n_bytes, tag,
+                  f32_flops=lane_steps * extra)
+        ops_step = base + extra
+    errs[(name, shape, tag)] = e
+    meta = {} if lattice is None else {"lattice_meta": np.array(
+        [lattice[0], lattice[1], {"ring": 0, "grid": 1}[lattice[2]],
+         lattice[3]], np.float32)}
+    lib = build.library_path(
+        key=ops.kernel_shapes({"w1": w[0], **meta}, unit)[0])
+    print(f"check shapes {name} {shape} {act} {tag} ({cut}): "
+          f"max_abs_err={e}, plain {plain_ms:.1f} ms; kernel at {time_cut} "
+          f"{ms:.4f} ms (bound {b[0]:.4f} ms by {b[1]}, {ms / b[0]:.2f}x); "
+          f"launches on the path {launches[(name, shape, tag)]}; card {card}")
+    check(e == 0.0, f"shapes {name} {shape} {tag}: kernel != plain")
+    kind = ("traj" if name.endswith("_traj") else "gang_stacked"
+            if "stacked" in name else "gang_bits" if "gang" in name
+            else "bits")
+    form = (f"{shape} {unit} lattice" if lattice is not None and unit == "vpu"
+            else f"{shape} mxu unit" if unit == "mxu" else f"{shape} vpu")
+    return {"name": f"{name}/{act}/{tag}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
+            "replaces": REPLACES[f"chaotic_ann_{kind}"], "path": "shapes",
+            "shape": shape.replace("-tanh", ""), "form": form,
+            "library": lib.name,
+            "launches": launches[(name, shape, tag)], "max_abs_err": e,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None, "ops_step": ops_step,
+            "time_cut": time_cut, "plain_cut": cut}
+
+
+def shape_w_cost(torch, device, rows, card) -> None:
+    """W's cost: the lattice K1 at chen@grid24 (24 nodes in a 32-thread
+    slot) beside chen@grid32 (32 nodes, the default library) at the same
+    lanes and steps, each time over its ops bound; written into the
+    grid24 K1 rows."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.prng.stream import default_params
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        t = {}
+        for system in ("chen@grid24", "chen@grid32"):
+            p = default_params(system=system)
+            lat = lattice_meta_tuple(p["lattice_meta"])
+            w = [torch.as_tensor(p[k], device=device)
+                 for k in ("w1", "b1", "w2", "b2")]
+            x = torch.zeros(SHAPE_W_LANES, p["w1"].shape[0], device=device,
+                            dtype=dtype) + 0.25
+            ms = cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_bits(
+                *w, x, n_steps=SHAPE_W_STEPS, lattice=lat), reps=3,
+                warmup=1)
+            lane_steps = SHAPE_W_LANES * SHAPE_W_STEPS
+            b = bound(lane_steps * lattice_step_flops(lat, p["w1"].shape[1]),
+                      0.0, tag)
+            t[system] = (ms, b[0])
+        (m24, b24), (m32, b32) = t["chen@grid24"], t["chen@grid32"]
+        print(f"shapes W's cost, lattice K1 {tag} ({SHAPE_W_LANES} lanes x "
+              f"{SHAPE_W_STEPS} steps): grid24 {m24:.4f} ms ({m24 / b24:.2f}x "
+              f"its ops bound), grid32 {m32:.4f} ms ({m32 / b32:.2f}x); time "
+              f"ratio {m24 / m32:.3f}, bound ratio {b24 / b32:.3f}; card "
+              f"{card}")
+        for row in rows:
+            if row["name"] == f"chaotic_ann_lattice_bits/relu/{tag}" and \
+                    row["shape"] == "chen@grid24":
+                row.update(w_cost_ms=m24, w_cost_bound_ms=b24,
+                           grid32_ms=m32, grid32_bound_ms=b32)
+
+
+def phase_shapes(torch, device, card, errs, ds=None):
+    """Phase 14, every shape the reference's kernels take (the module's
+    docstring), its nets trained on ``ds`` (phase 10's chen dataset; None:
+    one made here).  Returns the ``kernels`` rows of every (kernel, shape,
+    dtype) the path launched."""
+    import tempfile
+    from repro_torch.kernels import chaotic_ann
+    t_phase = time.perf_counter()
+    build_s = phase_shape_build(card)
+    launches = {}
+    nets = shape_nets(torch, device, card, ds)
+    tmp = tempfile.TemporaryDirectory(prefix="shapes_")
+    sys.path.insert(0, tmp.name)
+    try:
+        pkgs = shape_cores(torch, device, nets, pathlib.Path(tmp.name),
+                           launches)
+        shape_scalar_farms(torch, device, nets, pkgs, launches)
+    finally:
+        sys.path.remove(tmp.name)
+        tmp.cleanup()
+    shape_lattice_streams(torch, device, launches)
+    shape_lattice_farm(torch, device, launches)
+    t_checks = time.perf_counter()
+    operands = shape_operands(torch, device, nets)
+    rows = [shape_row(torch, device, name, shape, tag, operands[shape],
+                      launches, card, errs)
+            for name, shape, tag in sorted(launches)]
+    shape_w_cost(torch, device, rows, card)
+    # every kernel form on a shape outside the default library
+    forms = {row["name"].split("/")[0] + "/" + row["name"].split("/")[2]
+             for row in rows}
+    missing = [f"{n}/{t}" for n in KERNELS for t in ("f32", "bf16")
+               if f"{n}/{t}" not in forms]
+    check(not missing, f"shapes: forms with no launch on a new shape: "
+                       f"{missing}")
+    check(any(r["shape"] == "chen@grid24" for r in rows)
+          and any(r["shape"] == "hyperlorenz@grid4" for r in rows)
+          and any(r["shape"] == "hyperlorenz@ring6" for r in rows),
+          "shapes: no launch at 24 nodes, at 6 or on the 4-D base")
+    wall = time.perf_counter() - t_phase
+    print(f"shapes: {len(rows)} (kernel, shape, dtype) rows; checks "
+          f"{time.perf_counter() - t_checks:.1f} s; phase {wall:.1f} s, "
+          f"{build_s:.1f} s of it the shape libraries' build; loaded "
+          f"{len(chaotic_ann._SHAPE_LIBS)} shape libraries")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5001,7 +5747,7 @@ def main() -> int:
 
 
 def run_phases(torch, device, card, log, sass) -> int:
-    """Phases 2-13 (the module's docstring), the SASS counts, then the
+    """Phases 2-14 (the module's docstring), the SASS counts, then the
     ``kernels`` and ``ok`` lines."""
     neg0 = torch.relu(torch.tensor([-0.0], device=device))
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
@@ -5124,7 +5870,8 @@ def run_phases(torch, device, card, log, sass) -> int:
     phase_done("mxu farm path")
     phase_activation_hook(torch, device)
     phase_done("activation check")
-    launches, times, chen_nets = phase_paper_flow(torch, device, card, errs)
+    launches, times, chen_nets, chen_ds = phase_paper_flow(torch, device,
+                                                           card, errs)
     for (name, act, tag), n in sorted(launches.items()):
         key = "bits" if name == "chaotic_ann_bits" else "traj"
         t = times[(act, tag)]
@@ -5152,6 +5899,8 @@ def run_phases(torch, device, card, log, sass) -> int:
     phase_done("lattice activations")
     rows += phase_mxu_activations(torch, device, card, gen_nets, errs)
     phase_done("mxu activations")
+    rows += phase_shapes(torch, device, card, errs, chen_ds)
+    phase_done("shapes")
     # the serving tier's launches, beside each kernel's own path's
     for row in rows:
         n = tier.get(tuple(row["name"].split("/")))

@@ -9,7 +9,9 @@ solution.  ``generate_core`` emits, per solution, a Python package:
                        trajectory through ``kernels.ops.chaotic_trajectory``
                        (K2), ``generate_bits`` resumable words through
                        ``kernels.ops.chaotic_bits`` (K1), on the CUDA card
-                       unless the caller passes ``device="cpu"``
+                       unless the caller passes ``device="cpu"``; imported
+                       where a card is, it builds its kernels' shape
+                       library first (``kernels.ops.prepare``)
   <name>/testbench.py  the JAX testbench's four checks: the kernel against
                        the plain version (bitwise here, where the JAX
                        testbench allows a tolerance), bounded trajectories
@@ -71,6 +73,9 @@ COMPUTE_UNIT, DTYPE = "{compute_unit}", torch.{dtype_name}
 ACTIVATION = "{activation}"
 SCALE = np.asarray({scale!r}, dtype=np.float32)
 OFFSET = np.asarray({offset!r}, dtype=np.float32)
+
+if torch.cuda.is_available():   # this core's kernels, built before a draw
+    ops.prepare(ops.kernel_shapes(_W, COMPUTE_UNIT))
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,13 +19,24 @@ relu, tanh and sigmoid: the vpu K1-K4, scalar and lattice, and the mxu
 K1-K3, whose second dot reads phi's f32 result unrounded in bf16, as the
 JAX kernel's dot does (``activation`` evaluates the kernels' tanh and
 sigmoid alone, a check hook).
+
+Shapes: every form takes what the reference's kernels take, any (I, H)
+and any lattice whose state ``n_nodes * base_dim`` is a whole number of
+8-row sublanes, with ``n_nodes`` at most 32 (a lane slot of one warp,
+``slot_width``).  A shape of ``build.DEFAULT_SHAPES`` launches from the
+default library; any other launches the same hand-written kernel from a
+shape library of its own, built from the repo's source the first time it
+is asked for (``prepare``; a failed build raises).  A lattice the
+reference refuses, or one of more than 32 nodes, raises ``ValueError`` on
+the card (``check_card_lattice``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Tuple
+import threading
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
@@ -40,57 +51,157 @@ _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ACTIVATION_CODES = {"relu": 0, "tanh": 1, "sigmoid": 2}
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built library, with every C function's types declared."""
-    lib = build.load()
-    lib.chaotic_ann_bits_launch.argtypes = (
-        [_c_int] * 5 + [_c_ptr] * 8 + [_c_i64, _c_i64, _c_ptr])
-    lib.chaotic_ann_bits_launch.restype = _c_int
-    lib.chaotic_ann_traj_launch.argtypes = (
-        [_c_int] * 5 + [_c_ptr] * 6 + [_c_i64, _c_i64, _c_ptr])
-    lib.chaotic_ann_traj_launch.restype = _c_int
-    lib.chaotic_ann_activation_launch.argtypes = (
-        [_c_int] * 3 + [_c_ptr] * 2 + [_c_i64, _c_ptr])
-    lib.chaotic_ann_activation_launch.restype = _c_int
-    # (device, dtype, activation, i_dim, h_dim) as in the K1/K2 entries
-    lib.chaotic_ann_gang_bits_launch.argtypes = (
-        [_c_int] * 5 + [_c_ptr] * 10 + [_c_i64] * 3 + [_c_ptr])
-    lib.chaotic_ann_gang_bits_launch.restype = _c_int
-    lib.chaotic_ann_gang_stacked_launch.argtypes = (
-        [_c_int] * 5 + [_c_ptr] * 9 + [_c_i64] * 3 + [_c_ptr])
-    lib.chaotic_ann_gang_stacked_launch.restype = _c_int
-    # (device, dtype, activation, base_i, base_h, n_nodes, topology, eps)
-    lib.chaotic_ann_lattice_bits_launch.argtypes = (
-        [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 8
-        + [_c_i64, _c_i64, _c_ptr])
-    lib.chaotic_ann_lattice_bits_launch.restype = _c_int
-    lib.chaotic_ann_lattice_traj_launch.argtypes = (
-        [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 6
-        + [_c_i64, _c_i64, _c_ptr])
-    lib.chaotic_ann_lattice_traj_launch.restype = _c_int
-    for name, n_ptr in (("chaotic_ann_lattice_gang_bits_launch", 10),
-                        ("chaotic_ann_lattice_gang_stacked_launch", 9)):
+# Each family's C entries (build.FAMILIES) and their argument types.
+_GANG = [_c_i64] * 3 + [_c_ptr]
+_ENTRIES = {
+    # (device, dtype, activation, i_dim, h_dim, ...)
+    "scalar": (
+        ("chaotic_ann_bits_launch",
+         [_c_int] * 5 + [_c_ptr] * 8 + [_c_i64, _c_i64, _c_ptr]),
+        ("chaotic_ann_traj_launch",
+         [_c_int] * 5 + [_c_ptr] * 6 + [_c_i64, _c_i64, _c_ptr]),
+        ("chaotic_ann_gang_bits_launch", [_c_int] * 5 + [_c_ptr] * 10 + _GANG),
+        ("chaotic_ann_gang_stacked_launch",
+         [_c_int] * 5 + [_c_ptr] * 9 + _GANG)),
+    # (device, dtype, activation, base_i, base_h, n_nodes, topology, eps, ...)
+    "lattice": (
+        ("chaotic_ann_lattice_bits_launch",
+         [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 8
+         + [_c_i64, _c_i64, _c_ptr]),
+        ("chaotic_ann_lattice_traj_launch",
+         [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 6
+         + [_c_i64, _c_i64, _c_ptr]),
+        ("chaotic_ann_lattice_gang_bits_launch",
+         [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 10 + _GANG),
+        ("chaotic_ann_lattice_gang_stacked_launch",
+         [_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * 9 + _GANG)),
+    # (device, dtype, activation, node_i, node_h, n_nodes, topology, ...)
+    "mxu": (
+        ("chaotic_ann_mxu_bits_launch",
+         [_c_int] * 7 + [_c_ptr] * 9 + [_c_i64, _c_i64, _c_ptr]),
+        ("chaotic_ann_mxu_traj_launch",
+         [_c_int] * 7 + [_c_ptr] * 7 + [_c_i64, _c_i64, _c_ptr]),
+        ("chaotic_ann_mxu_gang_bits_launch",
+         [_c_int] * 7 + [_c_ptr] * 11 + _GANG)),
+}
+# the check hooks, in the default library alone: the activation (device,
+# dtype, activation, x, y, n, stream) and the bf16x2 checks (device,
+# mismatches, n_examples, examples, stream), launched by chip_smoke.py
+_HOOKS = (("chaotic_ann_activation_launch",
+           [_c_int] * 3 + [_c_ptr] * 2 + [_c_i64, _c_ptr]),
+          ("chaotic_ann_bf16x2_check_launch", [_c_int] + [_c_ptr] * 4))
+
+
+def _declare(lib: ctypes.CDLL, families, hooks: bool) -> ctypes.CDLL:
+    """``lib`` with the C functions of ``families`` (and the hooks) typed."""
+    entries = [e for f in families for e in _ENTRIES[f]]
+    for name, argtypes in entries + (list(_HOOKS) if hooks else []):
         fn = getattr(lib, name)
-        fn.argtypes = ([_c_int] * 7 + [ctypes.c_float] + [_c_ptr] * n_ptr
-                       + [_c_i64] * 3 + [_c_ptr])
+        fn.argtypes = argtypes
         fn.restype = _c_int
-    # (device, dtype, activation, node_i, node_h, n_nodes, topology)
-    for name, n_ptr in (("chaotic_ann_mxu_bits_launch", 9),
-                        ("chaotic_ann_mxu_traj_launch", 7)):
-        fn = getattr(lib, name)
-        fn.argtypes = [_c_int] * 7 + [_c_ptr] * n_ptr + [_c_i64, _c_i64,
-                                                         _c_ptr]
-        fn.restype = _c_int
-    lib.chaotic_ann_mxu_gang_bits_launch.argtypes = (
-        [_c_int] * 7 + [_c_ptr] * 11 + [_c_i64] * 3 + [_c_ptr])
-    lib.chaotic_ann_mxu_gang_bits_launch.restype = _c_int
-    # the bf16x2 check hook (device, mismatches, n_examples, examples,
-    # stream), launched by chip_smoke.py alone
-    lib.chaotic_ann_bf16x2_check_launch.argtypes = [_c_int] + [_c_ptr] * 4
-    lib.chaotic_ann_bf16x2_check_launch.restype = _c_int
     lib.chaotic_ann_error_string.argtypes = [_c_int]
     lib.chaotic_ann_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The default library (``build.DEFAULT_SHAPES``, the check hooks),
+    every C function's types declared."""
+    return _declare(build.load(), _ENTRIES, hooks=True)
+
+
+# shape libraries loaded in this process, by key; prepare() fills it
+_SHAPE_LIBS: Dict[build.Key, ctypes.CDLL] = {}
+_PREPARE_LOCK = threading.Lock()
+
+
+def slot_width(n_nodes: int) -> int:
+    """Threads of a lattice lane slot in the kernels: the next power of
+    two >= n_nodes (``chaotic_ann.cu``'s ``slot_width``); 1 for a scalar
+    core."""
+    return 1 << max(0, int(n_nodes) - 1).bit_length()
+
+
+def gang_lane_granularity(n_nodes: int) -> int:
+    """The lanes of a one-lane lattice or mxu K3 CTA, ``kThreads /
+    slot_width(n_nodes)``: their K3 takes an ``s_block`` that is a
+    multiple of it (every served config's is: 128 * 2^p)."""
+    return _CTA_LANES // slot_width(n_nodes)
+
+
+def check_card_lattice(lattice, i_dim: int) -> None:
+    """Raise ``ValueError`` for a lattice the card does not run: what the
+    reference's Pallas kernels refuse (``n_nodes * base_dim`` not a whole
+    number of 8-row sublanes: their wrapped-roll coupling cannot cross
+    padding rows), and one of more than 32 nodes (the kernels hold a lane's
+    nodes in one warp; more needs another exchange, ROADMAP.md queue 2)."""
+    ref.check_lattice(lattice, i_dim)
+    n_nodes = lattice[0]
+    if i_dim % 8:
+        raise ValueError(f"lattice state dim {i_dim} must be a whole number "
+                         f"of sublanes (got padding to {-(-i_dim // 8) * 8}); "
+                         f"the wrapped-roll coupling cannot cross padding "
+                         f"rows")
+    if not 2 <= n_nodes <= 32:
+        raise ValueError(f"a lattice of {n_nodes} nodes: the CUDA kernels "
+                         f"take 2 to 32 (a lane's nodes in one warp)")
+
+
+def shape_key(family: str, dims) -> build.Key:
+    """A validated shape key: ints, the topology a code (0 ring, 1 grid)."""
+    if family not in build.FAMILIES:
+        raise ValueError(f"shape family must be one of "
+                         f"{sorted(build.FAMILIES)}, got {family!r}")
+    dims = tuple(_TOPOLOGY_CODES[d] if isinstance(d, str) else int(d)
+                 for d in dims)
+    if len(dims) != (2 if family == "scalar" else 4) or min(dims[:2]) < 1:
+        raise ValueError(f"bad {family} shape {dims}")
+    if family != "scalar":
+        d, _, n_nodes, topology = dims
+        if topology not in _TOPOLOGY_CODES.values():
+            raise ValueError(f"unknown topology code {topology}")
+        if n_nodes != 1 or family == "lattice":
+            names = {v: k for k, v in _TOPOLOGY_CODES.items()}
+            check_card_lattice((n_nodes, d, names[topology], 0.0),
+                               n_nodes * d)
+    return family, dims
+
+
+def prepare(shapes: Iterable) -> Dict[build.Key, float]:
+    """Build (or reuse) and load the library of every shape outside
+    ``build.DEFAULT_SHAPES``: ``shapes`` are keys ``(family, dims)``
+    (``ops.kernel_shapes``), the missing libraries built in parallel.  Returns
+    {key: build seconds in this call (0.0 when built before)} for those
+    keys; the default shapes need nothing.  A failed build raises with
+    nvcc's log.  Services and farms call it when a core is added, so no
+    flush waits on ``nvcc``."""
+    keys = list(dict.fromkeys(shape_key(f, d) for f, d in shapes))
+    keys = [k for k in keys if k[1] not in build.DEFAULT_SHAPES[k[0]]]
+    with _PREPARE_LOCK:
+        todo = [k for k in keys if k not in _SHAPE_LIBS]
+        built = build.build_libraries(todo) if todo else {}
+        for key in todo:
+            _SHAPE_LIBS[key] = _load_shape_library(key)
+    return {k: built[k][0] if k in built else 0.0 for k in keys}
+
+
+def _load_shape_library(key: build.Key) -> ctypes.CDLL:
+    """The built shape library of ``key``, its family's functions typed."""
+    return _declare(build.load(key=key), (key[0],), hooks=False)
+
+
+def _library(family: str, dims) -> ctypes.CDLL:
+    """The library that holds ``family``'s kernels at ``dims`` (ints, the
+    topology a code; the operands' helpers have validated them): the
+    default library, or the shape library (built now if need be)."""
+    key = (family, tuple(int(d) for d in dims))
+    if key[1] in build.DEFAULT_SHAPES[family]:
+        return _lib()
+    lib = _SHAPE_LIBS.get(key)
+    if lib is None:
+        prepare([key])
+        lib = _SHAPE_LIBS[key]
     return lib
 
 
@@ -160,10 +271,7 @@ def _operands(w1, b1, w2, b2, x0, lead: Tuple[int, ...] = (),
     return weights, _DTYPE_CODES[x0.dtype]
 
 
-def _raise_on(lib, code: int, kernel: str, w1) -> None:
-    if code == -1:
-        raise ValueError(f"{kernel}: (I, H) = {tuple(w1.shape[-2:])} is not "
-                         f"compiled into {build.SOURCE} (CHAOTIC_ANN_SHAPES)")
+def _raise_on(lib, code: int, kernel: str) -> None:
     if code:
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.chaotic_ann_error_string(code).decode()}")
@@ -220,13 +328,13 @@ def chaotic_ann_bits(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0:
         return words, state
-    lib = _lib()
+    lib = _library("scalar", w1.shape[-2:])
     rc = lib.chaotic_ann_bits_launch(
         x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on(lib, rc, "chaotic_ann_bits", w1)
+    _raise_on(lib, rc, "chaotic_ann_bits")
     chaotic_ann_bits.launches += 1
     return words, state
 
@@ -274,12 +382,12 @@ def chaotic_ann_traj(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                        device=x0.device)
     if n_lanes == 0 or n_steps == 0:
         return traj
-    lib = _lib()
+    lib = _library("scalar", w1.shape[-2:])
     rc = lib.chaotic_ann_traj_launch(
         x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), traj.data_ptr(),
         n_lanes, n_steps, torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on(lib, rc, "chaotic_ann_traj", w1)
+    _raise_on(lib, rc, "chaotic_ann_traj")
     chaotic_ann_traj.launches += 1
     return traj
 
@@ -328,7 +436,7 @@ def _lattice_operands(w1, b1, w2, b2, x0, lattice, lead=(),
     state dtype, the dtype code, the shape codes (base I, base H, n_nodes,
     topology) and the coupling strength as a value of the state dtype.
     ``lead`` and ``x_dims`` as in ``_operands``."""
-    ref.check_lattice(lattice, w1.shape[-2])
+    check_card_lattice(lattice, w1.shape[-2])
     weights, code = _operands(w1, b1, w2, b2, x0, lead, x_dims)
     n_nodes, base_dim, topology, strength = lattice
     if w1.shape[-1] % n_nodes:
@@ -338,14 +446,6 @@ def _lattice_operands(w1, b1, w2, b2, x0, lattice, lead=(),
     shape = (base_dim, w1.shape[-1] // n_nodes, n_nodes,
              _TOPOLOGY_CODES[topology])
     return weights, code, shape, eps
-
-
-def _raise_on_lattice(lib, code: int, kernel: str, shape) -> None:
-    if code == -1:
-        raise ValueError(f"{kernel}: lattice (base I, base H, n_nodes, "
-                         f"topology) = {shape} is not compiled into "
-                         f"{build.SOURCE} (LATTICE_SHAPES)")
-    _raise_on(lib, code, kernel, None)
 
 
 def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
@@ -389,13 +489,13 @@ def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0:
         return words, state
-    lib = _lib()
+    lib = _library("lattice", shape)
     rc = lib.chaotic_ann_lattice_bits_launch(
         x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_bits", shape)
+    _raise_on(lib, rc, "chaotic_ann_lattice_bits")
     chaotic_ann_lattice_bits.launches += 1
     return words, state
 
@@ -424,7 +524,8 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
     every op one ``add/sub/mul.rn.bf16x2`` with no f32 round trip; a CTA's
     lanes are contiguous, so a step's values of a warp are two contiguous
     runs, staged in shared memory and written in 16-byte stores (a lane's
-    values of a step are whole 16-byte chunks at the compiled shapes).
+    values of a step are whole 16-byte chunks: ``n_nodes * base_dim`` is a
+    multiple of 8).
     """
     act = _check_activation(activation)
     if x0.device.type == "cpu":
@@ -437,12 +538,12 @@ def chaotic_ann_lattice_traj(w1: torch.Tensor, b1: torch.Tensor,
                        device=x0.device)
     if n_lanes == 0 or n_steps == 0:
         return traj
-    lib = _lib()
+    lib = _library("lattice", shape)
     rc = lib.chaotic_ann_lattice_traj_launch(
         x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), traj.data_ptr(),
         n_lanes, n_steps, torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_traj", shape)
+    _raise_on(lib, rc, "chaotic_ann_lattice_traj")
     chaotic_ann_lattice_traj.launches += 1
     return traj
 
@@ -464,7 +565,7 @@ def _mxu_operands(w1, b1, w2, b2, x0, lattice, coupling, lead=()):
     i_dim, h_dim = w1.shape[-2:]
     if lattice is None:
         return weights, None, code, (i_dim, h_dim, 1, 0)
-    ref.check_lattice(lattice, i_dim)
+    check_card_lattice(lattice, i_dim)
     n_nodes, base_dim, topology, _ = lattice
     if h_dim % n_nodes:
         raise ValueError(f"H = {h_dim} does not split into {n_nodes} node "
@@ -475,14 +576,6 @@ def _mxu_operands(w1, b1, w2, b2, x0, lattice, coupling, lead=()):
                          f"{i_dim}) coupling operand on {x0.device}")
     return (weights, coupling.to(x0.dtype).contiguous(), code,
             (base_dim, h_dim // n_nodes, n_nodes, _TOPOLOGY_CODES[topology]))
-
-
-def _raise_on_mxu(lib, code: int, kernel: str, shape) -> None:
-    if code == -1:
-        raise ValueError(f"{kernel}: mxu shape (node I, node H, n_nodes, "
-                         f"topology) = {shape} is not compiled into "
-                         f"{build.SOURCE} (MXU_SHAPES)")
-    _raise_on(lib, code, kernel, None)
 
 
 def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
@@ -515,9 +608,10 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     a step at chen@ring32) at the f32 instruction rate, against 4 bytes
     written.
     Design (``mxu_x2_bits_kernel``, ``bf16x2_mxu_bits_kernel``): two
-    lanes a thread, a CTA of 128 threads holding 128 / n_nodes lane slots
-    of n_nodes node threads (a scalar core is one node), slot s lanes s
-    and s + 128 / n_nodes of the CTA's range; the node's weight blocks in
+    lanes a thread, a CTA of 128 threads holding 128 / W lane slots of W =
+    ``slot_width(n_nodes)`` threads (a scalar core is one node; past
+    n_nodes a slot's threads are idle, mirroring the last node), slot s
+    lanes s and s + 128 / W of the CTA's range; the node's weight blocks in
     registers once for both lanes, the chains over the node's nonzero
     terms in the dense order; in bf16 both lanes packed in one register,
     each chain's f32 pair rounded by one ``cvt.rn.bf16x2.f32``, the bias
@@ -539,14 +633,14 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0:
         return words, state
-    lib = _lib()
+    lib = _library("mxu", shape)
     rc = lib.chaotic_ann_mxu_bits_launch(
         x0.device.index, code, act, *shape,
         *(t.data_ptr() for t in weights),
         None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
         offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_lanes,
         n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_mxu(lib, rc, "chaotic_ann_mxu_bits", shape)
+    _raise_on(lib, rc, "chaotic_ann_mxu_bits")
     chaotic_ann_mxu_bits.launches += 1
     return words, state
 
@@ -586,14 +680,14 @@ def chaotic_ann_mxu_traj(w1: torch.Tensor, b1: torch.Tensor,
                        device=x0.device)
     if n_lanes == 0 or n_steps == 0:
         return traj
-    lib = _lib()
+    lib = _library("mxu", shape)
     rc = lib.chaotic_ann_mxu_traj_launch(
         x0.device.index, code, act, *shape,
         *(t.data_ptr() for t in weights),
         None if cpl is None else cpl.data_ptr(), x0.data_ptr(),
         traj.data_ptr(), n_lanes, n_steps,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_mxu(lib, rc, "chaotic_ann_mxu_traj", shape)
+    _raise_on(lib, rc, "chaotic_ann_mxu_traj")
     chaotic_ann_mxu_traj.launches += 1
     return traj
 
@@ -760,14 +854,14 @@ def chaotic_ann_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0:
         return words, state
-    lib = _lib()
+    lib = _library("scalar", w1.shape[-2:])
     rc = lib.chaotic_ann_gang_bits_launch(
         x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), maps[0].data_ptr(),
         maps[1].data_ptr(), offsets.data_ptr(), words.data_ptr(),
         state.data_ptr(), n_lanes, s_block, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on(lib, rc, "chaotic_ann_gang_bits", w1)
+    _raise_on(lib, rc, "chaotic_ann_gang_bits")
     chaotic_ann_gang_bits.launches += 1
     return words, state
 
@@ -829,13 +923,13 @@ def chaotic_ann_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0 or n_cores == 0:
         return words, state
-    lib = _lib()
+    lib = _library("scalar", w1.shape[-2:])
     rc = lib.chaotic_ann_gang_stacked_launch(
         x0.device.index, code, act, *w1.shape[-2:],
         *(t.data_ptr() for t in weights), x0.data_ptr(), rows_d.data_ptr(),
         offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_cores,
         n_lanes, n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on(lib, rc, "chaotic_ann_gang_stacked", w1)
+    _raise_on(lib, rc, "chaotic_ann_gang_stacked")
     chaotic_ann_gang_stacked.launches += 1
     return words, state
 
@@ -872,12 +966,13 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     node), weight blocks and state in registers, neighbours by warp
     shuffles.  A CTA lies inside one lane block and reads that block's
     core and rows.  f32 (``lattice_gang_bits_kernel``): a CTA holds
-    128 / n_nodes lanes and ``s_block`` is a multiple of that.  bf16
+    128 / W lanes (W = ``slot_width(n_nodes)``) and ``s_block`` is a
+    multiple of that (``gang_lane_granularity``).  bf16
     (``bf16x2_lattice_gang_bits_kernel``): the bf16x2 lattice K1's row
     loop, two lanes a node thread in one register, every op one packed
     ``add/sub/mul.rn.bf16x2`` with no f32 round trip; a CTA holds
-    2 * 128 / n_nodes lanes of one block, CTAs indexed by (block, CTA in
-    the block), and an ``s_block`` that is an odd multiple of 128 / n_nodes
+    2 * 128 / W lanes of one block, CTAs indexed by (block, CTA in
+    the block), and an ``s_block`` that is an odd multiple of 128 / W
     leaves the block's last CTA one lane half, which mirrors the block's
     last lane and writes nothing.  Both take the same ``s_block`` values.
     """
@@ -891,7 +986,7 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
                                              activation, lattice)
     weights, code, shape, eps = _lattice_operands(
         w1, b1, w2, b2, x0, lattice, lead=(n_cores,))
-    cta_lanes = _CTA_LANES // lattice[0]
+    cta_lanes = gang_lane_granularity(lattice[0])
     if s_block % cta_lanes:
         raise ValueError(f"s_block {s_block} must be a multiple of "
                          f"{cta_lanes}, the lattice kernel's lanes per CTA "
@@ -904,14 +999,14 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0:
         return words, state
-    lib = _lib()
+    lib = _library("lattice", shape)
     rc = lib.chaotic_ann_lattice_gang_bits_launch(
         x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), maps[0].data_ptr(),
         maps[1].data_ptr(), offsets.data_ptr(), words.data_ptr(),
         state.data_ptr(), n_lanes, s_block, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_gang_bits", shape)
+    _raise_on(lib, rc, "chaotic_ann_lattice_gang_bits")
     chaotic_ann_lattice_gang_bits.launches += 1
     return words, state
 
@@ -966,13 +1061,13 @@ def chaotic_ann_lattice_gang_stacked(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0 or n_cores == 0:
         return words, state
-    lib = _lib()
+    lib = _library("lattice", shape)
     rc = lib.chaotic_ann_lattice_gang_stacked_launch(
         x0.device.index, code, act, *shape, eps,
         *(t.data_ptr() for t in weights), x0.data_ptr(), rows_d.data_ptr(),
         offsets.data_ptr(), words.data_ptr(), state.data_ptr(), n_cores,
         n_lanes, n_rows, torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_lattice(lib, rc, "chaotic_ann_lattice_gang_stacked", shape)
+    _raise_on(lib, rc, "chaotic_ann_lattice_gang_stacked")
     chaotic_ann_lattice_gang_stacked.launches += 1
     return words, state
 
@@ -1012,10 +1107,10 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     (``mxu_x2_gang_bits_kernel`` in f32, ``bf16x2_mxu_gang_bits_kernel``
     in bf16): the mxu K1's row loop, two lanes a thread, on the lane
     block's core, so a core's words are bitwise its mxu K1's.  A CTA of
-    128 threads holds 128 / n_nodes lane slots of two lanes each and lies
+    128 threads holds 128 / W lane slots of two lanes each and lies
     inside one lane block, reading that block's core and rows; CTAs are
     indexed by (block, CTA in the block), so ``s_block`` is any multiple
-    of 128 / n_nodes, and where it is an odd one the block's last CTA
+    of 128 / W, and where it is an odd one the block's last CTA
     holds one live lane half, the other mirroring the block's last lane
     and writing nothing (a scalar core at ``s_block`` 128: every CTA; in
     f32 such a thread runs its one lane alone).  K4
@@ -1033,7 +1128,7 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
                                              coupling)
     weights, cpl, code, shape = _mxu_operands(w1, b1, w2, b2, x0, lattice,
                                               coupling, lead=(n_cores,))
-    cta_lanes = _CTA_LANES // shape[2]
+    cta_lanes = gang_lane_granularity(shape[2])
     if s_block % cta_lanes:
         raise ValueError(f"s_block {s_block} must be a multiple of "
                          f"{cta_lanes}, the mxu kernel's lane slots per CTA at "
@@ -1046,7 +1141,7 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     state = torch.empty_like(x0)
     if n_lanes == 0:
         return words, state
-    lib = _lib()
+    lib = _library("mxu", shape)
     rc = lib.chaotic_ann_mxu_gang_bits_launch(
         x0.device.index, code, act, *shape,
         *(t.data_ptr() for t in weights),
@@ -1054,7 +1149,7 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
         maps[0].data_ptr(), maps[1].data_ptr(), offsets.data_ptr(),
         words.data_ptr(), state.data_ptr(), n_lanes, s_block, n_rows,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    _raise_on_mxu(lib, rc, "chaotic_ann_mxu_gang_bits", shape)
+    _raise_on(lib, rc, "chaotic_ann_mxu_gang_bits")
     chaotic_ann_mxu_gang_bits.launches += 1
     return words, state
 

@@ -5,7 +5,9 @@ Port of ``repro/kernels/ops.py``.  ``chaotic_trajectory`` and
 (``"auto"``) calls the kernel wrappers of ``chaotic_ann``: on a CUDA tensor
 they launch the hand-written kernel, on a CPU tensor they take the plain
 PyTorch version.  ``backend="ref"`` asks for the plain version explicitly,
-on any device.
+on any device.  ``prepare`` builds the kernels of shapes outside the
+default library ahead of their first launch (``kernel_shapes`` gives a
+core's).
 
 The integer stages (low-mantissa fold, pair packing, Weyl offsets, Murmur3
 finalizer) are bitwise twins of the JAX ones.  They compute in int64 masked
@@ -117,6 +119,37 @@ def uniform_from_trajectory(traj: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.int64, device=traj.device)
     bits = _packed(traj, zero)
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def kernel_shapes(params, compute_unit: str = "vpu"):
+    """The shape keys (``build.FAMILIES``) the kernels of one core take on
+    ``compute_unit``, for ``prepare``: numpy or torch params, a lattice's
+    by its ``lattice_meta``.  ``prepare`` checks them against what the
+    card takes; the CPU takes any."""
+    chaotic_ann._check_unit(compute_unit)
+    i_dim, h_dim = (int(v) for v in params["w1"].shape[-2:])
+    if "lattice_meta" in params:
+        from repro_torch.core.ann import lattice_meta_tuple
+        n_nodes, base_dim, topology, _ = lattice_meta_tuple(
+            params["lattice_meta"])
+        family = "mxu" if compute_unit == "mxu" else "lattice"
+        return [(family, (base_dim, h_dim // n_nodes, n_nodes,
+                          chaotic_ann._TOPOLOGY_CODES[topology]))]
+    if compute_unit == "mxu":
+        return [("mxu", (i_dim, h_dim, 1, 0))]
+    return [("scalar", (i_dim, h_dim))]
+
+
+def prepare(shapes, device=None):
+    """Build, before any launch, the kernels of the shape keys ``shapes``
+    that lie outside the default library (``chaotic_ann.prepare``; every
+    build started at once).  Returns {key: build seconds}; raises
+    ``ValueError`` for a shape the card does not take.  Does nothing
+    where ``device`` (a ``torch.device`` or name, if given) is not a CUDA
+    device: the CPU takes the plain versions, at any shape."""
+    if device is not None and torch.device(device).type != "cuda":
+        return {}
+    return chaotic_ann.prepare(shapes)
 
 
 def _lattice_args(params: Dict[str, torch.Tensor], compute_unit: str):

@@ -121,7 +121,8 @@ class ChaoticPRNG:
     Holds only static configuration (weights, dtype, kernel config, device);
     stream state is explicit.  ``params`` are numpy arrays or tensors.
     Given no ``config``, the kernel config is the JAX package's choice for
-    ``n_streams`` lanes (``core.dse.resolve_config``).
+    ``n_streams`` lanes (``core.dse.resolve_config``).  On the card its
+    kernels' shape library is built here (``ops.prepare``), not at a draw.
     """
 
     def __init__(self, params, *, n_streams: int = 256, burn_in: int = 16,
@@ -138,6 +139,10 @@ class ChaoticPRNG:
         self.dtype = dtype
         self.config = resolve_config(config, self.params, dtype,
                                      s_total=self.n_streams)
+        if backend == "auto":   # this core's kernels, built before a draw
+            ops.prepare(ops.kernel_shapes(self.params,
+                                          self.config.compute_unit),
+                        device=self.device)
 
     def init(self, seed: int = 0, path: Tuple[int, ...] = ()) -> StreamState:
         """Seed + burn in a fresh stream (rows start counting at 0 after)."""

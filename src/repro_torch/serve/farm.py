@@ -521,7 +521,8 @@ class OscillatorFarm:
                  activation: str = "relu", lanes_per_client: int = 128,
                  burn_in: int = 16, backend: str = "auto") -> PRNGService:
         """Attach a core (one oscillator network) as a serving pool;
-        ``dtype`` None is float32."""
+        ``dtype`` None is float32.  On the card the core's kernels are built
+        here, by its service (``ops.prepare``), not at a flush."""
         if core in self.services:
             raise ValueError(f"core {core!r} already attached")
         svc = self._service(params, config=config, dtype=dtype,
@@ -545,7 +546,8 @@ class OscillatorFarm:
         """Build a farm from a ``generate_farm`` output directory, read
         only: every subdirectory with weights.npz + solution.json becomes
         a core, and its frozen solution (kernel config, dtype, activation)
-        drives that core's service.  One adjustment: the solution's stream
+        drives that core's service.  On the card every core's kernels are
+        built first, in one parallel build (``ops.prepare``).  One adjustment: the solution's stream
         block is clamped to one client's lane block; lanes evolve
         independently, so the clamp is bit-exact.
         """
@@ -567,12 +569,20 @@ class OscillatorFarm:
             raise ValueError(f"no generated cores under {farm_dir}")
         lanes = service_kw.get("lanes_per_client", 128)
         p_cap = max(0, (_pad(lanes, LANES) // LANES).bit_length() - 1)
+        cores = []
         for name in names:
             sol = json.loads((farm_dir / name / "solution.json").read_text())
             cand = Candidate(**sol["candidate"])
             cand = dataclasses.replace(cand, p=min(cand.p, p_cap))
             with np.load(farm_dir / name / "weights.npz") as npz:
-                params = dict(npz)
+                cores.append((name, dict(npz), cand, sol))
+        if service_kw.get("backend", "auto") == "auto":
+            # every core's kernels in one parallel build, before any service
+            ops.prepare([key for _, params, cand, _ in cores
+                         for key in ops.kernel_shapes(params,
+                                                      cand.compute_unit)],
+                        device=farm.device)
+        for name, params, cand, sol in cores:
             farm.add_core(name, params, config=cand,
                           dtype=_DTYPES[cand.dtype_name],
                           activation=sol.get("activation", "relu"),

@@ -46,7 +46,9 @@ class PRNGService:
 
     Given no ``config``, the kernel config is the JAX package's choice for
     one client's ``lanes_per_client`` lanes (``core.dse.resolve_config``),
-    so the service serves the JAX service's default stream.
+    so the service serves the JAX service's default stream.  On the card
+    its kernels' shape library is built here (``ops.prepare``), so no
+    flush waits on ``nvcc``.
     """
 
     def __init__(self, params, *, lanes_per_client: int = 128,
@@ -63,6 +65,10 @@ class PRNGService:
         self.dtype = dtype
         self.config = resolve_config(config, self.params, dtype,
                                      s_total=self.lanes_per_client)
+        if backend == "auto":   # this core's kernels, built before a flush
+            ops.prepare(ops.kernel_shapes(self.params,
+                                          self.config.compute_unit),
+                        device=self.device)
         self.clients: Dict[str, _Client] = {}
         self.pool_x: Optional[torch.Tensor] = None    # (n_clients * L, I)
         self.launches = 0                             # batched pool launches

@@ -81,7 +81,18 @@ def test_ops_on_card_never_reach_the_plain_version(monkeypatch):
     assert torch.equal(state, want_s)
 
 
+def _seeded_net(i_dim, h_dim, seed):
+    """Seeded (I, H) weights on the card, gain near 1."""
+    rng = np.random.default_rng(seed)
+    shapes = ((i_dim, h_dim), (h_dim,), (h_dim, i_dim), (i_dim,))
+    scales = (1.2 / np.sqrt(i_dim), 0.2, 1.2 / np.sqrt(h_dim), 0.1)
+    return [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).cuda()
+            for shape, s in zip(shapes, scales)]
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Contiguity and dtype are refused; a 3-5 net, outside the default
+    library, runs from its shape library bitwise its plain version."""
     _need_card()
     w, x0, off = _inputs("chen", 64, torch.float32, seed=3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -89,11 +100,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                      n_steps=4)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         chaotic_ann.chaotic_ann_traj(*w, x0.half(), n_steps=4)
-    with pytest.raises(ValueError, match="CHAOTIC_ANN_SHAPES"):
-        chaotic_ann.chaotic_ann_traj(
-            torch.zeros(3, 5, device="cuda"), torch.zeros(5, device="cuda"),
-            torch.zeros(5, 3, device="cuda"), torch.zeros(3, device="cuda"),
-            x0, n_steps=4)
+    w35 = _seeded_net(3, 5, seed=4)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x0.to(dtype)
+        _assert_bitwise(chaotic_ann.chaotic_ann_traj(*w35, xd, n_steps=4),
+                        ref.chaotic_ann_ref(*w35, xd, 4))
+        words, state = chaotic_ann.chaotic_ann_bits(*w35, xd, off, n_steps=4)
+        want_w, want_s = ref.chaotic_ann_bits_ref(*w35, xd, 4, off)
+        _assert_bitwise(words, want_w)
+        _assert_bitwise(state, want_s)
 
 
 def _gang_weights(gang):
@@ -284,12 +299,24 @@ def test_lattice_wrappers_reject_what_the_kernels_do_not_take():
     bad["w1"][0, -1] = 0.5               # an off-block weight
     with pytest.raises(ValueError, match="block-diagonal"):
         params_from_numpy(bad, device="cuda")
-    with pytest.raises(ValueError, match="LATTICE_SHAPES"):
-        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
-                                     lattice=(4, 6, "ring", 0.05))
+    # chen@ring8's weights read as a ring of 4 nodes of a 6-16 base (its
+    # 3-8 blocks lie inside the 6-16 ones): a shape library's kernels,
+    # bitwise the plain version
+    four = (4, 6, "ring", 0.05)
+    _assert_bitwise(chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
+                                                 lattice=four),
+                    ref.chaotic_ann_ref(*w, x0, 4, lattice=four))
     with pytest.raises(ValueError, match="i_dim"):
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
                                      lattice=(4, 3, "ring", 0.05))
+    # more than 32 nodes, and a state that is no whole number of sublanes
+    w40, ring40, x40, _ = _lattice_inputs("chen@ring40", 8, torch.float32, 4)
+    with pytest.raises(ValueError, match="2 to 32"):
+        chaotic_ann.chaotic_ann_bits(*w40, x40, n_steps=4, lattice=ring40)
+    with pytest.raises(ValueError, match="sublanes"):
+        chaotic_ann.chaotic_ann_traj(
+            w[0][:12, :32], w[1][:32], w[2][:32, :12], w[3][:12],
+            x0[:, :12].contiguous(), n_steps=4, lattice=(4, 3, "ring", 0.05))
 
 
 MXU_SYSTEMS = ("chen", "hyperlorenz") + LATTICES
@@ -368,8 +395,17 @@ def test_mxu_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="coupling"):
         chaotic_ann.chaotic_ann_bits(*w, x0, off, n_steps=4, lattice=lattice,
                                      compute_unit="mxu")
-    with pytest.raises(ValueError, match="MXU_SHAPES"):
-        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, compute_unit="mxu")
+    # the lattice's weights as one dense 24-64 net on the mxu unit: a
+    # shape library's kernel, bitwise the plain dense FMA chains
+    _assert_bitwise(
+        chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, compute_unit="mxu"),
+        ref.chaotic_ann_ref(*w, x0, 4, compute_unit="mxu"))
+    w40, ring40, x40, _ = _lattice_inputs("chen@ring40", 8, torch.float32, 4)
+    cpl40 = torch.from_numpy(default_params(system="chen@ring40")["coupling"])
+    with pytest.raises(ValueError, match="2 to 32"):
+        chaotic_ann.chaotic_ann_bits(*w40, x40, n_steps=4, lattice=ring40,
+                                     compute_unit="mxu",
+                                     coupling=cpl40.cuda())
     bad = dict(default_params(system="chen@ring8"))
     bad["coupling"] = bad["coupling"].copy()
     bad["coupling"][0, 12] = 0.05        # node 0 <- node 4: not a neighbour
@@ -518,14 +554,33 @@ def test_lattice_gang_wrappers_reject_what_the_kernels_do_not_take():
     _need_card()
     w, lattice = _lattice_gang("ring8")
     x0 = torch.zeros(4 * 32, 24, device="cuda")
-    with pytest.raises(ValueError, match="LATTICE_SHAPES"):
-        chaotic_ann.chaotic_ann_gang_bits(*w, x0, [0, 1, 2, 3], n_steps=4,
-                                          s_block=32,
-                                          lattice=(4, 6, "ring", 0.05))
-    with pytest.raises(ValueError, match="LATTICE_SHAPES"):
-        chaotic_ann.chaotic_ann_gang_stacked(*w, x0.reshape(4, 32, 24),
-                                             n_steps=4,
-                                             lattice=(4, 6, "ring", 0.05))
+    # the four ring8 cores read as rings of 4 nodes of a 6-16 base: the
+    # shape library's K3 (s_block a multiple of 128 / 4) and K4, bitwise
+    # their plain versions
+    four = (4, 6, "ring", 0.05)
+    xs = torch.from_numpy(_x0_np(np.random.default_rng(5), (4 * 32, 24)))
+    xs = xs.cuda()
+    got = chaotic_ann.chaotic_ann_gang_bits(*w, xs, [0, 1, 2, 3], n_steps=4,
+                                            s_block=32, lattice=four)
+    want = ref.chaotic_ann_gang_bits_ref(*w, xs, np.array([0, 1, 2, 3]), 4,
+                                         lattice=four)
+    for g, e in zip(got, want):
+        _assert_bitwise(g, e)
+    got = chaotic_ann.chaotic_ann_gang_stacked(*w, xs.reshape(4, 32, 24),
+                                               n_steps=4, lattice=four)
+    want = ref.chaotic_ann_gang_stacked_ref(*w, xs.reshape(4, 32, 24), 4,
+                                            lattice=four)
+    for g, e in zip(got, want):
+        _assert_bitwise(g, e)
+    w40, ring40, _, _ = _lattice_inputs("chen@ring40", 8, torch.float32, 4)
+    w40 = [torch.stack([t] * 2) for t in w40]
+    x40 = torch.zeros(2 * 4, 120, device="cuda")
+    with pytest.raises(ValueError, match="2 to 32"):
+        chaotic_ann.chaotic_ann_gang_bits(*w40, x40, [0, 1], n_steps=4,
+                                          s_block=4, lattice=ring40)
+    with pytest.raises(ValueError, match="2 to 32"):
+        chaotic_ann.chaotic_ann_gang_stacked(*w40, x40.reshape(2, 4, 120),
+                                             n_steps=4, lattice=ring40)
     with pytest.raises(ValueError, match="multiple of 16"):
         chaotic_ann.chaotic_ann_gang_bits(*w, x0[:4 * 8], [0, 1, 2, 3],
                                           n_steps=4, s_block=8,
@@ -1384,3 +1439,63 @@ def test_retried_flush_under_the_frontend_on_card():
     want, _, _ = asyncio.run(serve(None))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Shape libraries, built at first use
+# ---------------------------------------------------------------------------
+
+_PREPARE_IN_A_PROCESS = """
+import sys
+from repro_torch.kernels import build, ops
+key = ("scalar", (5, 7))
+got = ops.prepare([key])
+print(got[key], build.library_path(key=key).stat().st_mtime_ns)
+"""
+
+
+def test_shape_library_built_once_and_reused_by_another_process():
+    """A shape no one asked for (5-7) builds in the first process that
+    prepares it and is reused, unbuilt, by the next; launches from it run
+    bitwise the plain version."""
+    _need_card()
+    import subprocess
+    import sys
+    from repro_torch.kernels import build
+    key = ("scalar", (5, 7))
+    build.library_path(key=key).unlink(missing_ok=True)
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(__import__("os").environ, PYTHONPATH=src)
+    runs = [subprocess.run([sys.executable, "-c", _PREPARE_IN_A_PROCESS],
+                           capture_output=True, text=True, env=env,
+                           check=True).stdout.split() for _ in range(2)]
+    assert float(runs[0][0]) > 0 and float(runs[1][0]) == 0.0
+    assert runs[0][1] == runs[1][1]          # the same file, not rebuilt
+    w = _seeded_net(5, 7, seed=6)
+    x0 = torch.from_numpy(_x0_np(np.random.default_rng(6), (300, 5))).cuda()
+    words, state = chaotic_ann.chaotic_ann_bits(*w, x0, 3, n_steps=8)
+    want_w, want_s = ref.chaotic_ann_bits_ref(*w, x0, 8, 3)
+    _assert_bitwise(words, want_w)
+    _assert_bitwise(state, want_s)
+
+
+def test_broken_shape_build_raises_and_never_falls_back(tmp_path,
+                                                        monkeypatch):
+    """A source that does not compile: the first launch at a new shape
+    raises nvcc's log, and the plain version is never reached."""
+    _need_card()
+    from repro_torch.kernels import build
+    src = (build.CSRC / build.SOURCE).read_text()
+    (tmp_path / build.SOURCE).write_text(src + "\n#error deliberately broken\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(chaotic_ann, "_SHAPE_LIBS", {})
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "chaotic_ann_bits_ref", forbidden)
+    w = _seeded_net(3, 6, seed=7)
+    x0 = torch.zeros(64, 3, device="cuda")
+    with pytest.raises(RuntimeError, match="deliberately broken"):
+        chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4)
+    assert not build.library_path(key=("scalar", (3, 6))).exists()

@@ -193,7 +193,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    bounded), the min-latency core's ``generate`` and ``generate_bits``
    (K2, K1, bf16); each part's output is then held bitwise against the
    same call on the plain path (``backend="ref"``) on the card (the
-   stream's first 2**17 words).  Then the
+   stream's first 2**16 words).  Then the
    tanh/sigmoid K1 and K2 bitwise against their
    plain versions at each core's ``s_block`` and at the served shape
    (65,536 lanes, 1,024 steps), timed there beside relu's K1 and the
@@ -218,7 +218,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    lorenz core: one K3 launch an activation), each held against a
    ``gang=False`` farm; every gang launch of the flushes against the
    plain gang scan on each core's first and last lane block (lanes are
-   independent) over its first 32 word rows, bitwise, and timed at its
+   independent) over its first 8 word rows, bitwise, and timed at its
    shape beside relu's launch of the same flush and its bound (in bf16
    the bf16x2 K3 and K4; F2's K3 also beside its chain floor).
 12. Lattices of tanh and sigmoid nets: phase 10's chen nets and phase
@@ -231,7 +231,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    zeroed just before it and read just after: the no-config f32
    ``ChaoticStream.from_trained`` of the chen@ring8 lattice (its config
    held to the JAX package's vpu choice; lattice K1; 2**20 words, the
-   first 2**17 bitwise against ``backend="ref"``; NIST printed, not
+   first 2**16 bitwise against ``backend="ref"``; NIST printed, not
    gated), the lattice iterated on the card (lattice K2, f32), and
    ``generate_core`` for chen_ring8/chen_grid8 tanh and sigmoid on
    ``select(24, 64, "pareto", n_nodes=8)`` (held to the JAX package's),
@@ -244,7 +244,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    one more client on each lorenz core: one lattice K3 an activation),
    each flush bitwise against ``gang=False`` and every gang launch
    replayed against the plain gang scan on each core's first and last
-   lane block over its first 32 word rows and timed beside relu's.  Last,
+   lane block over its first 8 word rows and timed beside relu's.  Last,
    lattice K1/K2 at chen@ring8,
    65,536 lanes x 256 steps, bitwise against plain and timed beside
    relu's, and timed at chen@ring32.
@@ -259,7 +259,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    read just after: the no-config streams of chen's net expanded to
    chen@ring32 (f32 ``ChaoticStream.from_trained``, bf16 ``ChaoticPRNG``)
    and to chen@ring8 (bf16), each config held to the JAX package's mxu
-   choice, 2**20 words through mxu K1, the first 2**12 bitwise against
+   choice, 2**20 words through mxu K1, the first 2**11 bitwise against
    ``backend="ref"``, NIST printed and not gated; each lattice iterated
    through mxu K2 and held against ``backend="ref"``; chen_ring8 /
    chen_grid8 tanh and sigmoid cores on ``select(24, 64, "min_latency",
@@ -316,6 +316,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    24 nodes, at 6 and on the 4-D base.  Last, W's cost: the lattice K1 at
    chen@grid24 (24 of a slot's 32 threads working) beside chen@grid32 at
    the same lanes and steps, each over its ops bound.
+15. The farm across devices (``repro_torch.distributed.sharding``): meshes
+   of cuda:0 listed 1, 2 and 4 times (one card cut into k shards, each
+   shard a launch of its own) and every visible card when there are
+   several, printed.  Per dtype: ``GangCostModel.fit`` of the committed
+   farm's 3-8-3 candidate on the card, its device fee on the 4-entry
+   mesh, each term printed in seconds beside the default's; the committed
+   farm at F1-F3 (as phase 5) unsharded, on every mesh, and under the
+   fitted model unsharded and on 4 shards, each meshed flush with the
+   launch counters zeroed just before and read just after, its decision,
+   launches, shards by mesh entry and device-to-device bytes printed, its
+   words bitwise the unsharded flush's (F1: a K4 and a K1 launch a shard;
+   F3: a K3 launch a shard); in f32 a snapshot of the 4-shard farm with
+   requests pending, refused by an unsharded farm and restored there with
+   ``on_topology_mismatch="replan"``, its next flush bitwise; the served
+   chen at 512 clients x 128 lanes on 2 and 4 shards, 16,384 words a
+   client a flush (a K1 launch a shard, bitwise the unsharded service);
+   the chen@ring32 lattice farm (vpu: lattice K4 at F1, K3 at F3) and the
+   mxu farm (mxu K3) at F1 and F3 on 2 shards, bitwise unsharded.  The
+   phase's launches per kernel and dtype go into the ``kernels`` rows as
+   ``sharded_launches``.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -624,10 +644,13 @@ PAPER_SELECT = {
     "lowest_cost": dict(i_dim=3, h_dim=8, p=0, compute_unit="vpu",
                         dtype_bytes=2, unroll=1, t_block=32, n_nodes=1)}
 PAPER_CHECK_LANES, PAPER_CHECK_STEPS = 65_536, 1_024
-PAPER_CORE_STEPS = 512
-# the stream's words held bitwise against the plain path: its first 512
+# the plain checks' depths (each core's generate / generate_bits and its
+# K1/K2 at the core's s_block; the stream's first words) are the plain
+# loops' launches, cut to pay for phase 15's time
+PAPER_CORE_STEPS = 256
+# the stream's words held bitwise against the plain path: its first 256
 # word rows (the plain loop's launches, not its lanes, set its time)
-PAPER_STREAM_CHECK_WORDS = 1 << 17
+PAPER_STREAM_CHECK_WORDS = 1 << 16
 ATTRACTOR_LANES, ATTRACTOR_STEPS = 16, 2_000
 ACT_F32_INPUTS = 1 << 24
 # ops per hidden unit that tanh and sigmoid add to a step (relu's select
@@ -662,15 +685,18 @@ GEN_HOT, GEN_F3 = "chen", "lorenz"
 # and two seeded 4-16-4 nets, K3 in 64 blocks of 128 lanes with ragged
 # rows, K4 with a ragged lane count and a frozen core; K4 also at F1's
 # shape (4 x 16,384 lanes) with unequal demands
-GEN_CHECK_BLOCKS, GEN_CHECK_STEPS = 64, 256
+# (64 rows, cut to pay for phase 15's time: the row map below still gives
+# blocks of 0, partial and all rows)
+GEN_CHECK_BLOCKS, GEN_CHECK_STEPS = 64, 128
 GEN_K3_ROW_MAP = np.resize([0, 3, 128, 17, 64, 9, 200, 1], GEN_CHECK_BLOCKS)
 GEN_STACK_LANES = 4_096 + 37
 GEN_K4_ROW_MAP = [0, 13, 200, 64]
 GEN_F1_ROW_MAP = [128, 8, 77, 0]
 # the farms' gang launches (phases 11 and 12) replayed on each core's first
 # and last lane block over their first word rows: a plain gang scan's time
-# is its launches, a few per op of each step, whatever its lanes
-GEN_REPLAY_ROWS = 32
+# is its launches, a few per op of each step, whatever its lanes (8 rows:
+# all of F2's cold cores' demand; cut to pay for phase 15's time)
+GEN_REPLAY_ROWS = 8
 # phase 12, lattices of tanh and sigmoid nets: phase 10's chen nets and
 # phase 11's chua, lorenz and rossler nets expanded to 8-node rings
 # (coupling 0.05), chen's also to the 8-node torus.  The lattice K1-K4
@@ -688,9 +714,10 @@ LAT_STREAM_CONFIG = dict(i_dim=24, h_dim=64, p=1, compute_unit="vpu",
 LAT_SELECT = dict(i_dim=24, h_dim=64, p=3, compute_unit="vpu",
                   dtype_bytes=2, unroll=8, t_block=256, n_nodes=8)
 LAT_CORES = ("chen@ring8", "chen@grid8")        # generated, with testbench
-# the stream's words held bitwise against the plain path: its first 512
-# word rows (the plain loop's launches, not its lanes, set its time)
-LAT_STREAM_CHECK_WORDS = 1 << 17
+# the stream's words held bitwise against the plain path: its first 256
+# word rows (the plain loop's launches, not its lanes, set its time; cut
+# to pay for phase 15's time)
+LAT_STREAM_CHECK_WORDS = 1 << 16
 # the generated lattice cores' generate / generate_bits steps (the plain
 # dense loop's launches set the checks' time)
 LAT_CORE_STEPS = 128
@@ -713,12 +740,13 @@ MXU_STREAMS = (("chen@ring32", "f32"), ("chen@ring32", "bf16"),
 MXU_STREAM_CONFIG = dict(p=1, compute_unit="mxu", unroll=8, t_block=256)
 MXU_SELECT = dict(i_dim=24, h_dim=64, p=5, compute_unit="mxu",
                   dtype_bytes=2, unroll=8, t_block=128, n_nodes=8)
-# each stream's first words held against the plain path (6-9 s of plain
+# each stream's first words held against the plain path (seconds of plain
 # f32 chains at ring32), the lattices iterated (steps by n_nodes),
-# and the generated cores' generate / generate_bits steps
-MXU_STREAM_CHECK_WORDS = 1 << 12
-MXU_ATTRACTOR_STEPS = {32: 32, 8: 128}
-MXU_CORE_STEPS = 64
+# and the generated cores' generate / generate_bits steps, all cut to pay
+# for phase 15's time
+MXU_STREAM_CHECK_WORDS = 1 << 11
+MXU_ATTRACTOR_STEPS = {32: 16, 8: 64}
+MXU_CORE_STEPS = 32
 # the farm's gang launches replayed on their first word rows (a ring32
 # plain f32 gang scan costs about 0.1 s a core a step)
 MXU_REPLAY_ROWS = 2
@@ -2116,15 +2144,18 @@ def kernel_rows(system, unit, tag, launches, t, errs):
     return rows
 
 
-def make_farm(torch, device, tag, gang=True):
+def make_farm(torch, device, tag, gang=True, mesh=None, cost_model=None):
     """The committed farm: bf16 through ``from_generated``; f32 as the same
-    solutions at dtype_bytes=4 through ``add_core``."""
+    solutions at dtype_bytes=4 through ``add_core``; every core on
+    ``mesh`` when one is given, planned by ``cost_model``."""
     from repro_torch.core.dse import Candidate
     from repro_torch.serve.farm import OscillatorFarm
     if tag == "bf16":
-        return OscillatorFarm.from_generated(FARM_DIR, gang=gang,
-                                             profile=True, device=device)
-    farm = OscillatorFarm(gang=gang, profile=True, device=device)
+        return OscillatorFarm.from_generated(
+            FARM_DIR, gang=gang, profile=True, device=device,
+            gang_cost_model=cost_model, mesh=mesh)
+    farm = OscillatorFarm(gang=gang, profile=True, device=device,
+                          gang_cost_model=cost_model)
     for name in sorted(p.name for p in FARM_DIR.iterdir()
                        if (p / "solution.json").exists()):
         sol = json.loads((FARM_DIR / name / "solution.json").read_text())
@@ -2133,7 +2164,43 @@ def make_farm(torch, device, tag, gang=True):
         with np.load(FARM_DIR / name / "weights.npz") as npz:
             weights = dict(npz)
         farm.add_core(name, weights, config=cand, dtype=torch.float32,
-                      activation=sol.get("activation", "relu"))
+                      activation=sol.get("activation", "relu"), mesh=mesh)
+    return farm
+
+
+def make_lattice_farm(device, dtype, gang=True, mesh=None):
+    """The lattice farm: the four LATTICE_FARM cores on
+    ``default_config(96, 256, dtype, n_nodes=32)`` beside the scalar chen
+    on its own vpu config."""
+    from repro_torch.core.dse import default_config
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.farm import OscillatorFarm
+    farm = OscillatorFarm(gang=gang, profile=True, device=device)
+    for system in LATTICE_FARM:
+        farm.add_core(system, default_params(system=system),
+                      config=default_config(96, 256, dtype, n_nodes=32),
+                      dtype=dtype, mesh=mesh)
+    farm.add_core("chen", default_params(system="chen"),
+                  config=default_config(3, 8, dtype), dtype=dtype, mesh=mesh)
+    return farm
+
+
+def make_mxu_farm(device, dtype, gang=True, mesh=None):
+    """The mxu farm: the four LATTICE_FARM cores with NO config (the mxu
+    unit) beside the four 3-8-3 registry nets on
+    ``select_config(3, 8, s_total=128, unit="mxu")``."""
+    from repro_torch.core.dse import select_config
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.farm import OscillatorFarm
+    scalar_cfg = select_config(3, 8, s_total=LANES_PER_CLIENT, dtype=dtype,
+                               unit="mxu")
+    farm = OscillatorFarm(gang=gang, profile=True, device=device)
+    for system in LATTICE_FARM:
+        farm.add_core(system, default_params(system=system), dtype=dtype,
+                      mesh=mesh)
+    for system in GANGS["3-8"]:
+        farm.add_core(system, default_params(system=system),
+                      config=scalar_cfg, dtype=dtype, mesh=mesh)
     return farm
 
 
@@ -2366,20 +2433,11 @@ def phase_lattice_farm(torch, device, dtype, tag, card, errs):
     shapes, bitwise, with their times and bounds.  Returns ({kernel:
     launches over the three flushes}, timings)."""
     from repro_torch.core.ann import lattice_meta_tuple
-    from repro_torch.core.dse import default_config
     from repro_torch.kernels import chaotic_ann, ref
-    from repro_torch.prng.stream import _round_rows, default_params
-    from repro_torch.serve.farm import OscillatorFarm
+    from repro_torch.prng.stream import _round_rows
 
     def make(gang=True):
-        farm = OscillatorFarm(gang=gang, profile=True, device=device)
-        for system in LATTICE_FARM:
-            farm.add_core(system, default_params(system=system),
-                          config=default_config(96, 256, dtype, n_nodes=32),
-                          dtype=dtype)
-        farm.add_core("chen", default_params(system="chen"),
-                      config=default_config(3, 8, dtype), dtype=dtype)
-        return farm
+        return make_lattice_farm(device, dtype, gang)
 
     farm, solo = make(), make(gang=False)
     cores = farm.cores
@@ -2549,23 +2607,13 @@ def phase_mxu_farm(torch, device, dtype, tag, card, errs):
     launches over F1's lanes.  Returns ({kernel: launches over the three
     flushes}, timings)."""
     from repro_torch.core.ann import lattice_meta_tuple
-    from repro_torch.core.dse import select_config
     from repro_torch.kernels import chaotic_ann, ref
-    from repro_torch.prng.stream import _round_rows, default_params
-    from repro_torch.serve.farm import OscillatorFarm
+    from repro_torch.prng.stream import _round_rows
 
     scalar = GANGS["3-8"]
-    scalar_cfg = select_config(3, 8, s_total=LANES_PER_CLIENT, dtype=dtype,
-                               unit="mxu")
 
     def make(gang=True):
-        farm = OscillatorFarm(gang=gang, profile=True, device=device)
-        for system in LATTICE_FARM:
-            farm.add_core(system, default_params(system=system), dtype=dtype)
-        for system in scalar:
-            farm.add_core(system, default_params(system=system),
-                          config=scalar_cfg, dtype=dtype)
-        return farm
+        return make_mxu_farm(device, dtype, gang)
 
     farm, solo = make(), make(gang=False)
     cores = farm.cores
@@ -5082,6 +5130,28 @@ SHAPE_TIME = {(False, "vpu"): (65_536, 256), (False, "mxu"): (65_536, 64),
 # library), lanes x steps
 SHAPE_W_LANES, SHAPE_W_STEPS = 16_384, 64
 
+# phase 15, the farm across devices (``distributed.sharding.DeviceMesh``):
+# cuda:0 listed 1, 2 and 4 times (one card partitioned k ways, each shard
+# a launch of its own on the card's stream) and every visible card when
+# there are several.  The committed farm at F1-F3 in both dtypes on every
+# mesh; the served chen at its full width (N_CLIENTS x LANES_PER_CLIENT)
+# on the meshes of 2 and more, SHARD_SERVED_WORDS a client a flush (the
+# served path's 65,536 cut: its flush is absorb-bound); the chen@ring32
+# lattice farm (vpu) and the mxu farm at F1 and F3 on SHARD_SIDE_MESH
+SHARD_REPEATS = (1, 2, 4)
+SHARD_SERVED_WORDS, SHARD_SERVED_FLUSHES = 16_384, 2
+SHARD_SIDE_MESH = "cuda:0 x2"
+SHARD_FIT_MESH = "cuda:0 x4"
+# the fit times F1's pools (FARM_CLIENTS x LANES_PER_CLIENT lanes, the
+# four cores of the 3-8-3 gang), more reps than its default 3 against host
+# jitter; the fitted model's price of F1's stacked launch (one K4 call at
+# that shape, timed on the host as the fit times) must lie within
+# SHARD_FIT_FACTOR of the call's time either way.  On an H100 that call
+# takes 0.15-0.25 ms, most of it the host's side of the launch, which
+# jitters by tens of microseconds from call to call; the default model
+# prices it at 0.03-0.05 ms, under a third
+SHARD_FIT_REPS, SHARD_FIT_FACTOR = 15, 3.0
+
 
 def shape_label(key) -> str:
     family, dims = key
@@ -5717,6 +5787,393 @@ def phase_shapes(torch, device, card, errs, ds=None):
           f"{len(chaotic_ann._SHAPE_LIBS)} shape libraries")
     return rows
 
+def shard_meshes(torch) -> dict:
+    """Phase 15's meshes by label: cuda:0 listed k times for each of
+    SHARD_REPEATS, and every card when more than one is visible."""
+    from repro_torch.distributed.sharding import DeviceMesh
+    meshes = {f"cuda:0 x{k}": DeviceMesh(["cuda:0"] * k)
+              for k in SHARD_REPEATS}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes[f"{n_cards} cards"] = DeviceMesh(
+            [f"cuda:{i}" for i in range(n_cards)])
+    return meshes
+
+
+def shard_flush(torch, flush, mesh, want, what, farm=None):
+    """One flush of a meshed farm or service, the launch counters zeroed
+    just before and read just after; its words must equal ``want`` (the
+    unsharded run's).  Prints the wall, the planner's decision (a farm),
+    the kernels launched, the shards run on each mesh entry and the
+    device-to-device bytes copied.  Returns (launches, shards by entry)."""
+    from repro_torch.kernels import chaotic_ann
+    dec0 = None if farm is None else farm.plan_decisions
+    shards0, bytes0 = list(mesh.shard_launches), mesh.copied_bytes
+    zero_launches(chaotic_ann)
+    t0 = time.perf_counter()
+    out = flush()
+    for d in {d for d in mesh.devices}:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in read_launches(chaotic_ann).items() if v}
+    shards = [a - b for a, b in zip(mesh.shard_launches, shards0)]
+    decisions = ({} if farm is None else
+                 {k: v - dec0[k] for k, v in farm.plan_decisions.items()
+                  if v != dec0[k]})
+    print(f"{what}: wall {wall * 1e3:.1f} ms; decisions {decisions}; "
+          f"kernel launches {got}; shards by entry {shards}; "
+          f"device-to-device bytes {mesh.copied_bytes - bytes0}")
+    same = (same_words(out, want) if farm is not None else
+            set(out) == set(want)
+            and all(np.array_equal(out[k], want[k]) for k in out))
+    check(same, f"{what}: words differ from the unsharded run")
+    return got, shards
+
+
+def fit_report(model, c) -> str:
+    """A cost model's terms in seconds (cycles x sec_per_cycle)."""
+    spc = model.sec_per_cycle
+    return (f"launch {model.launch_overhead_cycles * spc * 1e6:.3f} us, "
+            f"cell {model.cell_overhead_cycles * spc * 1e9:.1f} ns, "
+            f"step of one {c.s_block}-lane block "
+            f"{model.step_cycles(c) * spc * 1e9:.2f} ns, stacked scale "
+            f"{model.stacked_step_scale:.3f}, freeze row "
+            f"{model.freeze_row_cycles * spc * 1e9:.1f} ns, device fee "
+            f"{model.cross_dev_overhead_cycles * spc * 1e6:.3f} us "
+            f"(sec_per_cycle {spc:.4g})")
+
+
+def synced_ms(torch, fn, cards, reps: int) -> float:
+    """Median wall of ``reps`` calls of ``fn`` (after one untimed call),
+    each ending in ``torch.cuda.synchronize`` of every card in ``cards``:
+    what ``GangCostModel.fit`` times, and the one clock that spans the
+    shards of a mesh over several cards."""
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+    fn()
+    sync()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[reps // 2] * 1e3
+
+
+def shard_times(torch, device, farm, meshes, tag, card, fitted) -> None:
+    """The sharded K4 and K3 calls at F1's shape (the farm's four 3-8-3
+    pools, FARM_WORDS a client) on each mesh of more than one entry,
+    beside the unsharded K4 and K3 on the same inputs: device times by
+    CUDA events on a mesh of one card (the shards, the slices and the
+    gathers included), each over the unsharded launch's bound; on a mesh
+    over several cards, walls with every card synchronised (events time
+    one card's stream only).  Then ``fitted``'s price of the unsharded
+    K4 call, F1's stacked launch, against its wall as the fit times it
+    (through ``ops``, every call synchronised):
+    within SHARD_FIT_FACTOR either way; the K3 call's ratio is printed."""
+    from repro_torch.kernels import chaotic_ann, ops
+    svcs = [farm.services[c] for c in GANGS["3-8"]]
+    w = [torch.stack([s.params[k] for s in svcs])
+         for k in ("w1", "b1", "w2", "b2")]
+    n_cores, i_dim, h_dim = w[0].shape
+    s_pool = FARM_CLIENTS * LANES_PER_CLIENT
+    x0s = torch.stack([s.pool_x[:s_pool] for s in svcs]).contiguous()
+    x0c = x0s.reshape(n_cores * s_pool, i_dim)
+    offs = torch.zeros((n_cores, s_pool), dtype=torch.int64, device=device)
+    cfg = svcs[0].config
+    blocks = s_pool // cfg.s_block
+    core_map = np.repeat(np.arange(n_cores), blocks)
+    rows = FARM_WORDS // LANES_PER_CLIENT
+    kw = dict(n_steps=2 * rows)
+    k3_kw = dict(kw, s_block=cfg.s_block, t_block=cfg.t_block,
+                 unroll=cfg.unroll)
+    item = x0s.element_size()
+    n_words = n_cores * s_pool * rows
+    lim = bound(n_words * 2 * step_flops(i_dim, h_dim),
+                2 * n_cores * s_pool * i_dim * item + n_cores * s_pool * 8
+                + n_cores * (2 * i_dim * h_dim + h_dim + i_dim) * item
+                + n_words * 4, tag)
+
+    def k4(mesh=None):
+        if mesh is None:
+            return lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                *w, x0s, offs, **kw)
+        return lambda: chaotic_ann.chaotic_ann_gang_stacked_sharded(
+            *w, x0s, offs, mesh=mesh, **kw)
+
+    def k3(mesh=None):
+        if mesh is None:
+            return lambda: chaotic_ann.chaotic_ann_gang_bits(
+                *w, x0c, core_map, offs.reshape(-1), **k3_kw)
+        return lambda: chaotic_ann.chaotic_ann_gang_bits_sharded(
+            *w, x0c, core_map, offs.reshape(-1), mesh=mesh, **k3_kw)
+
+    t = {"K4": cuda_ms(torch, k4(), reps=10, warmup=2),
+         "K3": cuda_ms(torch, k3(), reps=10, warmup=2)}
+    walls = {}
+    for name, mesh in meshes.items():
+        if len(mesh.devices) < 2:
+            continue
+        cards = sorted({d.index for d in mesh.devices})
+        for kname, make in (("K4", k4), ("K3", k3)):
+            if len(cards) > 1:
+                walls[f"{kname} on {name}"] = synced_ms(
+                    torch, make(mesh), cards, reps=10)
+            else:
+                t[f"{kname} on {name}"] = cuda_ms(torch, make(mesh), reps=10,
+                                                  warmup=2)
+    print(f"sharded device times {tag} (F1's shape, {n_cores} x {s_pool} "
+          f"lanes x {rows} rows, s_block {cfg.s_block}; bound "
+          f"{lim[0]:.4f} ms by {lim[1]}): "
+          + ", ".join(f"{k} {v:.4f} ms ({v / lim[0]:.2f}x)"
+                      for k, v in t.items())
+          + "".join(f", {k} {v:.4f} ms (wall, every card synchronised)"
+                    for k, v in walls.items()) + f"; card {card}")
+    price = {"K4": fitted.seconds(fitted.gang_cost(
+                 cfg, [rows] * n_cores, [blocks] * n_cores,
+                 [s_pool] * n_cores, layout="stacked")) * 1e3,
+             "K3": fitted.seconds(fitted.gang_cost(
+                 cfg, [rows] * n_cores, [blocks] * n_cores,
+                 [s_pool] * n_cores, layout="concat")) * 1e3}
+    # through ops, as the farm calls them and the fit times its launches
+    gang = dict(zip(("w1", "b1", "w2", "b2"), w))
+    timed = {"K4": synced_ms(torch, lambda: ops.chaotic_bits_gang_stacked(
+                 gang, x0s, 2 * rows, offs, config=cfg), [device],
+                 reps=SHARD_FIT_REPS),
+             "K3": synced_ms(torch, lambda: ops.chaotic_bits_gang(
+                 gang, x0c, 2 * rows, offs.reshape(-1), core_map=core_map,
+                 config=cfg), [device], reps=SHARD_FIT_REPS)}
+    ratio = {k: price[k] / timed[k] for k in price}
+    base = type(fitted)()
+    base_k4 = base.seconds(base.gang_cost(
+        cfg, [rows] * n_cores, [blocks] * n_cores, [s_pool] * n_cores,
+        layout="stacked")) * 1e3
+    print(f"sharded fit {tag}: the fitted price of F1's stacked launch "
+          f"{price['K4']:.4f} ms against its wall {timed['K4']:.4f} ms "
+          f"(x{ratio['K4']:.3f}; limit x{SHARD_FIT_FACTOR} either way; the "
+          f"default model's {base_k4:.4f} ms, x{base_k4 / timed['K4']:.3f}); "
+          f"the concat launch at that shape {price['K3']:.4f} ms against "
+          f"{timed['K3']:.4f} ms (x{ratio['K3']:.3f}); card {card}")
+    check(1 / SHARD_FIT_FACTOR <= ratio["K4"] <= SHARD_FIT_FACTOR,
+          f"sharded fit {tag}: the fitted price of F1's stacked launch is "
+          f"x{ratio['K4']:.3f} its time")
+
+
+def shard_mixed(torch, mesh, name, card) -> None:
+    """A farm on the index-less "cuda" device (the services' default) with
+    chen unmeshed and lorenz on ``mesh``, flushed twice, so the unmeshed
+    core's launch follows a sharded one: on a mesh over several cards the
+    thread's current device must not move to another card, and the words
+    must be the unmeshed farm's on any mesh."""
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.farm import OscillatorFarm
+    cur = torch.cuda.current_device()
+    flat, mixed = OscillatorFarm(device="cuda"), OscillatorFarm(device="cuda")
+    for f in (flat, mixed):
+        f.add_core("chen", default_params(system="chen"))
+        f.add_core("lorenz", default_params(system="lorenz"),
+                   mesh=mesh if f is mixed else None)
+    clients = [f"m{i}" for i in range(2 * len(mesh.devices))]
+    register_all(torch, (flat, mixed), clients, 7000)
+    for k in range(2):
+        request_all((flat, mixed), {c: FARM_WORDS for c in flat.cores})
+        check(same_words(mixed.flush(), flat.flush()),
+              f"sharded mixed farm on {name}, flush {k}: words differ from "
+              f"the unmeshed farm")
+        check(torch.cuda.current_device() == cur,
+              f"sharded mixed farm on {name}, flush {k}: the current device "
+              f"moved from {cur} to {torch.cuda.current_device()}")
+    print(f"sharded mixed farm (chen unmeshed on 'cuda', lorenz on {name}): "
+          f"two flushes bitwise the unmeshed farm's, current device still "
+          f"{cur}; card {card}")
+
+
+def phase_sharded(torch, device, card) -> dict:
+    """Phase 15: the farm across devices.  Returns {(kernel, dtype tag):
+    launches in the phase's meshed runs}."""
+    from repro_torch.core.dse import GangCostModel
+    from repro_torch.prng.stream import default_params
+    from repro_torch.serve.prng_service import PRNGService
+
+    t_phase = time.perf_counter()
+    meshes = shard_meshes(torch)
+    print(f"sharded: meshes {', '.join(f'{k}: {m}' for k, m in meshes.items())}"
+          f"; card {card}")
+    launches: dict = {}
+
+    def add(got, tag):
+        for k, v in got.items():
+            launches[(k, tag)] = launches.get((k, tag), 0) + v
+
+    clients = [f"c{i:03d}" for i in range(FARM_CLIENTS)]
+    lanes = FARM_CLIENTS * LANES_PER_CLIENT
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        # the fitted cost model: the farm's 3-8-3 candidate, the device fee
+        # on the 4-entry mesh
+        cand = make_farm(torch, device, tag).services["chen"].config
+        t0 = time.perf_counter()
+        fitted = GangCostModel.fit(cand, device=device,
+                                   n_cores=len(GANGS["3-8"]),
+                                   lanes=lanes, reps=SHARD_FIT_REPS,
+                                   mesh=meshes[SHARD_FIT_MESH])
+        print(f"sharded fit {tag} ({cand}, {lanes} lanes a pool, "
+              f"{time.perf_counter() - t0:.2f} s): "
+              f"{fit_report(fitted, cand)}; default: "
+              f"{fit_report(GangCostModel(), cand)}; card {card}")
+        check(fitted != GangCostModel(),
+              f"sharded fit {tag}: the doubled launch was not slower, the "
+              f"defaults came back")
+        # the committed farm, unsharded (the words every run must equal),
+        # on each mesh, and under the fitted model unsharded and on 4
+        runs = {"unsharded": (make_farm(torch, device, tag), None)}
+        for name, mesh in meshes.items():
+            runs[name] = (make_farm(torch, device, tag, mesh=mesh), mesh)
+        runs["unsharded, fitted"] = (make_farm(torch, device, tag,
+                                               cost_model=fitted), None)
+        runs[f"{SHARD_FIT_MESH}, fitted"] = (
+            make_farm(torch, device, tag, mesh=meshes[SHARD_FIT_MESH],
+                      cost_model=fitted), meshes[SHARD_FIT_MESH])
+        farms = [f for f, _ in runs.values()]
+        register_all(torch, farms, clients, 0)
+        cores = farms[0].cores
+        hot = {c: HOT_WORDS if c == "chen" else COLD_WORDS for c in cores}
+        for label, words in (("F1", {c: FARM_WORDS for c in cores}),
+                             ("F2", hot), ("F3", {c: FARM_WORDS for c in cores})):
+            if label == "F3":              # unequal pools: one more client
+                for f in farms:
+                    f.register("lorenz", f"c{FARM_CLIENTS}", seed=99)
+            request_all(farms, words)
+            want = None
+            for name, (farm, mesh) in runs.items():
+                if mesh is None:           # unmeshed: the words to equal
+                    dec0 = farm.plan_decisions
+                    t0 = time.perf_counter()
+                    out = farm.flush()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    want = out if want is None else want
+                    check(same_words(out, want),
+                          f"sharded farm {tag} {label} {name}: words differ")
+                    print(f"sharded farm {tag} {label} {name}: wall "
+                          f"{wall * 1e3:.1f} ms; decisions "
+                          f"{ {k: v - dec0[k] for k, v in farm.plan_decisions.items() if v != dec0[k]} }")
+                    continue
+                got, _ = shard_flush(torch, farm.flush, mesh, want,
+                                     f"sharded farm {tag} {label} on {name}",
+                                     farm)
+                add(got, tag)
+                n_dev = len(mesh.devices)
+                if "fitted" in name or lanes % n_dev:
+                    continue
+                if label == "F1":
+                    check(got.get("chaotic_ann_gang_stacked") == n_dev
+                          and got.get("chaotic_ann_bits") == n_dev,
+                          f"sharded farm {tag} F1 on {name}: expected a K4 "
+                          f"and a K1 launch a shard, got {got}")
+                elif label == "F3":
+                    check(got.get("chaotic_ann_gang_bits") == n_dev,
+                          f"sharded farm {tag} F3 on {name}: expected a K3 "
+                          f"launch a shard, got {got}")
+        if tag == "f32":
+            # a snapshot of the 4-shard farm with requests pending: refused
+            # by an unsharded farm, restored there with replan
+            m4 = runs[SHARD_FIT_MESH][0]
+            request_all((m4,), {c: FARM_WORDS for c in cores})
+            snap = m4.snapshot()
+            flat = make_farm(torch, device, tag)
+            try:
+                flat.restore(snap)
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused, "sharded: an unsharded farm took the 4-shard "
+                           "farm's snapshot without replan")
+            flat.restore(snap, on_topology_mismatch="replan")
+            check(same_words(m4.flush(), flat.flush()),
+                  "sharded: the replanned restore differs from the 4-shard "
+                  "farm")
+            print(f"sharded farm {tag}: the {SHARD_FIT_MESH} snapshot refused "
+                  f"by an unsharded farm, restored with replan, its next "
+                  f"flush bitwise")
+
+        shard_times(torch, device, runs["unsharded"][0], meshes, tag, card,
+                    fitted)
+        if tag == "f32":                   # the widest mesh of cards
+            name = max(meshes, key=lambda k: (
+                len({d.index for d in meshes[k].devices}),
+                len(meshes[k].devices) == 2))
+            shard_mixed(torch, meshes[name], name, card)
+
+        # the served chen at full width
+        params = default_params(system="chen")
+        svcs = {"unsharded": (PRNGService(
+            params, lanes_per_client=LANES_PER_CLIENT, dtype=dtype,
+            device=device), None)}
+        for name, mesh in meshes.items():
+            if len(mesh.devices) > 1:
+                svcs[name] = (PRNGService(
+                    params, lanes_per_client=LANES_PER_CLIENT, dtype=dtype,
+                    mesh=mesh), mesh)
+        t0 = time.perf_counter()
+        for svc, _ in svcs.values():
+            for i in range(N_CLIENTS):
+                svc.register(f"s{i:03d}", seed=i)
+        torch.cuda.synchronize()
+        print(f"sharded served chen {tag}: {N_CLIENTS} clients x "
+              f"{LANES_PER_CLIENT} lanes registered on {len(svcs)} services "
+              f"in {time.perf_counter() - t0:.2f} s")
+        for k in range(SHARD_SERVED_FLUSHES):
+            for svc, _ in svcs.values():
+                for i in range(N_CLIENTS):
+                    svc.request(f"s{i:03d}", SHARD_SERVED_WORDS)
+            t0 = time.perf_counter()
+            want = svcs["unsharded"][0].flush()
+            torch.cuda.synchronize()
+            print(f"sharded served chen {tag} flush {k} unsharded: wall "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            for name, (svc, mesh) in list(svcs.items())[1:]:
+                got, _ = shard_flush(
+                    torch, svc.flush, mesh, want,
+                    f"sharded served chen {tag} flush {k} on {name} "
+                    f"({N_CLIENTS * SHARD_SERVED_WORDS} words)")
+                add(got, tag)
+                check(got == {"chaotic_ann_bits": len(mesh.devices)},
+                      f"sharded served chen {tag} on {name}: expected a K1 "
+                      f"launch a shard, got {got}")
+
+        # the lattice and mxu farms at F1 and F3 on two shards
+        mesh = meshes[SHARD_SIDE_MESH]
+        for unit, make in (("vpu", make_lattice_farm), ("mxu", make_mxu_farm)):
+            flat, meshed = make(device, dtype), make(device, dtype, mesh=mesh)
+            register_all(torch, (flat, meshed), clients, 5000)
+            n_words = LATTICE_WORDS if unit == "vpu" else MXU_WORDS
+            for label in ("F1", "F3"):
+                if label == "F3":
+                    for f in (flat, meshed):
+                        f.register("lorenz@ring32", f"c{FARM_CLIENTS}",
+                                   seed=99)
+                request_all((flat, meshed), {c: n_words for c in flat.cores})
+                got, _ = shard_flush(
+                    torch, meshed.flush, mesh, flat.flush(),
+                    f"sharded {unit} lattice farm {tag} {label} on "
+                    f"{SHARD_SIDE_MESH}", meshed)
+                add(got, tag)
+                lat = ("chaotic_ann_mxu_gang_bits" if unit == "mxu"
+                       else "chaotic_ann_lattice_gang_stacked" if label == "F1"
+                       else "chaotic_ann_lattice_gang_bits")
+                check(got.get(lat, 0) >= len(mesh.devices),
+                      f"sharded {unit} lattice farm {tag} {label}: expected "
+                      f"{lat} on every shard, got {got}")
+    for name in ("chaotic_ann_bits", "chaotic_ann_gang_bits",
+                 "chaotic_ann_gang_stacked"):
+        check(all(launches.get((name, tag), 0) > 0 for tag in ("f32", "bf16")),
+              f"sharded: {name} not launched on a mesh ({launches})")
+    print(f"sharded: phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"on the meshes {sorted(launches.items())}")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -5747,7 +6204,7 @@ def main() -> int:
 
 
 def run_phases(torch, device, card, log, sass) -> int:
-    """Phases 2-14 (the module's docstring), the SASS counts, then the
+    """Phases 2-15 (the module's docstring), the SASS counts, then the
     ``kernels`` and ``ok`` lines."""
     neg0 = torch.relu(torch.tensor([-0.0], device=device))
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
@@ -5901,6 +6358,13 @@ def run_phases(torch, device, card, log, sass) -> int:
     phase_done("mxu activations")
     rows += phase_shapes(torch, device, card, errs, chen_ds)
     phase_done("shapes")
+    sharded = phase_sharded(torch, device, card)
+    phase_done("sharded")
+    for row in rows:
+        n = sharded.get(tuple(row["name"].split("/")))
+        if n is not None and row["path"] in ("served", "farm",
+                                             "lattice-farm", "mxu-farm"):
+            row["sharded_launches"] = n
     # the serving tier's launches, beside each kernel's own path's
     for row in rows:
         n = tier.get(tuple(row["name"].split("/")))

@@ -16,9 +16,10 @@ than the JAX service.  A Hopper tuner (ROADMAP.md queue 1, 'DSE on a
 Hopper model') may reshape launches but must keep the selected
 ``compute_unit``.
 
-``GangCostModel`` keeps the JAX launch arithmetic with a Hopper step
-model (the ``CLOCK_HZ``/``PEAK_FLOPS`` inputs below); its ``fit`` waits
-for measured launches (queue 1, 'DSE on a Hopper model').
+``GangCostModel`` keeps the JAX launch arithmetic (across devices too)
+with a Hopper step model (the ``CLOCK_HZ``/``PEAK_FLOPS`` inputs below);
+its ``fit`` replaces the inputs by terms timed from real launches, as the
+JAX ``fit`` does.
 """
 from __future__ import annotations
 
@@ -421,10 +422,19 @@ CLOCK_HZ = 1.98e9            # SM boost clock: the model's cycle
 # Rate of each state dtype outside the tensor cores: every op of a step
 # rounds in the state dtype, which tensor cores (f32 accumulators) do not.
 PEAK_FLOPS = {4: 67e12, 2: 133.8e12}
-# Assumed until ``fit`` measures it (ROADMAP.md queue 1, 'DSE on a Hopper
-# model'): the host side of one launch (wrapper checks, the core/row map
-# copy to the card, the ctypes call) plus the launch latency, about 20 us.
+# Assumed until ``fit`` measures it: the host side of one launch (wrapper
+# checks, the core/row map copy to the card, the ctypes call) plus the
+# launch latency, about 20 us.
 GANG_LAUNCH_OVERHEAD_CYCLES = 20e-6 * CLOCK_HZ
+# Assumed until ``fit(mesh=...)`` measures it: each device past the first
+# of a sharded launch is one more wrapper call and launch from the host
+# (the shards launch one after another), so about one launch's host side.
+CROSS_DEV_OVERHEAD_CYCLES = GANG_LAUNCH_OVERHEAD_CYCLES
+# ``fit``'s long launches run this many times the short one's steps: a
+# synchronised call's host wall jitters by tens of microseconds, and 2x
+# the steps of a CTA (the JAX fit's t2) adds about as much, so the long
+# launch puts some 15 times that over the jitter.
+FIT_STRETCH = 16
 # Host cost of buffering overdraw: the copy to host memory and the
 # per-client numpy buffers of ``absorb``.  Assumed 1 GB/s, the order of
 # the served path's measured absorb of 134 MB in 83-434 ms on an H100
@@ -441,43 +451,77 @@ def step_ops(c: Candidate) -> int:
 @dataclasses.dataclass
 class GangCostModel:
     """Predicts the cost of ONE kernel launch for (membership, per-core
-    rows, layout): the estimator the farm's gang planner minimizes over.
+    rows, layout, device count): the estimator the farm's gang planner
+    minimizes over.
 
         cycles = launch_overhead_cycles
-               + sum_over_lane_blocks( 2 * rows_block ) * step_cycles
+               + cross_dev_overhead_cycles * (n_dev - 1)
+               + cell_overhead_cycles * cells
+               + 2 * rows(busiest device's shard) * step_cycles
+               (+ freeze_row_cycles per row of a ragged stacked launch)
                + buffered_overdraw_words * 4 / HOST_BUFFER_BYTES_PER_CYCLE
 
-    The launch arithmetic is the JAX model's.  Its per-step input is the
-    Hopper one: a step of one ``s_block``-lane block is ``step_ops``
-    separate ops per lane at the dtype's published rate outside the tensor
-    cores.  A stack of C cores costs C times that, since each core's lanes
-    are threads of their own (the TPU swept the C-tall stack in one vreg
-    op).  The CUDA kernels have no time grid, so there is no per-cell
-    overhead, and K4 masks nothing per row, so a freeze costs nothing.
-    The ragged stacked (freeze) layout is still charged the group's max
-    rows, as on the TPU, though the CUDA K4 stops a frozen core's threads
-    at its demand; ``fit`` (ROADMAP.md queue 1, 'DSE on a Hopper model')
-    is where measured launches will correct these inputs.  Like the JAX
-    model, it does not price the activation: a tanh or sigmoid group is
-    priced at relu's ``step_ops`` (107 ops a 3-8-3 step, against 307 /
+    The launch arithmetic is the JAX model's, ``n_dev`` included: a
+    sharded launch's lane blocks split into contiguous runs of
+    ``ceil(blocks / n_dev)`` a device, the step and cell terms follow the
+    busiest device's shard, and each device past the first adds
+    ``cross_dev_overhead_cycles``.  Its per-step input is the Hopper one:
+    a step of one ``s_block``-lane block is ``step_ops`` separate ops per
+    lane at the dtype's published rate outside the tensor cores, and a
+    stack of C cores costs C times that (times ``stacked_step_scale``),
+    since each core's lanes are threads of their own (the TPU swept the
+    C-tall stack in one vreg op).
+
+    The defaults leave every one-device plan as the Hopper step model
+    alone makes it: the CUDA kernels have no time grid, so no per-cell
+    overhead (0); a stack is C single cores (scale 1); K4 masks nothing
+    per row, so a freeze costs nothing (0).  The ragged stacked (freeze)
+    layout is still charged the group's max rows, as on the TPU, though
+    the CUDA K4 stops a frozen core's threads at its demand.  ``fit``
+    replaces these inputs by terms timed from real launches (all but the
+    cell overhead, which stays 0 with no grid to time).  Like the
+    JAX model, it does not price the activation: a tanh or sigmoid group
+    is priced at relu's ``step_ops`` (107 ops a 3-8-3 step, against 307 /
     347).  A plan shapes launches only; it never changes words.
     """
 
     launch_overhead_cycles: float = GANG_LAUNCH_OVERHEAD_CYCLES
+    cell_overhead_cycles: float = 0.0
+    stacked_step_scale: float = 1.0
+    freeze_row_cycles: float = 0.0
+    cross_dev_overhead_cycles: float = CROSS_DEV_OVERHEAD_CYCLES
     sec_per_cycle: Optional[float] = 1.0 / CLOCK_HZ
 
     def step_cycles(self, c: Candidate, stack: int = 1) -> float:
         """Cycles for one oscillator step of one s_block-wide lane block
         with ``stack`` cores in one launch."""
+        scale = self.stacked_step_scale if stack > 1 else 1.0
         return (step_ops(c) * c.s_block * stack / PEAK_FLOPS[c.dtype_bytes]
-                * CLOCK_HZ)
+                * CLOCK_HZ * scale)
 
     def launch_cycles(self, c: Candidate, rows_by_block: Sequence[int],
-                      *, stack: int = 1) -> float:
+                      *, stack: int = 1, n_dev: int = 1) -> float:
         """One launch computing ``rows_by_block[i]`` word rows in lane
-        block ``i`` (2 oscillator steps per word row)."""
-        steps = 2.0 * float(sum(rows_by_block))
+        block ``i`` (2 oscillator steps per word row); cell overhead
+        counts the max(rows)-deep grid of ``t_block // 2``-row cells for
+        every block, as the JAX model does.  ``n_dev > 1`` models the
+        sharded launch: the step and cell terms follow the busiest
+        device's contiguous run of ``ceil(blocks / n_dev)`` blocks, and
+        each extra device adds ``cross_dev_overhead_cycles``."""
+        n_dev = max(1, int(n_dev))
+        rows_per_cell = max(1, c.t_block // 2)
+        t_cells = max(1, -(-int(max(rows_by_block)) // rows_per_cell))
+        blocks_local = -(-len(rows_by_block) // n_dev)
+        if n_dev > 1:
+            rb = list(rows_by_block)
+            steps = 2.0 * float(max(
+                sum(rb[d * blocks_local:(d + 1) * blocks_local])
+                for d in range(n_dev)))
+        else:
+            steps = 2.0 * float(sum(rows_by_block))
         return (self.launch_overhead_cycles
+                + self.cross_dev_overhead_cycles * (n_dev - 1)
+                + self.cell_overhead_cycles * blocks_local * t_cells
                 + steps * self.step_cycles(c, stack))
 
     def buffer_cycles(self, overdrawn_words: float) -> float:
@@ -486,24 +530,27 @@ class GangCostModel:
 
     def gang_cost(self, c: Candidate, demands: Sequence[int],
                   blocks: Sequence[int], lanes: Sequence[int], *,
-                  layout: str,
-                  rows_by_block: Optional[Sequence[int]] = None) -> float:
+                  layout: str, rows_by_block: Optional[Sequence[int]] = None,
+                  n_dev: int = 1) -> float:
         """Cost of one gang launch serving members with ``demands`` word
         rows (``blocks``/``lanes`` = per-member lane-block and live-lane
-        counts).
+        counts) on ``n_dev`` devices.
 
         layout 'stacked': the whole group is charged max(demands) rows per
         lane block; a ragged freeze launch (``rows_by_block`` given)
-        buffers no overdraw.  layout 'concat': pass ``rows_by_block`` for
-        a ragged launch, the per-BLOCK effective rows, ``sum(blocks)``
-        long, member ``i`` occupying ``blocks[i]`` consecutive equal
-        entries; None means the padded group-max launch.
+        buffers no overdraw but pays ``freeze_row_cycles`` a row and lane
+        block, split across the devices.  layout 'concat': pass
+        ``rows_by_block`` for a ragged launch, the per-BLOCK effective
+        rows, ``sum(blocks)`` long, member ``i`` occupying ``blocks[i]``
+        consecutive equal entries; None means the padded group-max launch.
         """
         dmax = max(demands)
         if layout == "stacked":
             cost = self.launch_cycles(c, [dmax] * blocks[0],
-                                      stack=len(demands))
+                                      stack=len(demands), n_dev=n_dev)
             if rows_by_block is not None:
+                cost += (self.freeze_row_cycles * dmax * blocks[0]
+                         / max(1, n_dev))
                 over = 0
             else:
                 over = sum((dmax - d) * l for d, l in zip(demands, lanes))
@@ -518,13 +565,148 @@ class GangCostModel:
                 per_member = [rows_by_block[int(s)] for s in starts]
             over = sum((r - d) * l
                        for r, d, l in zip(per_member, demands, lanes))
-            cost = self.launch_cycles(c, rows_by_block)
+            cost = self.launch_cycles(c, rows_by_block, n_dev=n_dev)
         return cost + self.buffer_cycles(max(0, over))
 
-    def solo_cost(self, c: Candidate, rows: int, blocks: int) -> float:
+    def solo_cost(self, c: Candidate, rows: int, blocks: int, *,
+                  n_dev: int = 1) -> float:
         """One per-core launch of ``rows`` word rows over ``blocks`` lane
-        blocks."""
-        return self.launch_cycles(c, [rows] * blocks)
+        blocks (``n_dev``: the pool's own sharded launch on a mesh)."""
+        return self.launch_cycles(c, [rows] * blocks, n_dev=n_dev)
 
     def seconds(self, cycles: float) -> Optional[float]:
         return None if self.sec_per_cycle is None else cycles * self.sec_per_cycle
+
+    @classmethod
+    def fit(cls, c: Candidate, *, device="cuda", n_cores: int = 3,
+            lanes: int = 16_384, reps: int = 3, clock=None,
+            mesh=None) -> "GangCostModel":
+        """Calibrate the model's terms from real launches of candidate
+        ``c`` on ``device``, after the JAX ``fit``.
+
+        Every launch runs pools of ``lanes`` lanes (rounded up to whole
+        ``s_block`` blocks; by default a farm core's pool of 128 clients
+        of 128 lanes), since a card runs a launch's blocks side by side:
+        the cost of a block's step is only linear in the blocks at a pool
+        size near the one served.  With ``rows = max(4, t_block // 2)``
+        word rows, ``steps = 2 * rows``, ``B`` blocks and ``k =
+        FIT_STRETCH``:
+          t1  solo launch (K1) of ``rows`` rows
+          t2  the same launch, k x the steps
+          t4  stacked gang (K4) of ``n_cores`` such pools, k x the steps
+          t5  the same stacked launch with a skewed row map (freeze)
+        so  step_sec = (t2 - t1) / ((k - 1) * steps * B),  launch_sec =
+        t1 - steps * B * step_sec, t4 gives the stacked step scale and
+        t5 - t4 the freeze cost of a row and block, each clipped as in the
+        JAX model; ``t2 <= t1`` (timing noise) returns the defaults.  The
+        JAX fit's t2 is 2x the steps; k is larger so that the steps, not
+        the host's jitter, make the difference.  The JAX ``t3`` (the same
+        steps in two cells of a halved ``t_block``) has no counterpart:
+        the CUDA kernels have no time grid, so ``cell_overhead_cycles``
+        stays 0.
+
+        With a ``mesh`` of more than one entry, t6, a lane-concat gang
+        (K3) of one ``lanes`` pool per entry sharded across the mesh,
+        calibrates ``cross_dev_overhead_cycles``: each entry does t1's
+        work, so the residual over t1 split across the extra entries is
+        the per-device fee (on a mesh that repeats one card, the shards'
+        serialization on its stream).
+
+        Each measurement is the median of ``reps`` timed calls after one
+        untimed call, read on ``clock`` (``repro_torch.clock.SystemClock``
+        by default) around launches that end in ``torch.cuda.synchronize``
+        of every card they ran on; t1 and t2, and t4 and t5, alternate
+        call by call, so a drift of the card's clocks reaches both.
+        ``device="cpu"`` times the plain versions.  Weights and states are
+        seeded draws (numpy seed 0).
+        """
+        from repro_torch.clock import SystemClock
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels import ops  # lazy: keep dse importable alone
+
+        clock = clock or SystemClock()
+        dev = resolve_device(device)
+        cards = {d for d in ((dev,) + (() if mesh is None else mesh.devices))
+                 if d.type == "cuda"}
+        base = cls()
+        rng = np.random.default_rng(0)
+        dtype = torch.bfloat16 if c.dtype_bytes == 2 else torch.float32
+        n_blocks = max(1, -(-int(lanes) // c.s_block))
+        pool = n_blocks * c.s_block
+
+        def draw(scale, shape):
+            return torch.as_tensor(rng.normal(0, scale, shape),
+                                   dtype=torch.float32).to(dev, dtype)
+
+        def mk_params():
+            return {"w1": draw(.4, (c.i_dim, c.h_dim)),
+                    "b1": draw(.1, (c.h_dim,)),
+                    "w2": draw(.4, (c.h_dim, c.i_dim)),
+                    "b2": draw(.1, (c.i_dim,))}
+
+        def sync():
+            for card in cards:
+                torch.cuda.synchronize(card)
+
+        def timed(*fns):
+            """Median seconds of each of ``fns``, called in turn."""
+            for fn in fns:
+                fn()                               # builds, caches
+            sync()
+            ts = [[] for _ in fns]
+            for _ in range(reps):
+                for t, fn in zip(ts, fns):
+                    t0 = clock.now()
+                    fn()
+                    sync()
+                    t.append(clock.now() - t0)
+            return [sorted(t)[len(t) // 2] for t in ts]
+
+        params = mk_params()
+        x0 = draw(.3, (pool, c.i_dim))
+        rows = max(4, c.t_block // 2)
+        steps, long_steps = 2 * rows, 2 * rows * FIT_STRETCH
+        t1, t2 = timed(
+            lambda: ops.chaotic_bits(params, x0, steps, config=c),
+            lambda: ops.chaotic_bits(params, x0, long_steps, config=c))
+        if t2 <= t1:                              # timing noise: keep defaults
+            return base
+        step_sec = (t2 - t1) / ((long_steps - steps) * n_blocks)
+        launch_sec = max(0.0, t1 - steps * n_blocks * step_sec)
+        spc = step_sec / base.step_cycles(c)
+        overhead = float(np.clip(launch_sec / spc, 500.0, 5e8))
+        scale, freeze = 1.0, cls.freeze_row_cycles
+        if c.compute_unit == "vpu":
+            plist = [mk_params() for _ in range(n_cores)]
+            stacked = {k: torch.stack([p[k] for p in plist])
+                       for k in ("w1", "b1", "w2", "b2")}
+            xs = draw(.3, (n_cores, pool, c.i_dim))
+            long_rows = long_steps // 2
+            skew_map = np.asarray(
+                [long_rows] + [min(long_rows, 4)] * (n_cores - 1), np.int32)
+            t4, t5 = timed(
+                lambda: ops.chaotic_bits_gang_stacked(
+                    stacked, xs, long_steps, config=c),
+                lambda: ops.chaotic_bits_gang_stacked(
+                    stacked, xs, long_steps, row_map=skew_map, config=c))
+            st_step_sec = (max(1e-12, t4 - launch_sec)
+                           / (long_steps * n_blocks))
+            sweep = base.step_cycles(c) * n_cores
+            scale = float(np.clip(st_step_sec / spc / sweep, 0.1, 4.0))
+            freeze = float(np.clip((t5 - t4) / (long_rows * n_blocks) / spc,
+                                   cls.freeze_row_cycles, 5e7))
+        cross = cls.cross_dev_overhead_cycles
+        if mesh is not None and len(mesh.devices) > 1:
+            n_dev = len(mesh.devices)
+            plist = [mk_params() for _ in range(n_dev)]
+            gparams = {k: torch.stack([p[k] for p in plist])
+                       for k in ("w1", "b1", "w2", "b2")}
+            xg = draw(.3, (n_dev * pool, c.i_dim)).to(mesh.devices[0])
+            cmap = np.repeat(np.arange(n_dev, dtype=np.int32), n_blocks)
+            t6, = timed(lambda: ops.chaotic_bits_gang(
+                gparams, xg, steps, core_map=cmap, config=c, mesh=mesh))
+            cross = float(np.clip((t6 - t1) / (n_dev - 1) / spc, 0.0, 5e8))
+        return cls(launch_overhead_cycles=overhead,
+                   stacked_step_scale=scale, freeze_row_cycles=freeze,
+                   cross_dev_overhead_cycles=cross,
+                   sec_per_cycle=spc)

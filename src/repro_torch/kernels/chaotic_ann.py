@@ -29,6 +29,11 @@ shape library of its own, built from the repo's source the first time it
 is asked for (``prepare``; a failed build raises).  A lattice the
 reference refuses, or one of more than 32 nodes, raises ``ValueError`` on
 the card (``check_card_lattice``).
+
+Across devices: ``chaotic_ann_gang_bits_sharded`` and
+``chaotic_ann_gang_stacked_sharded`` split one gang launch over a
+``distributed.sharding.DeviceMesh``, one K3 or K4 launch per mesh entry
+(counted by K3's or K4's wrapper; ``mesh.shard_launches`` by entry).
 """
 from __future__ import annotations
 
@@ -1155,3 +1160,140 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
 
 
 chaotic_ann_mxu_gang_bits.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Device-sharded gang launches: K3 and K4 with the pooled stream axis (and
+# the per-block maps) partitioned across a mesh's devices, the weights
+# replicated.  No kernel of their own: each shard launches K3 or K4.
+# ---------------------------------------------------------------------------
+
+def gang_partition_maps(core_map, row_map, *, n_dev: int, n_rows: int):
+    """Partition the per-block gang maps across ``n_dev`` devices (copied
+    from the JAX package).
+
+    Pads the block axis with DEAD blocks (core 0, zero row demand) until it
+    divides the device count, so every device owns the same number of
+    ``s_block``-lane blocks and reads its own contiguous slice of the
+    core-id and row maps.  Padding forces the launch ragged (dead blocks
+    compute zero rows), and a ``row_map`` of ``n_rows`` per real block
+    reproduces the padded group-max launch exactly.
+
+    Returns ``(core_map, row_map, pad_blocks)`` as numpy arrays.  Device
+    ``d`` takes ``core_map[d * B:(d + 1) * B]`` with ``B = len(core_map)
+    // n_dev``.
+    """
+    cmap = np.asarray(core_map, np.int32)
+    n_blocks = cmap.shape[0]
+    pad = (-n_blocks) % n_dev
+    rmap = None if row_map is None else np.asarray(row_map, np.int32)
+    if pad == 0:
+        return cmap, rmap, 0
+    if rmap is None:
+        rmap = np.full(n_blocks, n_rows, np.int32)
+    return (np.concatenate([cmap, np.zeros(pad, np.int32)]),
+            np.concatenate([rmap, np.zeros(pad, np.int32)]), pad)
+
+
+def chaotic_ann_gang_bits_sharded(w1: torch.Tensor, b1: torch.Tensor,
+                                  w2: torch.Tensor, b2: torch.Tensor,
+                                  x0: torch.Tensor, core_map, word_offset=0,
+                                  row_map=None, coupling=None, *, mesh,
+                                  n_steps: int,
+                                  s_block: int = 256, t_block: int = 128,
+                                  unroll: int = 1, activation: str = "relu",
+                                  compute_unit: str = "vpu", lattice=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane-concat gang launch (``chaotic_ann_gang_bits``, K3 in every
+    form) partitioned across ``mesh`` (a ``distributed.sharding.DeviceMesh``)
+    on its axis.
+
+    Device ``d`` runs K3 on its own contiguous run of lane blocks with its
+    own slice of the core-id and row maps and of the offsets; weights and
+    ``coupling`` are replicated (``mesh.replicate``: copied to a device
+    once, not on every flush).  Words and state gather on the lane axis
+    on ``x0``'s device.  Lanes evolve independently and a word's whitening
+    reads its lane's absolute row offset, so the result is bitwise the
+    unsharded launch's (and the per-core launches') at any device count.
+    The block count must divide the device count: pad the maps (and the
+    pool) with ``gang_partition_maps`` dead blocks first.
+
+    Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_bits_sharded``
+    (a ``shard_map`` of K3, no ``pallas_call`` of its own).
+    """
+    n_dev = len(mesh.devices)
+    cmap = _host_ints(core_map)
+    n_blocks = int(cmap.shape[0])
+    if n_blocks % n_dev:
+        raise ValueError(
+            f"{n_blocks} lane blocks do not divide {n_dev} devices on mesh "
+            f"axis {mesh.axis!r}; pad the maps with gang_partition_maps")
+    has_cpl = lattice is not None and compute_unit == "mxu"
+    if has_cpl and coupling is None:
+        raise ValueError("mxu lattice launches need the dense coupling operand")
+    rmap = None if row_map is None else _host_ints(row_map)
+    s_total = x0.shape[0]
+    off = ops.word_offsets(word_offset, s_total, x0.device)
+    per = n_blocks // n_dev
+    lanes = per * s_block
+    words, state = [], []
+    for d, dev in enumerate(mesh.devices):
+        blk = slice(d * per, (d + 1) * per)
+        ln = slice(d * lanes, (d + 1) * lanes)
+        w, s = chaotic_ann_gang_bits(
+            *(mesh.replicate(t, dev) for t in (w1, b1, w2, b2)),
+            mesh.to(x0[ln], dev), cmap[blk],
+            mesh.to(off[ln].contiguous(), dev),
+            None if rmap is None else rmap[blk], n_steps=n_steps,
+            s_block=s_block, t_block=t_block, unroll=unroll,
+            activation=activation, compute_unit=compute_unit,
+            lattice=lattice,
+            coupling=mesh.replicate(coupling, dev) if has_cpl else None)
+        mesh.shard_launches[d] += 1
+        words.append(mesh.to(w, x0.device))
+        state.append(mesh.to(s, x0.device))
+    return torch.cat(words, dim=1), torch.cat(state, dim=0)
+
+
+def chaotic_ann_gang_stacked_sharded(w1: torch.Tensor, b1: torch.Tensor,
+                                     w2: torch.Tensor, b2: torch.Tensor,
+                                     x0: torch.Tensor, word_offset=0,
+                                     row_map=None, *, mesh, n_steps: int,
+                                     activation: str = "relu",
+                                     compute_unit: str = "vpu", lattice=None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked gang launch (``chaotic_ann_gang_stacked``, K4 in every form)
+    partitioned across ``mesh`` on its axis.
+
+    The group's equal pools shard on the STREAM axis: every device runs
+    K4 on all C cores with 1/n_dev of each pool's lanes; the (C,) row map
+    is replicated, since a core's freeze row is lane-independent, and so
+    are the weights (``mesh.replicate``).  Words gather on the lane axis,
+    states on the stream axis, on ``x0``'s device; bitwise the unsharded
+    launch.  The pool size must divide the device count; ragged pool
+    sizes take the lane-concat sharded path instead.
+
+    Replaces ``repro/kernels/chaotic_ann.py::chaotic_ann_gang_stacked_sharded``
+    (a ``shard_map`` of K4, no ``pallas_call`` of its own).
+    """
+    n_dev = len(mesh.devices)
+    n_cores, s_total = x0.shape[0], x0.shape[1]
+    if s_total % n_dev:
+        raise ValueError(
+            f"stacked pool of {s_total} lanes does not divide {n_dev} "
+            f"devices on mesh axis {mesh.axis!r}")
+    off = ops.word_offsets(word_offset, (n_cores, s_total), x0.device)
+    per = s_total // n_dev
+    words, state = [], []
+    for d, dev in enumerate(mesh.devices):
+        ln = slice(d * per, (d + 1) * per)
+        w, s = chaotic_ann_gang_stacked(
+            *(mesh.replicate(t, dev) for t in (w1, b1, w2, b2)),
+            mesh.to(x0[:, ln].contiguous(), dev),
+            mesh.to(off[:, ln].contiguous(), dev), row_map, n_steps=n_steps,
+            activation=activation, compute_unit=compute_unit,
+            lattice=lattice)
+        mesh.shard_launches[d] += 1
+        words.append(mesh.to(w, x0.device))
+        state.append(mesh.to(s, x0.device))
+    return torch.cat(words, dim=2), torch.cat(state, dim=1)

@@ -237,7 +237,7 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
                       row_map=None, activation: str = "relu",
                       backend: str = "auto", s_block: int = 256,
                       t_block: int = 128, unroll: int = 1,
-                      compute_unit: str = "vpu",
+                      compute_unit: str = "vpu", mesh=None,
                       config=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gang-scheduled fused PRNG draw: C stacked networks, ONE launch.
 
@@ -257,9 +257,16 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
     A lattice group (``params`` with the un-stacked ``lattice_meta`` of
     its one descriptor) takes the lattice form of K3; an mxu group takes
     K3's mxu form, a lattice group there with the un-stacked ``coupling``
-    every member shares.  The JAX
-    signature's ``mesh``/``partitioner`` are not ported (ROADMAP.md queue
-    1, 'Multi-device').
+    every member shares.
+
+    ``mesh`` (a ``distributed.sharding.DeviceMesh`` of more than one
+    entry) shards the launch across the mesh's devices: the pool, offsets
+    and both maps partition on the lane-block axis, the weights replicate
+    (``chaotic_ann.chaotic_ann_gang_bits_sharded``).  The maps' block axis
+    is padded with dead zero-row blocks until it divides the device count
+    (``chaotic_ann.gang_partition_maps``), the pool to match, and the
+    result is trimmed back.  A mesh of one takes the unsharded launch, and
+    ``backend="ref"`` ignores the mesh: sharding never changes the words.
     """
     if config is not None:
         s_block, t_block = config.s_block, config.t_block
@@ -275,6 +282,24 @@ def chaotic_bits_gang(params: Dict[str, torch.Tensor], x0: torch.Tensor,
                                              lattice, compute_unit, cpl)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
+    if mesh is not None and len(mesh.devices) > 1:
+        rmap = None if row_map is None else chaotic_ann._host_ints(row_map)
+        cmap_p, rmap_p, pad = chaotic_ann.gang_partition_maps(
+            chaotic_ann._host_ints(core_map), rmap, n_dev=len(mesh.devices),
+            n_rows=n_steps // 2)
+        s_total = x0.shape[0]
+        xp, offp = x0, word_offsets(word_offset, s_total, x0.device)
+        if pad:
+            xp = torch.cat([x0, x0.new_zeros((pad * s_block, x0.shape[1]))])
+            offp = torch.cat([offp, offp.new_zeros(pad * s_block)])
+        words, state = chaotic_ann.chaotic_ann_gang_bits_sharded(
+            *w, xp, cmap_p, offp, rmap_p, cpl, mesh=mesh, n_steps=n_steps,
+            s_block=s_block, t_block=t_block, unroll=unroll,
+            activation=activation, compute_unit=compute_unit,
+            lattice=lattice)
+        if pad:
+            words, state = words[:, :s_total], state[:s_total]
+        return words, state
     return chaotic_ann.chaotic_ann_gang_bits(
         *w, x0, core_map, word_offset, row_map, n_steps=n_steps,
         s_block=s_block, t_block=t_block, unroll=unroll,
@@ -287,7 +312,7 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
                               *, row_map=None, activation: str = "relu",
                               backend: str = "auto", s_block: int = 256,
                               t_block: int = 128, unroll: int = 1,
-                              compute_unit: str = "vpu",
+                              compute_unit: str = "vpu", mesh=None,
                               config=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked gang draw for C EQUAL-size pools: ``x0`` (C, S, I), one pool
     per core, ``word_offset`` a scalar or (C, S).  vpu groups only, on
@@ -299,7 +324,15 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
     ``row_map[c]`` word rows; its words past them are garbage.  Returns
     words (n_steps // 2, C, S) and final state (C, S, I).  s_block,
     t_block and unroll change nothing here; they are accepted for the JAX
-    signature, without its ``mesh``.
+    signature.
+
+    ``mesh`` (more than one entry) shards the equal pools on the STREAM
+    axis across the mesh's devices, every device running all C cores on
+    1/n_dev of each pool's lanes
+    (``chaotic_ann.chaotic_ann_gang_stacked_sharded``); the pool size must
+    divide the device count (the farm's planner checks this before it
+    picks the stacked layout on a mesh).  ``backend="ref"`` ignores the
+    mesh.
     """
     if config is not None:
         compute_unit = config.compute_unit
@@ -313,6 +346,11 @@ def chaotic_bits_gang_stacked(params: Dict[str, torch.Tensor],
                                                 row_map, activation, lattice)
     if backend != "auto":
         raise ValueError(f"backend must be 'auto' or 'ref', got {backend!r}")
+    if mesh is not None and len(mesh.devices) > 1:
+        return chaotic_ann.chaotic_ann_gang_stacked_sharded(
+            *w, x0, word_offset, row_map, mesh=mesh, n_steps=n_steps,
+            activation=activation, compute_unit=compute_unit,
+            lattice=lattice)
     return chaotic_ann.chaotic_ann_gang_stacked(
         *w, x0, word_offset, row_map, n_steps=n_steps, activation=activation,
         compute_unit=compute_unit, lattice=lattice)

@@ -1,5 +1,5 @@
 """Heterogeneous oscillator farm: many generated cores, one serving API
-(port of ``repro/serve/farm.py``, single device).
+(port of ``repro/serve/farm.py``).
 
 Each core is backed by its own ``PRNGService`` pool, and every
 determinism/resumability guarantee of ``PRNGService`` carries over: a
@@ -55,10 +55,16 @@ feeds each launch's word slab (through the plan's sample corruption) into
 a ``serve.health.HealthMonitor``; ``quarantine`` and ``rotate`` reset the
 monitor's history of the core.
 
-Not ported here: the mesh arguments and topology keys (ROADMAP.md queue 1,
-'Multi-device').  There is one device, so ``snapshot`` records the JAX
-farm's ``topology`` entry as ``None`` for every core, as a one-device JAX
-farm does.
+**Across devices**, as in the JAX farm: a core attached with a ``mesh``
+(``distributed.sharding.DeviceMesh``) serves from a pool on the mesh's
+first device, and its launches shard across the mesh.  The device
+topology (axis, device count, device ids) is part of the compat key, so
+cores on the SAME mesh gang, and the group launches as one sharded K3 or
+K4 across it; the planner prices the busiest shard plus a cross-device
+fee (``GangCostModel``'s ``n_dev``) and takes the stacked layout only
+where the equal pools divide the devices.  ``snapshot`` records each
+core's topology (``None`` for an unmeshed pool), and ``restore`` refuses
+a snapshot taken on another topology unless asked to re-plan.
 """
 from __future__ import annotations
 
@@ -83,6 +89,25 @@ from repro_torch.serve.prng_service import PRNGService
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _topology(svc: PRNGService) -> Optional[Tuple]:
+    """Hashable device-axis signature of a service's mesh: ``None`` for
+    an unmeshed pool, else the axis name, its device count and each
+    entry's device index (0 for the CPU), as the JAX farm's device ids.
+    Part of every gang compat key and farm snapshot, so nothing planned
+    on one device count serves another."""
+    if svc.mesh is None:
+        return None
+    return (svc.mesh.axis, len(svc.mesh.devices), svc.mesh.ids)
+
+
+def _as_topo(t) -> Optional[Tuple]:
+    """Canonicalize a topology signature (JSON round-trips turn the tuples
+    into lists; journal checkpoints compare through this)."""
+    if t is None:
+        return None
+    return (str(t[0]), int(t[1]), tuple(int(x) for x in t[2]))
+
+
 def _lattice_sig(svc: PRNGService) -> Optional[Tuple]:
     """Hashable lattice identity of one core's service, or ``None`` for a
     scalar (uncoupled) core.  The coupling operator is a pure function of
@@ -100,16 +125,17 @@ def _compat_key(svc: PRNGService) -> Tuple:
     Two cores may share a stacked-weight launch iff every static property
     of the kernel instantiation matches: network shape (i_dim, h_dim),
     state dtype, activation, backend, the full kernel config (s_block,
-    t_block, unroll, compute_unit) and the lattice signature (scalar cores
+    t_block, unroll, compute_unit), the lattice signature (scalar cores
     never gang with lattice cores, and lattice cores gang only on an
-    identical (n_nodes, base_dim, topology, strength)).  There is one
-    device, so the JAX key's topology entry is left out.
+    identical (n_nodes, base_dim, topology, strength)) and the device
+    topology: meshed pools gang with pools on the SAME mesh (axis name,
+    device count, device ids), as one sharded launch across it.
     """
     c = svc.config
     return (svc.dim, int(svc.params["w1"].shape[1]), str(svc.dtype),
             svc.activation, svc.backend,
             c.s_block, c.t_block, c.unroll, c.compute_unit,
-            _lattice_sig(svc))
+            _lattice_sig(svc), _topology(svc))
 
 
 class GangScheduler:
@@ -235,9 +261,11 @@ class GangScheduler:
         padded group-max launch whenever demand is skewed; ``"bulk"`` pins
         it.  ``None`` leaves the planner free.
 
-        The stacked layout needs equal pools and the vpu unit, nothing
-        more: the JAX check that the C-tall stack fits VMEM has no
-        counterpart, because each K4 CTA holds one core's weights and
+        The stacked layout needs equal pools, the vpu unit and, on a mesh
+        of ``n_dev`` devices, a pool size that ``n_dev`` divides (the
+        sharded K4 splits each pool's lanes); every cost is the model's
+        at ``n_dev``.  The JAX check that the C-tall stack fits VMEM has
+        no counterpart, because each K4 CTA holds one core's weights and
         its lanes' states live in registers, whatever C is (so from 69
         f32 ring32 members this plan stays stacked where the JAX one goes
         to concat; see the module docstring).
@@ -254,10 +282,13 @@ class GangScheduler:
         c = svc0.config
         sizes = [int(svc.pool_x.shape[0]) for _, svc, _, _ in members]
         blocks = [-(-s // c.s_block) for s in sizes]
+        topo = _topology(svc0)
+        n_dev = 1 if topo is None else topo[1]
 
         def stackable(idxs) -> bool:
             return (len({sizes[i] for i in idxs}) == 1
-                    and c.compute_unit == "vpu")
+                    and c.compute_unit == "vpu"
+                    and sizes[idxs[0]] % n_dev == 0)
 
         model = self.cost_model
         all_idx = tuple(range(len(members)))
@@ -266,7 +297,7 @@ class GangScheduler:
         base_layout = "stacked" if stacked_ok else "concat"
         options = [("padded",
                     model.gang_cost(c, demands, blocks, sizes,
-                                    layout=base_layout),
+                                    layout=base_layout, n_dev=n_dev),
                     [{"members": all_idx, "kind": "gang",
                       "layout": base_layout, "ragged": False}])]
         if self.planner and len(set(demands)) > 1:
@@ -276,12 +307,14 @@ class GangScheduler:
                 c.t_block, c.unroll)
             r_cost = model.gang_cost(c, demands, blocks, sizes,
                                      layout="concat",
-                                     rows_by_block=[int(r) for r in eff])
+                                     rows_by_block=[int(r) for r in eff],
+                                     n_dev=n_dev)
             r_layout = "concat"
             if stacked_ok:
                 s_cost = model.gang_cost(c, demands, blocks, sizes,
                                          layout="stacked",
-                                         rows_by_block=list(demands))
+                                         rows_by_block=list(demands),
+                                         n_dev=n_dev)
                 # the freeze layout must beat the early-out concat path by
                 # a clear modeled margin
                 if s_cost < 0.9 * r_cost:
@@ -298,13 +331,13 @@ class GangScheduler:
                 idxs = by_demand[d]
                 if len(idxs) == 1:
                     i = idxs[0]
-                    cost += model.solo_cost(c, d, blocks[i])
+                    cost += model.solo_cost(c, d, blocks[i], n_dev=n_dev)
                     parts.append({"members": (i,), "kind": "solo"})
                 else:
                     lay = "stacked" if stackable(idxs) else "concat"
                     cost += model.gang_cost(
                         c, [d] * len(idxs), [blocks[i] for i in idxs],
-                        [sizes[i] for i in idxs], layout=lay)
+                        [sizes[i] for i in idxs], layout=lay, n_dev=n_dev)
                     parts.append({"members": tuple(idxs), "kind": "gang",
                                   "layout": lay, "ragged": False})
             options.append(("split", cost, parts))
@@ -371,7 +404,8 @@ class GangScheduler:
             t0 = self._tick("stack", t0)
             words, state = ops.chaotic_bits_gang_stacked(
                 plan["params"], x0, n_steps, off_t, row_map=row_map,
-                activation=svc0.activation, backend=svc0.backend, config=cfg)
+                activation=svc0.activation, backend=svc0.backend,
+                mesh=svc0.mesh, config=cfg)
             words = words.cpu().numpy()
             handed = [state[ci] for ci in range(len(members))]
             member_out = [(words[:member_rows[ci], ci, :], handed[ci])
@@ -399,7 +433,8 @@ class GangScheduler:
             words, state = ops.chaotic_bits_gang(
                 plan["params"], x0, n_steps, off_t,
                 core_map=plan["core_map"], row_map=row_map,
-                activation=svc0.activation, backend=svc0.backend, config=cfg)
+                activation=svc0.activation, backend=svc0.backend,
+                mesh=svc0.mesh, config=cfg)
             words = words.cpu().numpy()
             handed = [state[start:start + live]
                       for (start, live, _) in plan["spans"]]
@@ -510,25 +545,29 @@ class OscillatorFarm:
     # -- core management ----------------------------------------------------
 
     def _service(self, params, *, config, dtype, activation,
-                 lanes_per_client, burn_in, backend) -> PRNGService:
+                 lanes_per_client, burn_in, backend, mesh) -> PRNGService:
         return PRNGService(params, lanes_per_client=lanes_per_client,
                            burn_in=burn_in, activation=activation,
                            backend=backend, config=config,
                            dtype=dtype if dtype is not None else torch.float32,
-                           device=self.device)
+                           device=self.device if mesh is None else None,
+                           mesh=mesh)
 
     def add_core(self, core: str, params, *, config=None, dtype=None,
                  activation: str = "relu", lanes_per_client: int = 128,
-                 burn_in: int = 16, backend: str = "auto") -> PRNGService:
+                 burn_in: int = 16, backend: str = "auto",
+                 mesh=None) -> PRNGService:
         """Attach a core (one oscillator network) as a serving pool;
         ``dtype`` None is float32.  On the card the core's kernels are built
-        here, by its service (``ops.prepare``), not at a flush."""
+        here, by its service (``ops.prepare``), not at a flush.  With a
+        ``mesh`` the pool lives on the mesh's first device and its launches
+        shard across the mesh."""
         if core in self.services:
             raise ValueError(f"core {core!r} already attached")
         svc = self._service(params, config=config, dtype=dtype,
                             activation=activation,
                             lanes_per_client=lanes_per_client,
-                            burn_in=burn_in, backend=backend)
+                            burn_in=burn_in, backend=backend, mesh=mesh)
         self.services[core] = svc
         if self.monitor is not None:
             self._install_hook(core)
@@ -613,7 +652,8 @@ class OscillatorFarm:
 
     def add_standby(self, core: str, params, *, config=None, dtype=None,
                     activation: str = "relu", lanes_per_client: int = 128,
-                    burn_in: int = 16, backend: str = "auto") -> PRNGService:
+                    burn_in: int = 16, backend: str = "auto",
+                    mesh=None) -> PRNGService:
         """Attach a cold standby service for logical core ``core``.  It
         serves no traffic until :meth:`rotate` installs it; a client
         re-registered on it restarts at row 0 of the standby's own
@@ -626,7 +666,7 @@ class OscillatorFarm:
         svc = self._service(params, config=config, dtype=dtype,
                             activation=activation,
                             lanes_per_client=lanes_per_client,
-                            burn_in=burn_in, backend=backend)
+                            burn_in=burn_in, backend=backend, mesh=mesh)
         self._standbys[core] = svc
         return svc
 
@@ -866,26 +906,29 @@ class OscillatorFarm:
     def snapshot(self) -> Dict[str, object]:
         """Farm-wide snapshot: every core pool, every client, in flight,
         with the deferral set, quarantine and rotations, and each core's
-        device topology (``None``: one device, as a one-device JAX farm
-        records it)."""
+        device topology (``None`` for an unmeshed pool), so a restore onto
+        another device count is caught."""
         return {"cores": {core: svc.snapshot()
                           for core, svc in self.services.items()},
                 "gang_launches": self._sched.launches,
                 "deferred": sorted(self._deferred),
                 "quarantined": sorted(self._quarantined),
                 "rotations": dict(self._rotations),
-                "topology": {core: None for core in self.services}}
+                "topology": {core: _topology(svc)
+                             for core, svc in self.services.items()}}
 
     def restore(self, snap: Dict[str, object], *,
                 on_topology_mismatch: str = "refuse") -> None:
         """Restore a snapshot() onto a farm with the SAME cores attached
         (extra or missing cores raise: a mixed restore point).
 
-        A snapshot that records a mesh topology for a core (taken on a
-        sharded JAX farm) differs from this one-device farm:
-        ``on_topology_mismatch="refuse"`` (default) raises, ``"replan"``
-        drops every cached gang plan and planner decision and restores
-        anyway (stream words do not depend on the device count)."""
+        A snapshot taken on another device topology (mesh axis, device
+        count or device ids differ for any core) must not silently run over
+        plans shaped for the old one: ``on_topology_mismatch="refuse"``
+        (default) raises, ``"replan"`` drops every cached gang plan and
+        planner decision and restores anyway.  Stream words do not depend
+        on the device count, so a sharded snapshot continues bitwise on an
+        unsharded farm and back."""
         if on_topology_mismatch not in ("refuse", "replan"):
             raise ValueError(
                 f"on_topology_mismatch must be 'refuse' or 'replan', "
@@ -899,7 +942,8 @@ class OscillatorFarm:
                 f"farm-only {sorted(extra)}")
         changed = sorted(core for core, topo
                          in dict(snap.get("topology") or {}).items()
-                         if core in self.services and topo is not None)
+                         if core in self.services
+                         and _as_topo(topo) != _topology(self.services[core]))
         if changed:
             if on_topology_mismatch == "refuse":
                 raise ValueError(

@@ -67,9 +67,9 @@ leaves either the old segment or the checkpointed new one discoverable.
 
 Every flush record (and checkpoint) also carries the farm's device
 topology, so replaying onto a different device count is an *explicit*
-decision (``on_topology_mismatch``), never a silent reuse.  The port's
-farm runs on one device and records ``None`` for every core, as a
-one-device JAX farm does, so its checkpoints compare exactly alike.
+decision (``on_topology_mismatch``), never a silent reuse: each core's
+``(axis, device count, device ids)``, or ``None`` for an unmeshed pool,
+as the JAX farm records it.
 """
 from __future__ import annotations
 
@@ -144,9 +144,9 @@ def _check_line(line: str):
 
 
 def _farm_topology(farm) -> Dict[str, object]:
-    """Every core's device topology: ``None``, one device (the JAX
-    farm's ``_topology`` of an unsharded pool)."""
-    return {core: None for core in farm.services}
+    """Every core's device topology (``farm._topology``)."""
+    from repro_torch.serve.farm import _topology
+    return {core: _topology(svc) for core, svc in farm.services.items()}
 
 
 def _encode(obj):

@@ -1,5 +1,5 @@
 """Streaming chaotic-PRNG serving engine (port of
-``repro/serve/prng_service.py``, single device).
+``repro/serve/prng_service.py``).
 
 Many named client streams are served from one kernel launch: each client
 owns a contiguous block of lanes on the stream axis of the fused bits
@@ -12,10 +12,17 @@ lane evolves independently in the kernel, each client carries its own
 word-row (Weyl) counter, passed as a per-lane offset vector, and overdraw
 from batched launches is buffered per client, not dropped.  The same
 property makes the service resumable (``snapshot``/``restore``).
+
+With a ``mesh`` (``distributed.sharding.DeviceMesh``), a launch whose pool
+divides the mesh's devices is sharded over the stream axis
+(``shard_stream_pool``): each device runs K1 on its contiguous shard of
+clients, and words and state gather back on the mesh's first device,
+where the pool lives between flushes.  Sharding never changes a word.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -25,6 +32,7 @@ import torch
 from repro_torch.core.ann import params_from_numpy
 from repro_torch.core.dse import resolve_config
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import _indexed, shard_stream_pool
 from repro_torch.kernels import ops
 from repro_torch.prng.stream import (_lineage_counter, _round_rows,
                                      _splitmix_seeds, effective_burn_in)
@@ -48,14 +56,26 @@ class PRNGService:
     one client's ``lanes_per_client`` lanes (``core.dse.resolve_config``),
     so the service serves the JAX service's default stream.  On the card
     its kernels' shape library is built here (``ops.prepare``), so no
-    flush waits on ``nvcc``.
+    flush waits on ``nvcc``.  The pool lives on ``device`` ("cuda" by
+    default); with a ``mesh`` it lives on the mesh's first device, which
+    ``device``, if given, must name.
     """
 
     def __init__(self, params, *, lanes_per_client: int = 128,
                  burn_in: int = 16, activation: str = "relu",
                  backend: str = "auto", config=None,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
-        self.device = resolve_device(device)
+                 dtype: torch.dtype = torch.float32, device=None,
+                 mesh=None):
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            self.device = mesh.devices[0]
+            if (device is not None
+                    and _indexed(resolve_device(device)) != self.device):
+                raise ValueError(
+                    f"a meshed pool lives on the mesh's first device "
+                    f"{self.device}, not {device}")
+        self.mesh = mesh
         self.params = params_from_numpy(params, device=self.device)
         self.dim = self.params["w1"].shape[0]
         self.lanes_per_client = int(lanes_per_client)
@@ -229,14 +249,26 @@ class PRNGService:
     def _by_slot(self) -> List[_Client]:
         return sorted(self.clients.values(), key=lambda c: c.slot)
 
+    def _draw(self, n_steps: int, x: torch.Tensor, off: torch.Tensor):
+        """K1 on ``x``'s device, with the weights replicated there."""
+        params = self.params
+        if self.mesh is not None and x.device != self.device:
+            params = {k: self.mesh.replicate(v, x.device)
+                      for k, v in params.items()}
+        return ops.chaotic_bits(params, x, n_steps, off,
+                                activation=self.activation,
+                                backend=self.backend, config=self.config)
+
     def _launch(self, n_rows: int, offsets: np.ndarray):
         """The one batched pool launch: ((n_rows, S_pool) words on the
-        host, new state).  ``absorb()`` assigns ``pool_x``."""
+        host, new state).  ``absorb()`` assigns ``pool_x``.  On a mesh
+        whose devices divide the pool, sharded over the stream axis."""
         off = torch.as_tensor(offsets.astype(np.int64), device=self.device)
-        words, new_x = ops.chaotic_bits(
-            self.params, self.pool_x, 2 * n_rows, off,
-            activation=self.activation, backend=self.backend,
-            config=self.config)
+        run = functools.partial(self._draw, 2 * n_rows)
+        if (self.mesh is not None
+                and self.pool_x.shape[0] % len(self.mesh.devices) == 0):
+            run = shard_stream_pool(run, self.mesh)
+        words, new_x = run(self.pool_x, off)
         self.launches += 1
         return words.cpu().numpy(), new_x
 

@@ -310,11 +310,11 @@ class _FreezeStackedModel(GangCostModel):
     free, so the planner takes it."""
 
     def gang_cost(self, c, demands, blocks, lanes, *, layout,
-                  rows_by_block=None):
+                  rows_by_block=None, **kw):
         if layout == "stacked" and rows_by_block is not None:
             return 0.0
         return super().gang_cost(c, demands, blocks, lanes, layout=layout,
-                                 rows_by_block=rows_by_block)
+                                 rows_by_block=rows_by_block, **kw)
 
 
 def test_ragged_stacked_freeze_bit_identical():
@@ -340,11 +340,11 @@ class _PaddedCheapModel(GangCostModel):
     planner picks the padded launch even for skewed demand."""
 
     def gang_cost(self, c, demands, blocks, lanes, *, layout,
-                  rows_by_block=None):
+                  rows_by_block=None, **kw):
         if rows_by_block is None:
             return 0.0
         return super().gang_cost(c, demands, blocks, lanes, layout=layout,
-                                 rows_by_block=rows_by_block)
+                                 rows_by_block=rows_by_block, **kw)
 
 
 def test_slo_classes_constrain_the_choice_set():

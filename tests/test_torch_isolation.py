@@ -39,6 +39,10 @@ def test_scan_covers_every_port_module():
                "repro_torch.serve.journal",
                "repro_torch.serve.async_frontend"}
     assert serving <= mods
+    # the multi-device path
+    assert {"repro_torch.distributed",
+            "repro_torch.distributed.sharding"} <= mods
+    assert PORT / "distributed" / "sharding.py" in PORT_FILES
     for mod in serving:
         path = ROOT / "src" / (mod.replace(".", "/") + ".py")
         assert path in PORT_FILES, path

@@ -12,7 +12,9 @@ Against the JAX package: ``read_journal`` and ``repair_journal`` of either
 framework read and cut the same bytes alike (a torn tail, mid-file
 damage), a port journal's flush records carry the one-device topology
 (``None`` per core) a JAX journal of an unsharded farm carries, and the
-JAX ``read_journal`` recovers a port journal's checkpoint.
+JAX ``read_journal`` recovers a port journal's checkpoint.  A journal
+written by a farm sharded over a 2-entry mesh records that topology, and
+its recovery onto an unsharded farm refuses unless told to re-plan.
 """
 import json
 
@@ -44,13 +46,13 @@ def _collect(coro):
     return box[0]
 
 
-def _bare_farm(n_cores=2, clock=None, gang=True):
+def _bare_farm(n_cores=2, clock=None, gang=True, mesh=None):
     """Same cores as ``_farm`` but NO clients registered — registration is
     the journal's job on the recovery path."""
     farm = OscillatorFarm(gang=gang, clock=clock)
     for i in range(n_cores):
         farm.add_core(f"core{i}", _params(key=10 + i), config=CAND,
-                      lanes_per_client=128)
+                      lanes_per_client=128, mesh=mesh)
     return farm
 
 
@@ -199,6 +201,46 @@ def test_rotation_bounds_replay_and_survives_kill(tmp_path):
     # continues bit-exactly past the kill point
     np.testing.assert_array_equal(farm2.draw("core0", "t", 120),
                                   solo.draw("core0", "t", 120))
+
+
+def test_journal_recovered_onto_another_device_count(tmp_path):
+    """A farm sharded over two mesh entries journals its topology; a
+    recovery onto an unsharded farm refuses at the checkpoint, and with
+    ``on_topology_mismatch='replan'`` every stream continues bitwise."""
+    from repro_torch.distributed.sharding import DeviceMesh
+    mesh = DeviceMesh(["cpu", "cpu"])
+    jpath = tmp_path / "farm.journal"
+    delivered = {}
+
+    async def serve():
+        fc = FakeClock()
+        farm = _bare_farm(clock=fc, mesh=mesh)
+        j = FlushJournal(jpath, clock=fc, rotate_every=2)
+        async with AsyncOscillatorFarm(farm, clock=fc, journal=j) as af:
+            for i in range(2):
+                af.register(f"core{i}", "t", seed=40 + i)
+            for k, n in (("a", 300), ("b", 100), ("c", 500)):
+                delivered[k] = await af.draw("core0", "t", n, deadline_ms=0)
+                await af.draw("core1", "t", n + 7, deadline_ms=0)
+        j.close()
+
+    _run(serve())
+    assert sum(mesh.shard_launches) > 0
+    recs = [json.loads(line) for line in jpath.read_text().splitlines()]
+    topo = {c: ["data", 2, [0, 0]] for c in ("core0", "core1")}
+    assert recs[0]["type"] == "checkpoint"
+    assert recs[0]["snapshot"]["topology"] == topo
+    assert all(r["topology"] == topo for r in recs if r["type"] == "flush")
+    with pytest.raises(ValueError, match="topology"):
+        replay_journal(_bare_farm(), jpath)
+    farm2 = _bare_farm()
+    replay_journal(farm2, jpath, on_topology_mismatch="replan")
+    solo = _farm(gang=False, n_cores=1)
+    for k, n in (("a", 300), ("b", 100), ("c", 500)):
+        np.testing.assert_array_equal(delivered[k],
+                                      solo.draw("core0", "t", n))
+    np.testing.assert_array_equal(farm2.draw("core0", "t", 256),
+                                  solo.draw("core0", "t", 256))
 
 
 # ---------------------------------------------------------------------------

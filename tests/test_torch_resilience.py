@@ -22,11 +22,11 @@ and the whole supervised front-end over bf16 farms of the same three
 its flush, the rotation).
 
 The JAX suite's last case restores a snapshot of a farm sharded over two
-devices onto an unsharded one; the port's farm has no mesh yet (ROADMAP.md
-queue 1 item 5, 'Multi-device'), so here the same refuse/replan contract is
-held on a snapshot that records a mesh topology
-(``test_restore_replan_of_a_sharded_snapshot_keeps_quarantine``), and the
-two-device half waits for that item.
+devices onto an unsharded one: here on a mesh that lists the CPU twice
+(``test_restore_replan_across_device_counts_keeps_quarantine``), beside
+the same refuse/replan contract held on a snapshot that records a
+hand-written mesh topology
+(``test_restore_replan_of_a_sharded_snapshot_keeps_quarantine``).
 
 Launch-fault tests use toy weights with a never-filling sample window;
 quality-gate tests use the trained registry weights, whose streams pass,
@@ -601,6 +601,41 @@ def test_restore_replan_of_a_sharded_snapshot_keeps_quarantine():
     assert target.rotations == {"core0": 1}
     for c in ("core0", "core2"):
         assert np.array_equal(target.draw(c, "t", 64), tail[c])
+
+
+def test_restore_replan_across_device_counts_keeps_quarantine():
+    """The S4 composition on a real mesh: a snapshot of a DEGRADED farm
+    sharded over two mesh entries restores onto an unsharded farm only
+    with ``on_topology_mismatch='replan'``; quarantine set and rotation
+    count survive, streams continue bit-exactly."""
+    from repro_torch.distributed.sharding import DeviceMesh
+    mesh = DeviceMesh(["cpu", "cpu"])
+    params = default_params(system="chen")
+    farm = OscillatorFarm(gang=True)
+    for i in range(2):
+        farm.add_core(f"core{i}", params, lanes_per_client=128, mesh=mesh)
+        farm.register(f"core{i}", "t", seed=40)
+    farm.add_standby("core0", params, lanes_per_client=128, mesh=mesh)
+    farm.draw("core0", "t", 200)
+    farm.quarantine("core0", reason="drill")
+    farm.rotate("core0")
+    farm.quarantine("core1", reason="dead")
+    snap = farm.snapshot()
+    assert snap["topology"] == {c: ("data", 2, (0, 0))
+                                for c in ("core0", "core1")}
+    tail = farm.draw("core0", "t", 64)
+    assert sum(mesh.shard_launches) > 0
+
+    unsharded = OscillatorFarm(gang=True)
+    for i in range(2):
+        unsharded.add_core(f"core{i}", params, lanes_per_client=128)
+    unsharded.add_standby("core0", params, lanes_per_client=128)
+    with pytest.raises(ValueError, match="topology"):
+        unsharded.restore(snap)                     # refuse by default
+    unsharded.restore(snap, on_topology_mismatch="replan")
+    assert unsharded.quarantined == frozenset({"core1"})
+    assert unsharded.rotations == {"core0": 1}
+    assert np.array_equal(unsharded.draw("core0", "t", 64), tail)
 
 
 # ---------------------------------------------------------------------------

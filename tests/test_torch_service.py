@@ -250,3 +250,41 @@ def test_replay_client_rebuilds_position_and_tail(params):
     np.testing.assert_array_equal(fresh.draw("a", 400), svc.draw("a", 400))
     with pytest.raises(ValueError, match="rewind"):
         fresh.replay_client("a", row=0)
+
+
+def test_sharded_pool_matches_unsharded(params):
+    """The stream axis sharded over a mesh of one entry, then of four
+    (four clients: one a shard), then of three, which does not divide
+    the pool and launches unsharded: every draw bitwise the unsharded
+    service's, in f32 and bf16."""
+    from repro_torch.distributed.sharding import DeviceMesh
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_dev, sharded in ((1, True), (4, True), (3, False)):
+            mesh = DeviceMesh(["cpu"] * n_dev)
+            svc_m = PRNGService(params, lanes_per_client=128, dtype=dtype,
+                                mesh=mesh)
+            svc_u = _service(params, dtype=dtype)
+            for svc in (svc_m, svc_u):
+                for i in range(4):
+                    svc.register(f"c{i}", seed=i)
+            assert svc_m.device == torch.device("cpu")
+            np.testing.assert_array_equal(svc_m.draw("c2", 600),
+                                          svc_u.draw("c2", 600))
+            svc_m.request("c0", 300)
+            svc_u.request("c0", 300)
+            out_m, out_u = svc_m.flush(), svc_u.flush()
+            np.testing.assert_array_equal(out_m["c0"], out_u["c0"])
+            # two launches, each a shard on every entry, or none
+            assert mesh.shard_launches == [2 if sharded else 0] * n_dev
+
+
+def test_meshed_service_refuses_a_device_off_the_mesh(params):
+    from repro_torch.distributed.sharding import DeviceMesh
+    mesh = DeviceMesh(["cpu", "cpu"], axis="data")
+    svc = PRNGService(params, device="cpu", mesh=mesh)
+    assert svc.device == mesh.devices[0]
+    # a card off the mesh is refused; without a card, naming one raises
+    err, match = ((ValueError, "first device") if torch.cuda.is_available()
+                  else (RuntimeError, "CUDA"))
+    with pytest.raises(err, match=match):
+        PRNGService(params, device="cuda:0", mesh=mesh)

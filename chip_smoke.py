@@ -336,6 +336,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    mxu farm (mxu K3) at F1 and F3 on 2 shards, bitwise unsharded.  The
    phase's launches per kernel and dtype go into the ``kernels`` rows as
    ``sharded_launches``.
+16. The LM stack (``repro_torch.models``, ``serve/engine.py``, the train
+   step, data pipeline, compression, checkpoint-free loop and launcher),
+   random weights from a seeded generator on the card.  (a) llama3_2_3b
+   at full width and depth (28 layers, bf16): ``prefill`` of 4 prompts of
+   64 tokens, its last logits held against ``forward(last_only=True)``
+   (LM_LAST_TOL of their largest magnitude), then 32 decode steps, and
+   the generation repeated by ``greedy_generate``: the same tokens; prefill
+   tokens/s, decode ms a step and peak memory printed.  (b) The same
+   width at 2 layers in f32 (TF32 off): one parameter set on the CPU and
+   on the card, the logits of the same tokens within LM_CPU_TOL of their
+   largest magnitude.  (c) qwen3_moe_30b_a3b at full width, 2 of its 48
+   layers, served as (a), prefill's ``dropped_frac`` printed, every
+   decode step's 0.  (d) llama3_2_3b at full width, 4 layers, bf16,
+   remat, trained 4 steps through the launcher's ``train`` (``loop.run``;
+   batch 8 x 512 tokens, 2 microbatches, warmup-cosine AdamW, int8
+   gradient compression with error feedback, the chaotic shuffle), the
+   launch counters zeroed just before and read just after: the shuffle
+   must have launched K1 (``lm_launches`` in the ``kernels`` row of
+   ``chaotic_ann_bits/f32``) and no other kernel; each step's loss and
+   grad norm finite; step ms, tokens/s, peak memory and model TFLOP/s
+   (6 x active params x tokens / s) beside the card's bf16 dense peak.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -727,9 +748,10 @@ LAT_TIME_LANES, LAT_TIME_STEPS = 65_536, 256
 
 # phase 13, tanh and sigmoid in the mxu forms: phases 10 and 11's nets.
 # K1/K2 checked at every MXU_SHAPES entry at (lanes, steps) by n_nodes
-# (the plain f32 FMA chains' launches set their time), K3 at
-# phase_mxu_gang_kernels' blocks, steps and rows
-MXU_ACT_CHECKS = {1: (4_096 + 37, 64), 8: (1_024 + 37, 16),
+# (the plain f32 FMA chains' launches set their time; steps at 1 and 8
+# nodes halved to pay for phase 16's time), K3 at phase_mxu_gang_kernels'
+# blocks, steps and rows
+MXU_ACT_CHECKS = {1: (4_096 + 37, 32), 8: (1_024 + 37, 8),
                   32: (512 + 37, 4)}
 # the JAX package's choices (a CPU run of repro.core.dse): the no-config
 # streams' select_config(3n, 8n, s_total=256, dtype, n_nodes=n), mxu at
@@ -752,6 +774,18 @@ MXU_CORE_STEPS = 32
 MXU_REPLAY_ROWS = 2
 # mxu K1/K2 timed at the mxu path's shape; the plain run on the first lanes
 MXU_TIME_LANES, MXU_TIME_STEPS, MXU_TIME_PLAIN_LANES = 65_536, 64, 1_024
+
+
+# phase 16, the LM stack
+LM_SERVE = (("llama3_2_3b", None), ("qwen3_moe_30b_a3b", 2))  # (arch, layers)
+LM_PROMPTS, LM_PROMPT_LEN, LM_NEW = 4, 64, 32
+LM_LAST_TOL = 1e-2           # prefill's last logits vs forward(last_only), bf16
+LM_CPU_LAYERS, LM_CPU_TOKENS = 2, (2, 16)
+LM_CPU_TOL = 1e-4            # f32 card vs CPU logits, of their max magnitude
+LM_TRAIN = dict(layers=4, global_batch=8, seq_len=512, num_microbatches=2,
+                steps=4)
+# NVIDIA's H100 SXM data sheet: dense bf16 tensor-core peak at 700 W
+H100_BF16_DENSE_FLOPS = 989e12
 
 
 class SmokeFailure(Exception):
@@ -6203,8 +6237,188 @@ def main() -> int:
         sass_dump_stop(sass)
 
 
+def lm_serve(torch, device, card, arch, n_layers):
+    """Phase 16 (a)/(c): one arch served at full width."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.init(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN),
+                           generator=gen).to(device)
+    max_len = LM_PROMPT_LEN + LM_NEW
+    what = f"lm {arch} ({cfg.n_layers} layers, {cfg.dtype})"
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        _, aux = tf.forward(cfg, model, prompt)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        last, state = engine.prefill(cfg, model, prompt, max_len)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        ref, _ = tf.forward(cfg, model, prompt, last_only=True)
+        last32, ref32 = last.float(), ref[:, 0].float()
+        check(bool(torch.isfinite(last32).all()), f"{what}: prefill logits "
+                                                 f"not finite")
+        check(tuple(last.shape) == (LM_PROMPTS, cfg.vocab_size),
+              f"{what}: prefill logits of shape {tuple(last.shape)}")
+        err = float((last32 - ref32).abs().max())
+        scale = float(ref32.abs().max())
+        check(err <= LM_LAST_TOL * scale,
+              f"{what}: prefill's last logits differ from "
+              f"forward(last_only=True) by {err} (max {scale})")
+        tok = torch.argmax(last, dim=-1)[:, None]
+        toks, dropped = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_NEW):
+            logits, state, daux = tf.decode_step(cfg, model, state, tok,
+                                                 return_aux=True)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            toks.append(tok[:, 0])
+            if daux:
+                dropped.append(daux["dropped_frac"])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        decoded = torch.stack(toks, dim=1)
+        # the generation repeated, through the engine's own loop
+        again = engine.greedy_generate(cfg, model, prompt, LM_NEW, max_len)
+    check(torch.equal(again, decoded),
+          f"{what}: greedy_generate gave other tokens than prefill + "
+          f"decode_step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line = (f"{what}: init {t_init:.2f} s, {cfg.n_params() / 1e9:.3f} B "
+            f"params; forward {LM_PROMPTS} x {LM_PROMPT_LEN} "
+            f"{t_fwd * 1e3:.1f} ms ({LM_PROMPTS * LM_PROMPT_LEN / t_fwd:.0f} "
+            f"tokens/s); prefill (forward + replay) {t_prefill * 1e3:.1f} ms "
+            f"({LM_PROMPTS * LM_PROMPT_LEN / t_prefill:.0f} tokens/s); "
+            f"decode {t_dec / LM_NEW * 1e3:.2f} ms a step of {LM_PROMPTS} "
+            f"tokens; last logits vs forward(last_only) {err:.3g} of "
+            f"{scale:.3g}; generation repeated, equal; peak "
+            f"{peak:.2f} GiB")
+    if cfg.is_moe:
+        dec_drop = float(torch.stack(dropped).max())
+        check(dec_drop == 0.0, f"{what}: decode dropped {dec_drop}")
+        line += (f"; prefill dropped_frac {float(aux['dropped_frac']):.4f}, "
+                 f"decode 0")
+    print(f"{line}; card {card}")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def lm_card_vs_cpu(torch, device, card):
+    """Phase 16 (b): llama3_2_3b's width at 2 layers in f32, one parameter
+    set on the CPU and on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config("llama3_2_3b"),
+                              n_layers=LM_CPU_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    model = tf.init(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, LM_CPU_TOKENS, generator=gen)
+    with torch.no_grad():
+        want, _ = tf.forward(cfg, model, toks)
+        got, _ = tf.forward(cfg, model.to(device), toks.to(device))
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"lm card vs CPU (llama3_2_3b width, {LM_CPU_LAYERS} layers, f32, "
+          f"TF32 off, {LM_CPU_TOKENS[0]} x {LM_CPU_TOKENS[1]} tokens): max "
+          f"|logits diff| {err:.3g} of {scale:.3g} "
+          f"({time.perf_counter() - t0:.1f} s); card {card}")
+    check(bool(torch.isfinite(got).all()) and err <= LM_CPU_TOL * scale,
+          f"lm card vs CPU: logits differ by {err} (max {scale})")
+    del model
+    torch.cuda.empty_cache()
+
+
+def lm_train(torch, device, card) -> int:
+    """Phase 16 (d): returns K1's launches in the training run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.launch.train import train
+    from repro_torch.prng import default_stream
+
+    t = LM_TRAIN
+    cfg = dataclasses.replace(get_config("llama3_2_3b"), n_layers=t["layers"],
+                              remat=True)
+    # the shuffle's stream made and drawn once alone, outside the counted
+    # run: its share of the first step
+    t0 = time.perf_counter()
+    default_stream(n_streams=256, seed=0, device=device).permutation(
+        t["global_batch"])
+    t_stream = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(chaotic_ann)
+    res = train(cfg, global_batch=t["global_batch"], seq_len=t["seq_len"],
+                num_microbatches=t["num_microbatches"], steps=t["steps"],
+                compress_grads=True, chaotic_shuffle=True, log_every=1,
+                device=device, log_fn=lambda s: None)
+    launches = read_launches(chaotic_ann)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    what = f"lm train llama3_2_3b ({t['layers']} layers, bf16, remat)"
+    others = {k: v for k, v in launches.items()
+              if v and k != "chaotic_ann_bits"}
+    check(launches["chaotic_ann_bits"] > 0,
+          f"{what}: the chaotic shuffle launched no K1")
+    check(not others, f"{what}: kernels other than K1 launched: {others}")
+    hist = res.metrics_history
+    check(len(hist) == t["steps"] and res.final_state.step == t["steps"],
+          f"{what}: {len(hist)} steps logged, state at {res.final_state.step}")
+    for m in hist:
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"{what}: step {m['step']} loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+    tokens = t["global_batch"] * t["seq_len"]
+    step_s = float(np.median([m["step_time_s"] for m in hist[1:]]))
+    flops = 6 * cfg.n_active_params() * tokens
+    tflops = flops / step_s / 1e12
+    print(f"{what}: batch {t['global_batch']} x {t['seq_len']}, "
+          f"{t['num_microbatches']} microbatches, int8 compression, chaotic "
+          f"shuffle; {cfg.n_params() / 1e9:.3f} B params; loss "
+          + ", ".join(f"{m['loss']:.4f}" for m in hist) + "; grad norm "
+          + ", ".join(f"{m['grad_norm']:.4f}" for m in hist)
+          + "; step ms " + ", ".join(f"{m['step_time_s'] * 1e3:.1f}"
+                                     for m in hist)
+          + f" (a fresh shuffle stream's first permutation alone "
+          f"{t_stream * 1e3:.1f} ms; median of steps 1-{t['steps'] - 1}: "
+          f"{step_s * 1e3:.1f} ms, "
+          f"{tokens / step_s:.0f} tokens/s); model TFLOP/s "
+          f"6 x {cfg.n_active_params()} active params x {tokens} tokens / "
+          f"step s = {tflops:.1f}, {tflops * 1e12 / H100_BF16_DENSE_FLOPS:.1%} "
+          f"of the bf16 dense peak {H100_BF16_DENSE_FLOPS / 1e12:.0f}; K1 "
+          f"launches {launches['chaotic_ann_bits']}; peak {peak:.2f} GiB; "
+          f"card {card}")
+    del res
+    torch.cuda.empty_cache()
+    return launches["chaotic_ann_bits"]
+
+
+def phase_lm(torch, device, card) -> int:
+    """Phase 16: the LM stack on the card.  Returns K1's launches in the
+    training run."""
+    t0 = time.perf_counter()
+    for arch, n_layers in LM_SERVE:
+        lm_serve(torch, device, card, arch, n_layers)
+    lm_card_vs_cpu(torch, device, card)
+    n = lm_train(torch, device, card)
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s; card {card}")
+    return n
+
+
 def run_phases(torch, device, card, log, sass) -> int:
-    """Phases 2-15 (the module's docstring), the SASS counts, then the
+    """Phases 2-16 (the module's docstring), the SASS counts, then the
     ``kernels`` and ``ok`` lines."""
     neg0 = torch.relu(torch.tensor([-0.0], device=device))
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
@@ -6360,6 +6574,11 @@ def run_phases(torch, device, card, log, sass) -> int:
     phase_done("shapes")
     sharded = phase_sharded(torch, device, card)
     phase_done("sharded")
+    lm_k1 = phase_lm(torch, device, card)
+    phase_done("lm")
+    for row in rows:
+        if row["name"] == "chaotic_ann_bits/f32" and row["path"] == "served":
+            row["lm_launches"] = lm_k1
     for row in rows:
         n = sharded.get(tuple(row["name"].split("/")))
         if n is not None and row["path"] in ("served", "farm",

@@ -1499,3 +1499,32 @@ def test_broken_shape_build_raises_and_never_falls_back(tmp_path,
     with pytest.raises(RuntimeError, match="deliberately broken"):
         chaotic_ann.chaotic_ann_bits(*w, x0, n_steps=4)
     assert not build.library_path(key=("scalar", (3, 6))).exists()
+
+
+def test_lm_logits_on_card_match_the_cpu():
+    """llama3_2_3b's full width at 2 layers, f32 with TF32 off: one
+    parameter set on the CPU and on the card, the logits of the same
+    tokens within 1e-4 of their largest magnitude (``chip_smoke.py``
+    phase 16 (b))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config("llama3_2_3b"), n_layers=2,
+                              dtype="float32")
+    model = tf.init(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, _ = tf.forward(cfg, model, toks)
+            got, _ = tf.forward(cfg, model.to("cuda"), toks.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = got.cpu()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

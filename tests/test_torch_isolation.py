@@ -43,6 +43,19 @@ def test_scan_covers_every_port_module():
     assert {"repro_torch.distributed",
             "repro_torch.distributed.sharding"} <= mods
     assert PORT / "distributed" / "sharding.py" in PORT_FILES
+    # the LM stack
+    lm = {"repro_torch.configs", "repro_torch.configs.base",
+          "repro_torch.configs.registry", "repro_torch.configs.llama3_2_3b",
+          "repro_torch.models", "repro_torch.models.layers",
+          "repro_torch.models.attention", "repro_torch.models.moe",
+          "repro_torch.models.transformer", "repro_torch.serve.engine",
+          "repro_torch.data", "repro_torch.data.pipeline",
+          "repro_torch.distributed.compression", "repro_torch.tree",
+          "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+          "repro_torch.train.loop", "repro_torch.launch",
+          "repro_torch.launch.train"}
+    assert lm <= mods, lm - mods
+    assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 12
     for mod in serving:
         path = ROOT / "src" / (mod.replace(".", "/") + ".py")
         assert path in PORT_FILES, path

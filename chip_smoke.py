@@ -279,7 +279,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    bitwise against plain on the first 1,024 lanes.
 14. Every shape the reference's kernels take (``src/repro/kernels/
    chaotic_ann.py`` pads any (I, H) and takes any lattice of whole 8-row
-   sublanes; the card takes up to 32 nodes).  The phase's shape libraries
+   sublanes; the card takes up to 1,024 nodes, phase 17 past 32).  The
+   phase's shape libraries
    (``kernels/build.py``: 3-4 and 3-16 on both units, chen@ring16,
    chen@grid24, hyperlorenz@grid4 and hyperlorenz@ring6 on both) built
    first, in one
@@ -357,6 +358,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``chaotic_ann_bits/f32``) and no other kernel; each step's loss and
    grad norm finite; step ms, tokens/s, peak memory and model TFLOP/s
    (6 x active params x tokens / s) beside the card's bf16 dense peak.
+17. Lattices of more than 32 nodes (a lane slot of W = slot_width(N)
+   threads spanning W / 32 warps; neighbours and the fold through shared
+   memory).  The phase's ten shape libraries (the lattice and mxu families
+   at chen@ring40, chen@grid64, hyperlorenz@ring34, chen@ring128 and
+   chen@ring1024) are built in one parallel build started before phase 2,
+   beside the earlier phases; the phase waits for it, then prints each
+   library's seconds and its kernels' registers and spills.  (a)
+   ``PRNGService`` on chen@ring40, chen@grid64, hyperlorenz@ring34 and
+   chen@ring128 from the committed registry weights (``default_params``,
+   full width), 16 clients x 1,024 lanes, per dtype on a vpu config
+   (lattice K1; lattice K2 unfused on the same flush) and with no config
+   (the JAX choice: mxu K1), two clients bitwise one plain K1 run; each
+   lattice iterated on the mxu unit (mxu K2).  (b) A farm of chen, chua,
+   lorenz and rossler @ring40 on a vpu config (lattice K4 at F1, K3 at
+   F3) beside the same four with no config (mxu K3), 8 clients x 128
+   lanes a core, each flush bitwise ``gang=False``; the mxu group's
+   s_block and share of mirrored lane halves printed.  (c) Phase 10's
+   tanh and sigmoid chen nets expanded to ring40: vpu K1 and mxu K1 in
+   both dtypes.  (d) chen@ring1024 at the kernel level (the reference's
+   DSE has no candidate there): vpu K1 and mxu K1 in both dtypes.  (e)
+   Lattice K3, K4 and mxu K3 at grid64, hyperlorenz@ring34 and ring128 at
+   the kernel level.  Each part with the launch counters zeroed just
+   before and read just after.  Then every (kernel, shape, dtype)
+   launched against its plain version at a cut of lanes and rows (64
+   lanes x 2 steps at 1,024 nodes), bitwise, timed beside the plain time
+   and the bound (a ``kernels`` row with ``shape``, ``slot_width`` and
+   path "wide"); every lattice form (vpu K1-K4, mxu K1-K3) in both dtypes
+   must have launched at 40, 64, 128 and 34 nodes, vpu and mxu K1 at
+   1,024 and with tanh and sigmoid at 40.  Last, the exchange's cost: the
+   lattice K1 at chen@grid64 beside chen@grid32 (one warp, shuffles) at
+   the same lanes and steps and at twice the lanes (grid64's threads),
+   per node-step, each over its ops bound.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -1843,9 +1876,11 @@ def check_traj_x2(torch, device, errs) -> None:
 
 def mirrored_share(n_nodes: int, s_block: int) -> float:
     """The share of lane halves a two-lane K3 launch computes as mirrors:
-    a block of s_block lanes takes ceil(s_block / span) CTAs of span = 2 *
-    128 / n_nodes lanes (``GangCta``)."""
-    span = 2 * 128 // n_nodes
+    a block of s_block lanes takes ceil(s_block / span) CTAs of span = 2
+    lanes a lane slot, the CTA's 128 / slot_width(n_nodes) slots or one
+    slot where it fills the CTA (``GangCta``)."""
+    from repro_torch.kernels import chaotic_ann
+    span = 2 * chaotic_ann.gang_lane_granularity(n_nodes)
     return 1.0 - s_block / (-(-s_block // span) * span)
 
 
@@ -5443,14 +5478,16 @@ def shape_scalar_farms(torch, device, nets, pkgs, launches):
                                {"F1": want, "F3": want3})
 
 
-def shape_lattice_streams(torch, device, launches):
-    """Per lattice of SHAPE_LATTICES and dtype: ``PRNGService`` at 16,384
+def shape_lattice_streams(torch, device, launches, systems=SHAPE_LATTICES,
+                          iterated=(1_024 + 37, 8)):
+    """Per lattice of ``systems`` and dtype: ``PRNGService`` at 16,384
     lanes on an explicit vpu config (lattice K1 served, lattice K2
     unfused on the same flush) and with no config (the JAX package's
     choice: mxu K1, the vpu at f32 on the 4-16 base); each flush's first
     two clients bitwise one plain K1 run from the pool and offsets it
     launched from, the unfused words bitwise every client's; the lattice
-    iterated on the mxu unit (mxu K2) beside the plain path."""
+    iterated on the mxu unit (mxu K2) beside the plain path, at
+    ``iterated`` (lanes, steps)."""
     from repro_torch.core.ann import lattice_meta_tuple, params_from_numpy
     from repro_torch.core.dse import default_config
     from repro_torch.kernels import ops, ref
@@ -5458,7 +5495,7 @@ def shape_lattice_streams(torch, device, launches):
     from repro_torch.serve.prng_service import PRNGService
     rows = SHAPE_WORDS // SHAPE_LANES
     n_plain = SHAPE_PLAIN_CLIENTS * SHAPE_LANES
-    for system in SHAPE_LATTICES:
+    for system in systems:
         p = default_params(system=system)
         lat = lattice_meta_tuple(p["lattice_meta"])
         i_dim, h_dim = p["w1"].shape
@@ -5510,43 +5547,54 @@ def shape_lattice_streams(torch, device, launches):
                       f"{system} {tag}: unfused words != served")
             p_dev = params_from_numpy(p, device=device)
             x = torch.as_tensor(np.random.default_rng(17).uniform(
-                -0.9, 0.9, (1_024 + 37, i_dim)).astype(np.float32),
+                -0.9, 0.9, (iterated[0], i_dim)).astype(np.float32),
                 device=device).to(dtype)
             same_bits(torch, shape_counted(
                 torch, launches, key, lambda: ops.chaotic_trajectory(
-                    p_dev, x, 8, compute_unit="mxu"),
+                    p_dev, x, iterated[1], compute_unit="mxu"),
                 {"chaotic_ann_mxu_traj"}, f"{system} {tag} mxu iterated"),
-                ops.chaotic_trajectory(p_dev, x, 8, compute_unit="mxu",
-                                       backend="ref"),
+                ops.chaotic_trajectory(p_dev, x, iterated[1],
+                                       compute_unit="mxu", backend="ref"),
                 f"{system} {tag} mxu iterated")
 
 
-def shape_lattice_farm(torch, device, launches):
-    """Per dtype, a farm of chen, chua, lorenz and rossler @grid24 on a
-    vpu config (lattice K4 at F1, K3 at F3) beside the same four with no
+def shape_lattice_farm(torch, device, launches, lattice="grid24"):
+    """Per dtype, a farm of chen, chua, lorenz and rossler @``lattice`` on
+    a vpu config (lattice K4 at F1, K3 at F3) beside the same four with no
     config (the mxu unit: mxu K3 at both), 8 clients x 128 lanes a core;
-    each flush bitwise a gang=False farm."""
+    each flush bitwise a gang=False farm.  Prints the mxu group's s_block
+    and its share of mirrored lane halves."""
+    from repro_torch.core.ann import lattice_meta_tuple
     from repro_torch.core.dse import default_config
+    from repro_torch.kernels import chaotic_ann
     from repro_torch.prng.stream import default_params
     from repro_torch.serve.farm import OscillatorFarm
-    params = {b: default_params(system=f"{b}@grid24")
+    params = {b: default_params(system=f"{b}@{lattice}")
               for b in SHAPE_FARM_BASES}
+    n_nodes = lattice_meta_tuple(params["chen"]["lattice_meta"])[0]
+    i_dim, h_dim = params["chen"]["w1"].shape
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        cfg = default_config(72, 192, dtype, n_nodes=24)
+        cfg = default_config(i_dim, h_dim, dtype, n_nodes=n_nodes)
 
         def make(gang):
             farm = OscillatorFarm(gang=gang, device=device)
             for b, p in params.items():
-                farm.add_core(f"{b}@grid24", p, config=cfg, dtype=dtype)
-                farm.add_core(f"{b}@grid24_mxu", p, dtype=dtype)
+                farm.add_core(f"{b}@{lattice}", p, config=cfg, dtype=dtype)
+                farm.add_core(f"{b}@{lattice}_mxu", p, dtype=dtype)
             return farm
 
         farms = (make(True), make(False))
-        check(farms[0].services["chen@grid24_mxu"].config.compute_unit
-              == "mxu", "no-config grid24 cores are not on the mxu unit")
+        mxu_cfg = farms[0].services[f"chen@{lattice}_mxu"].config
+        check(mxu_cfg.compute_unit == "mxu",
+              f"no-config {lattice} cores are not on the mxu unit")
+        print(f"shapes chen@{lattice} {tag} farm: the mxu K3 group at "
+              f"s_block {mxu_cfg.s_block}, "
+              f"{mirrored_share(n_nodes, mxu_cfg.s_block):.1%} of the "
+              f"two-lane kernel's lane halves mirrored (slot of "
+              f"{chaotic_ann.slot_width(n_nodes)} threads)")
         shape_farm_flushes(
-            torch, launches, ("chen@grid24", tag), farms,
-            {"lorenz@grid24", "lorenz@grid24_mxu"}, SHAPE_FARM_WORDS,
+            torch, launches, (f"chen@{lattice}", tag), farms,
+            {f"lorenz@{lattice}", f"lorenz@{lattice}_mxu"}, SHAPE_FARM_WORDS,
             {"F1": {"chaotic_ann_lattice_gang_stacked",
                     "chaotic_ann_mxu_gang_bits"},
              "F3": {"chaotic_ann_lattice_gang_bits",
@@ -5679,26 +5727,27 @@ def shape_launch(torch, device, name, tag, operands, lanes, steps, seed):
 
 
 def shape_row(torch, device, name, shape, tag, operands, launches, card,
-              errs):
+              errs, cuts=None):
     """One (kernel, shape, dtype) row: the kernel against its plain
     version at a cut of lanes and rows (SHAPE_CHECK), bitwise, the words
     each lane asked for and the final states, the plain version timed
     there; the kernel timed (CUDA events) at the path's width
-    (SHAPE_TIME) beside its bound there."""
+    (SHAPE_TIME) beside its bound there.  ``cuts``: (check, time) (lanes,
+    steps) in their place."""
     from repro_torch.kernels import build, ops
     w, _, act, lattice, _ = operands
     unit = "mxu" if "mxu" in name else "vpu"
     i_dim, h_dim = w[0].shape
     seed = zlib.crc32(f"{name} {shape} {tag}".encode())
+    check_cut, time_cut = cuts or (SHAPE_CHECK[(lattice is not None, unit)],
+                                   SHAPE_TIME[(lattice is not None, unit)])
     kernel, plain, err, _, _, cut = shape_launch(
-        torch, device, name, tag, operands,
-        *SHAPE_CHECK[(lattice is not None, unit)], seed)
+        torch, device, name, tag, operands, *check_cut, seed)
     want, plain_ms = timed_once(torch, plain)
     e = err(kernel(), want)
     del want
     kernel, _, _, lane_steps, n_bytes, time_cut = shape_launch(
-        torch, device, name, tag, operands,
-        *SHAPE_TIME[(lattice is not None, unit)], seed + 1)
+        torch, device, name, tag, operands, *time_cut, seed + 1)
     ms = cuda_ms(torch, kernel, reps=3, warmup=1)
     if unit == "mxu":
         step = mxu_step_flops(i_dim, h_dim, lattice, act)
@@ -5730,7 +5779,7 @@ def shape_row(torch, device, name, shape, tag, operands, launches, card,
     return {"name": f"{name}/{act}/{tag}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/chaotic_ann.cu",
             "replaces": REPLACES[f"chaotic_ann_{kind}"], "path": "shapes",
-            "shape": shape.replace("-tanh", ""), "form": form,
+            "shape": re.sub(r"-(tanh|sigmoid)$", "", shape), "form": form,
             "library": lib.name,
             "launches": launches[(name, shape, tag)], "max_abs_err": e,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
@@ -5820,6 +5869,274 @@ def phase_shapes(torch, device, card, errs, ds=None):
           f"{build_s:.1f} s of it the shape libraries' build; loaded "
           f"{len(chaotic_ann._SHAPE_LIBS)} shape libraries")
     return rows
+
+# ---------------------------------------------------------------------------
+# Phase 17: lattices of more than 32 nodes (a lane slot across warps)
+# ---------------------------------------------------------------------------
+
+# the served wide lattices: chen@ring40 (40 nodes in a 64-thread slot of
+# two warps, 24 idle), chen@grid64 (an 8 x 8 torus: row neighbours +-8,
+# across warps), hyperlorenz@ring34 (the 4-16 base: 34 of 64 threads) and
+# chen@ring128 (one slot a 128-thread CTA); chen@ring1024 at the kernel
+# level only (the reference's DSE has no candidate there), a CTA of 1,024
+WIDE_LATTICES = ("chen@ring40", "chen@grid64", "hyperlorenz@ring34",
+                 "chen@ring128")
+WIDE_FARM = "ring40"                     # the farm's lattice, four bases
+WIDE_ACT_SHAPE = "chen@ring40"           # phase 10's nets expanded
+WIDE_KERNEL_ONLY = "chen@ring1024"
+# their shape libraries, the lattice and mxu families of each, built in
+# one parallel build started before phase 2 (``WideBuild``), so that the
+# nvcc processes run beside phases 2-3 and phase 17 waits on none
+WIDE_KEYS = tuple((family, dims) for dims in (
+    (3, 8, 40, 0), (3, 8, 64, 1), (4, 16, 34, 0), (3, 8, 128, 0),
+    (3, 8, 1024, 0)) for family in ("lattice", "mxu"))
+# each (kernel, shape, dtype) row's check against its plain version and
+# its timing, (lanes, steps) by unit (timed as phase 14 times its
+# lattices); at 1,024 nodes (n_nodes >= 512) the kernel-level cut: 64
+# lanes x 2 steps checked, 16,384 x 32 timed (over 4 steps the prologue's
+# weight loads from the 100 MB expanded operands took most of the time)
+WIDE_CHECK = {"vpu": (1_024 + 37, 8), "mxu": (256 + 37, 4)}
+WIDE_TIME = {"vpu": (65_536, 64), "mxu": (65_536, 16)}
+WIDE_BIG_CHECK, WIDE_BIG_TIME = (64, 2), (16_384, 32)
+# the mxu K2 iterated in part (a): lanes, steps
+WIDE_ITERATED = (256 + 37, 4)
+# the exchange's cost: the lattice K1 at chen@grid64 (two warps a slot,
+# neighbours through shared memory) beside chen@grid32 (one warp,
+# shuffles; the default library), lanes x steps
+# (the three configurations timed in turns, WIDE_X_ROUNDS rounds of
+# WIDE_X_REPS calls each, forward and back, and the medians compared: one
+# pass of 3 calls each put the ratio 0.69-1.30 in three calls)
+WIDE_X_LANES, WIDE_X_STEPS = 16_384, 64
+WIDE_X_ROUNDS, WIDE_X_REPS = 6, 10
+WIDE_GANGS = ("chaotic_ann_lattice_gang_bits",
+              "chaotic_ann_lattice_gang_stacked", "chaotic_ann_mxu_gang_bits")
+# the CUDA kernels of the wide libraries, whose registers and spills the
+# phase prints
+WIDE_KERNEL_NAMES = tuple(
+    p + k for k in ("lattice_bits_kernel", "lattice_traj_kernel",
+                    "lattice_gang_bits_kernel", "lattice_gang_stacked_kernel")
+    for p in ("", "bf16x2_")) + tuple(
+    p + k for k in ("bits_kernel", "traj_kernel", "gang_bits_kernel")
+    for p in ("mxu_x2_", "bf16x2_mxu_"))
+
+
+class WideBuild:
+    """Phase 17's shape libraries (WIDE_KEYS), built in one parallel build
+    on a thread of its own from construction: ``build_libraries`` starts
+    every nvcc process at once and polls them, so the thread waits on
+    child processes and the phases run on.  ``join`` returns ({key:
+    (seconds, nvcc's log)}, the build's wall); ``main`` joins it before
+    exiting whatever happened, so no nvcc outlives the script."""
+
+    def __init__(self):
+        import threading
+        from repro_torch.kernels import build
+        self.result, self.error, self.wall = {}, None, 0.0
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                self.result = build.build_libraries(WIDE_KEYS)
+            except BaseException as e:       # re-raised by join
+                self.error = e
+            self.wall = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, name="wide-build",
+                                       daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result, self.wall
+
+
+def wide_build_report(wide_build, card) -> float:
+    """Waits for phase 17's build, loads its libraries through ``prepare``
+    (which must build nothing more) and prints each library's seconds from
+    the build's start, its registers and spills, and the wall."""
+    from repro_torch.kernels import build, chaotic_ann
+    t0 = time.perf_counter()
+    built, wall = wide_build.join()
+    waited = time.perf_counter() - t0
+    check(not any(chaotic_ann.prepare(WIDE_KEYS).values()),
+          "prepare rebuilt a wide library the build had built")
+    for key in WIDE_KEYS:
+        secs, log = built.get(key, (0.0, ""))
+        print(f"wide library {shape_label(key)} "
+              f"({build.library_path(key=key).name}): "
+              + (f"built in {secs:.1f} s; ptxas: {register_report(log)}"
+                 if log else "reused"))
+        for name in WIDE_KERNEL_NAMES:
+            if f"{len(name)}{name}I" in log:
+                print(f"  {kernel_registers(log, name)}")
+    print(f"wide libraries: {len(built)} built in {wall:.1f} s, one "
+          f"parallel build beside phases 2-3 (phase 17 waited "
+          f"{waited:.1f} s); card {card}")
+    return wall
+
+
+def wide_operands(torch, device, p, act="relu"):
+    """A lattice's row operands from its params ``p``: (weights, a gang of
+    the net and a scaled copy, activation, descriptor, coupling)."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    w = [torch.as_tensor(np.asarray(p[k], np.float32), device=device)
+         for k in ("w1", "b1", "w2", "b2")]
+    return (w, [torch.stack([t, t * 0.9375]) for t in w], act,
+            lattice_meta_tuple(p["lattice_meta"]),
+            torch.as_tensor(p["coupling"], device=device))
+
+
+def wide_cuts(n_nodes: int, unit: str):
+    """A wide row's (check, time) cuts: (lanes, steps) each."""
+    if n_nodes >= 512:
+        return WIDE_BIG_CHECK, WIDE_BIG_TIME
+    return WIDE_CHECK[unit], WIDE_TIME[unit]
+
+
+def wide_kernel_launches(torch, device, launches, names, shape, operands):
+    """Each kernel of ``names`` in both dtypes at its check cut, the
+    launch counters zeroed just before and read just after each call (it
+    must launch that kernel and no other), its launches attributed to
+    (shape, dtype); ``shape_row`` holds each against its plain version."""
+    n_nodes = operands[3][0]
+    for name in names:
+        unit = "mxu" if "mxu" in name else "vpu"
+        for tag in ("f32", "bf16"):
+            kernel = shape_launch(torch, device, name, tag, operands,
+                                  *wide_cuts(n_nodes, unit)[0], 7)[0]
+            shape_counted(torch, launches, (shape, tag), kernel, {name},
+                          f"wide {shape} {name} {tag}")
+
+
+def wide_x_cost(torch, device, rows, card) -> None:
+    """The exchange's cost: the lattice K1 at chen@grid64 (a slot of two
+    warps: neighbours +-8 through shared memory, one barrier a step, the
+    fold's posts) beside chen@grid32 (one warp, shuffles) at the same
+    lanes and steps, per node-step, each over its ops bound; and beside
+    grid32 at twice the lanes (the same threads and node-steps as grid64:
+    at equal lanes grid64 has twice grid32's threads to hide latency with);
+    written into the grid64 K1 rows."""
+    from repro_torch.core.ann import lattice_meta_tuple
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.prng.stream import default_params
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        calls, t = {}, {}
+        for system, lanes in (("chen@grid64", WIDE_X_LANES),
+                              ("chen@grid32", WIDE_X_LANES),
+                              ("chen@grid32", 2 * WIDE_X_LANES)):
+            p = default_params(system=system)
+            lat = lattice_meta_tuple(p["lattice_meta"])
+            w = [torch.as_tensor(p[k], device=device)
+                 for k in ("w1", "b1", "w2", "b2")]
+            x = torch.zeros(lanes, p["w1"].shape[0], device=device,
+                            dtype=dtype) + 0.25
+            calls[(system, lanes)] = (
+                lambda w=w, x=x, lat=lat: chaotic_ann.chaotic_ann_bits(
+                    *w, x, n_steps=WIDE_X_STEPS, lattice=lat),
+                lanes * WIDE_X_STEPS * lat[0],
+                bound(lanes * WIDE_X_STEPS
+                      * lattice_step_flops(lat, p["w1"].shape[1]), 0.0,
+                      tag)[0])
+        samples = {key: [] for key in calls}
+        for r in range(WIDE_X_ROUNDS):
+            for key in list(calls)[::-1 if r % 2 else 1]:
+                samples[key].append(cuda_ms(torch, calls[key][0],
+                                            reps=WIDE_X_REPS, warmup=1))
+        for key, (_, node_steps, b) in calls.items():
+            ms = float(np.median(samples[key]))
+            t[key] = (ms, b, ms * 1e6 / node_steps)
+            print(f"wide exchange's cost {tag} {key[0]} at {key[1]} lanes: "
+                  f"{WIDE_X_ROUNDS} x {WIDE_X_REPS} calls, median {ms:.4f} "
+                  f"ms, range {min(samples[key]):.4f}-"
+                  f"{max(samples[key]):.4f}")
+        m64, b64, n64 = t[("chen@grid64", WIDE_X_LANES)]
+        m32, b32, n32 = t[("chen@grid32", WIDE_X_LANES)]
+        m2, b2, n2 = t[("chen@grid32", 2 * WIDE_X_LANES)]
+        print(f"wide exchange's cost, lattice K1 {tag} ({WIDE_X_LANES} lanes "
+              f"x {WIDE_X_STEPS} steps): grid64 {m64:.4f} ms ({m64 / b64:.2f}x "
+              f"its ops bound, {n64:.4f} ns a node-step), grid32 {m32:.4f} "
+              f"ms ({m32 / b32:.2f}x, {n32:.4f} ns a node-step); per "
+              f"node-step grid64 / grid32 {n64 / n32:.3f}; grid32 at "
+              f"{2 * WIDE_X_LANES} lanes (grid64's threads) {m2:.4f} ms "
+              f"({m2 / b2:.2f}x, {n2:.4f} ns a node-step), grid64 / it "
+              f"{n64 / n2:.3f}; card {card}")
+        for row in rows:
+            if row["name"] == f"chaotic_ann_lattice_bits/relu/{tag}" and \
+                    row["shape"] == "chen@grid64":
+                row.update(x_cost_ms=m64, x_cost_bound_ms=b64,
+                           x_cost_ns_node_step=n64, grid32_ms=m32,
+                           grid32_bound_ms=b32, grid32_ns_node_step=n32,
+                           grid32_2x_lanes_ms=m2,
+                           grid32_2x_lanes_ns_node_step=n2)
+
+
+def phase_wide(torch, device, card, errs, chen_nets, wide_build):
+    """Phase 17, lattices of more than 32 nodes (the module's docstring):
+    (a) the wide lattices served, (b) the ring40 farm, (c) tanh and
+    sigmoid at ring40, (d) chen@ring1024 at the kernel level, (e) the
+    gang forms at the other three wide shapes at the kernel level; then a
+    row for every (kernel, shape, dtype) launched and the exchange's
+    cost.  ``chen_nets`` are phase 10's {activation: net}.  Returns the
+    rows (path "wide")."""
+    from repro_torch.kernels import chaotic_ann
+    from repro_torch.prng.stream import default_params
+    t_phase = time.perf_counter()
+    build_s = wide_build_report(wide_build, card)
+    launches = {}
+    t0 = time.perf_counter()
+    shape_lattice_streams(torch, device, launches, WIDE_LATTICES,
+                          WIDE_ITERATED)
+    t1 = time.perf_counter()
+    shape_lattice_farm(torch, device, launches, WIDE_FARM)
+    t2 = time.perf_counter()
+    operands = {s: wide_operands(torch, device, default_params(system=s))
+                for s in WIDE_LATTICES + (WIDE_KERNEL_ONLY,)}
+    for act in PAPER_ACTIVATIONS:
+        bundle, _, _ = expand_net(chen_nets[act], WIDE_ACT_SHAPE)
+        shape = f"{WIDE_ACT_SHAPE}-{act}"
+        operands[shape] = wide_operands(torch, device, bundle, act)
+        wide_kernel_launches(torch, device, launches,
+                             ("chaotic_ann_lattice_bits",
+                              "chaotic_ann_mxu_bits"), shape,
+                             operands[shape])
+    wide_kernel_launches(torch, device, launches,
+                         ("chaotic_ann_lattice_bits", "chaotic_ann_mxu_bits"),
+                         WIDE_KERNEL_ONLY, operands[WIDE_KERNEL_ONLY])
+    for shape in WIDE_LATTICES:
+        if shape != f"chen@{WIDE_FARM}":
+            wide_kernel_launches(torch, device, launches, WIDE_GANGS, shape,
+                                 operands[shape])
+    t3 = time.perf_counter()
+    rows = []
+    for name, shape, tag in sorted(launches):
+        unit = "mxu" if "mxu" in name else "vpu"
+        rows.append(shape_row(torch, device, name, shape, tag,
+                              operands[shape], launches, card, errs,
+                              wide_cuts(operands[shape][3][0], unit)))
+        rows[-1]["path"] = "wide"
+        rows[-1]["slot_width"] = chaotic_ann.slot_width(operands[shape][3][0])
+    wide_x_cost(torch, device, rows, card)
+    have = {(r["name"], r["shape"]) for r in rows}
+    missing = [f"{n}/relu/{t} {s}" for s in WIDE_LATTICES
+               for n in KERNELS if "lattice" in n or "mxu" in n
+               for t in ("f32", "bf16")
+               if (f"{n}/relu/{t}", s) not in have]
+    missing += [f"{n}/{a}/{t} {s}" for s, acts in (
+        (WIDE_KERNEL_ONLY, ("relu",)), (WIDE_ACT_SHAPE, PAPER_ACTIVATIONS))
+        for a in acts for n in ("chaotic_ann_lattice_bits",
+                                "chaotic_ann_mxu_bits")
+        for t in ("f32", "bf16") if (f"{n}/{a}/{t}", s) not in have]
+    check(not missing, f"wide: forms with no launch: {missing}")
+    wall = time.perf_counter() - t_phase
+    print(f"wide: {len(rows)} (kernel, shape, dtype) rows; served "
+          f"lattices {t1 - t0:.1f} s, farm {t2 - t1:.1f} s, kernel-level "
+          f"launches {t3 - t2:.1f} s, rows {time.perf_counter() - t3:.1f} "
+          f"s; phase {wall:.1f} s (the build {build_s:.1f} s beside "
+          f"phases 2-3); card {card}")
+    return rows
+
 
 def shard_meshes(torch) -> dict:
     """Phase 15's meshes by label: cuda:0 listed k times for each of
@@ -6231,10 +6548,12 @@ def main() -> int:
         print(f"ptxas: {register_report(log)}")
     # the SASS counts: cuobjdump runs beside the phases, read at the end
     sass = sass_dump_start(build.library_path(build.SOURCE))
+    wide_build = WideBuild()
     try:
-        return run_phases(torch, device, card, log, sass)
+        return run_phases(torch, device, card, log, sass, wide_build)
     finally:
         sass_dump_stop(sass)
+        wide_build.thread.join()     # no nvcc outlives the script
 
 
 def lm_serve(torch, device, card, arch, n_layers):
@@ -6417,9 +6736,10 @@ def phase_lm(torch, device, card) -> int:
     return n
 
 
-def run_phases(torch, device, card, log, sass) -> int:
-    """Phases 2-16 (the module's docstring), the SASS counts, then the
-    ``kernels`` and ``ok`` lines."""
+def run_phases(torch, device, card, log, sass, wide_build) -> int:
+    """Phases 2-17 (the module's docstring), the SASS counts, then the
+    ``kernels`` and ``ok`` lines; ``wide_build`` is phase 17's build,
+    running since before phase 2."""
     neg0 = torch.relu(torch.tensor([-0.0], device=device))
     print(f"torch.relu(-0.0) on the card: signbit={bool(neg0.signbit())}")
 
@@ -6576,6 +6896,8 @@ def run_phases(torch, device, card, log, sass) -> int:
     phase_done("sharded")
     lm_k1 = phase_lm(torch, device, card)
     phase_done("lm")
+    rows += phase_wide(torch, device, card, errs, chen_nets, wide_build)
+    phase_done("wide")
     for row in rows:
         if row["name"] == "chaotic_ann_bits/f32" and row["path"] == "served":
             row["lm_launches"] = lm_k1

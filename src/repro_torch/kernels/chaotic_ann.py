@@ -22,13 +22,14 @@ sigmoid alone, a check hook).
 
 Shapes: every form takes what the reference's kernels take, any (I, H)
 and any lattice whose state ``n_nodes * base_dim`` is a whole number of
-8-row sublanes, with ``n_nodes`` at most 32 (a lane slot of one warp,
-``slot_width``).  A shape of ``build.DEFAULT_SHAPES`` launches from the
+8-row sublanes, with ``n_nodes`` at most 1,024 (a lane slot of
+``slot_width`` threads: inside a warp up to 32 nodes, several warps of one
+CTA past that).  A shape of ``build.DEFAULT_SHAPES`` launches from the
 default library; any other launches the same hand-written kernel from a
 shape library of its own, built from the repo's source the first time it
 is asked for (``prepare``; a failed build raises).  A lattice the
-reference refuses, or one of more than 32 nodes, raises ``ValueError`` on
-the card (``check_card_lattice``).
+reference refuses, or one of more than 1,024 nodes, raises ``ValueError``
+on the card (``check_card_lattice``).
 
 Across devices: ``chaotic_ann_gang_bits_sharded`` and
 ``chaotic_ann_gang_stacked_sharded`` split one gang launch over a
@@ -121,26 +122,33 @@ _SHAPE_LIBS: Dict[build.Key, ctypes.CDLL] = {}
 _PREPARE_LOCK = threading.Lock()
 
 
+# the most nodes a lattice takes on the card: a lane slot is one CTA
+MAX_CARD_NODES = 1_024
+
+
 def slot_width(n_nodes: int) -> int:
     """Threads of a lattice lane slot in the kernels: the next power of
     two >= n_nodes (``chaotic_ann.cu``'s ``slot_width``); 1 for a scalar
-    core."""
+    core.  Up to 32 a slot lies inside a warp; wider, it spans W / 32
+    warps of one CTA."""
     return 1 << max(0, int(n_nodes) - 1).bit_length()
 
 
 def gang_lane_granularity(n_nodes: int) -> int:
-    """The lanes of a one-lane lattice or mxu K3 CTA, ``kThreads /
-    slot_width(n_nodes)``: their K3 takes an ``s_block`` that is a
+    """The lanes of a one-lane lattice or mxu K3 CTA, ``cta_slots`` in
+    ``chaotic_ann.cu``: kThreads / slot_width(n_nodes), and 1 where a slot
+    fills its CTA (W >= 128).  Their K3 takes an ``s_block`` that is a
     multiple of it (every served config's is: 128 * 2^p)."""
-    return _CTA_LANES // slot_width(n_nodes)
+    return max(1, _CTA_LANES // slot_width(n_nodes))
 
 
 def check_card_lattice(lattice, i_dim: int) -> None:
     """Raise ``ValueError`` for a lattice the card does not run: what the
     reference's Pallas kernels refuse (``n_nodes * base_dim`` not a whole
     number of 8-row sublanes: their wrapped-roll coupling cannot cross
-    padding rows), and one of more than 32 nodes (the kernels hold a lane's
-    nodes in one warp; more needs another exchange, ROADMAP.md queue 2)."""
+    padding rows), and one of more than ``MAX_CARD_NODES`` nodes (a lane's
+    nodes are one CTA's threads; more needs a slot across a thread-block
+    cluster)."""
     ref.check_lattice(lattice, i_dim)
     n_nodes = lattice[0]
     if i_dim % 8:
@@ -148,9 +156,10 @@ def check_card_lattice(lattice, i_dim: int) -> None:
                          f"of sublanes (got padding to {-(-i_dim // 8) * 8}); "
                          f"the wrapped-roll coupling cannot cross padding "
                          f"rows")
-    if not 2 <= n_nodes <= 32:
+    if not 2 <= n_nodes <= MAX_CARD_NODES:
         raise ValueError(f"a lattice of {n_nodes} nodes: the CUDA kernels "
-                         f"take 2 to 32 (a lane's nodes in one warp)")
+                         f"take 2 to {MAX_CARD_NODES:,} (a lane's nodes in "
+                         f"one CTA)")
 
 
 def shape_key(family: str, dims) -> build.Key:
@@ -478,7 +487,9 @@ def chaotic_ann_lattice_bits(w1: torch.Tensor, b1: torch.Tensor,
     blocks and state in registers, phi on the node's own HB hidden units;
     neighbours' state comes by warp shuffles and the lane's fold by an XOR
     shuffle reduction, so nothing but words, offsets and the final state
-    touches device memory.
+    touches device memory.  Past 32 nodes a lane's slot spans warps: the
+    neighbours come through shared memory (one barrier a step) and the
+    fold is a warp reduction a warp combined there, in the same order.
     """
     act = _check_activation(activation)
     _check_steps(n_steps)
@@ -614,9 +625,10 @@ def chaotic_ann_mxu_bits(w1: torch.Tensor, b1: torch.Tensor,
     written.
     Design (``mxu_x2_bits_kernel``, ``bf16x2_mxu_bits_kernel``): two
     lanes a thread, a CTA of 128 threads holding 128 / W lane slots of W =
-    ``slot_width(n_nodes)`` threads (a scalar core is one node; past
-    n_nodes a slot's threads are idle, mirroring the last node), slot s
-    lanes s and s + 128 / W of the CTA's range; the node's weight blocks in
+    ``slot_width(n_nodes)`` threads, or one slot of W > 128 (a scalar core
+    is one node; past n_nodes a slot's threads are idle, mirroring the
+    last node), slot s lanes s and s + 128 / W of the CTA's range (past 32
+    nodes the coupling's support nodes come through shared memory); the node's weight blocks in
     registers once for both lanes, the chains over the node's nonzero
     terms in the dense order; in bf16 both lanes packed in one register,
     each chain's f32 pair rounded by one ``cvt.rn.bf16x2.f32``, the bias
@@ -969,9 +981,11 @@ def chaotic_ann_lattice_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     block really computes, against 4 bytes a word; bf16 ops at the packed
     bf16x2 rate, twice f32's.  Design: the lattice K1's thread per (lane,
     node), weight blocks and state in registers, neighbours by warp
-    shuffles.  A CTA lies inside one lane block and reads that block's
+    shuffles (past 32 nodes through shared memory: a slot spans warps).
+    A CTA lies inside one lane block and reads that block's
     core and rows.  f32 (``lattice_gang_bits_kernel``): a CTA holds
-    128 / W lanes (W = ``slot_width(n_nodes)``) and ``s_block`` is a
+    ``gang_lane_granularity`` lanes (128 / W, W = ``slot_width(n_nodes)``,
+    or one past 128 nodes) and ``s_block`` is a
     multiple of that (``gang_lane_granularity``).  bf16
     (``bf16x2_lattice_gang_bits_kernel``): the bf16x2 lattice K1's row
     loop, two lanes a node thread in one register, every op one packed
@@ -1112,7 +1126,8 @@ def chaotic_ann_mxu_gang_bits(w1: torch.Tensor, b1: torch.Tensor,
     (``mxu_x2_gang_bits_kernel`` in f32, ``bf16x2_mxu_gang_bits_kernel``
     in bf16): the mxu K1's row loop, two lanes a thread, on the lane
     block's core, so a core's words are bitwise its mxu K1's.  A CTA of
-    128 threads holds 128 / W lane slots of two lanes each and lies
+    128 threads holds 128 / W lane slots of two lanes each (past 128
+    nodes a CTA is one slot of W threads) and lies
     inside one lane block, reading that block's core and rows; CTAs are
     indexed by (block, CTA in the block), so ``s_block`` is any multiple
     of 128 / W, and where it is an odd one the block's last CTA

@@ -233,7 +233,10 @@ def test_gang_wrappers_reject_what_the_kernels_do_not_take():
                                           [0, 1], n_steps=4, s_block=128)
 
 
-LATTICES = ("chen@ring8", "chen@grid8", "chen@ring32", "chen@grid32")
+# the default library's lattices, and two shape libraries' whose lane slot
+# spans two warps (40 nodes in 64 threads; an 8 x 8 torus)
+LATTICES = ("chen@ring8", "chen@grid8", "chen@ring32", "chen@grid32",
+            "chen@ring40", "chen@grid64")
 
 
 def _lattice_inputs(system, n_lanes, dtype, seed):
@@ -309,10 +312,22 @@ def test_lattice_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="i_dim"):
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4,
                                      lattice=(4, 3, "ring", 0.05))
-    # more than 32 nodes, and a state that is no whole number of sublanes
-    w40, ring40, x40, _ = _lattice_inputs("chen@ring40", 8, torch.float32, 4)
-    with pytest.raises(ValueError, match="2 to 32"):
-        chaotic_ann.chaotic_ann_bits(*w40, x40, n_steps=4, lattice=ring40)
+    # 40 nodes (a slot of two warps) launch; more than 1,024 nodes (as a
+    # descriptor and a shape key: no expansion built) and a state that is
+    # no whole number of sublanes do not
+    w40, ring40, x40, off40 = _lattice_inputs("chen@ring40", 8,
+                                              torch.float32, 4)
+    n0 = chaotic_ann.chaotic_ann_lattice_bits.launches
+    got = chaotic_ann.chaotic_ann_bits(*w40, x40, off40, n_steps=4,
+                                       lattice=ring40)
+    assert chaotic_ann.chaotic_ann_lattice_bits.launches == n0 + 1
+    for g, e in zip(got, ref.chaotic_ann_bits_ref(*w40, x40, 4, off40,
+                                                  lattice=ring40)):
+        _assert_bitwise(g, e)
+    with pytest.raises(ValueError, match="1,024"):
+        chaotic_ann.check_card_lattice((1_032, 3, "ring", 0.05), 3_096)
+    with pytest.raises(ValueError, match="1,024"):
+        ops.prepare([("lattice", (3, 8, 1_032, 0))])
     with pytest.raises(ValueError, match="sublanes"):
         chaotic_ann.chaotic_ann_traj(
             w[0][:12, :32], w[1][:32], w[2][:32, :12], w[3][:12],
@@ -400,12 +415,21 @@ def test_mxu_wrappers_reject_what_the_kernels_do_not_take():
     _assert_bitwise(
         chaotic_ann.chaotic_ann_traj(*w, x0, n_steps=4, compute_unit="mxu"),
         ref.chaotic_ann_ref(*w, x0, 4, compute_unit="mxu"))
-    w40, ring40, x40, _ = _lattice_inputs("chen@ring40", 8, torch.float32, 4)
-    cpl40 = torch.from_numpy(default_params(system="chen@ring40")["coupling"])
-    with pytest.raises(ValueError, match="2 to 32"):
-        chaotic_ann.chaotic_ann_bits(*w40, x40, n_steps=4, lattice=ring40,
-                                     compute_unit="mxu",
-                                     coupling=cpl40.cuda())
+    # 40 nodes launch, bitwise the plain chains; past 1,024 nodes (a shape
+    # key: no expansion built) the card refuses
+    w40, ring40, x40, off40 = _lattice_inputs("chen@ring40", 8,
+                                              torch.float32, 4)
+    cpl40 = torch.from_numpy(
+        default_params(system="chen@ring40")["coupling"]).cuda()
+    got = chaotic_ann.chaotic_ann_bits(*w40, x40, off40, n_steps=4,
+                                       lattice=ring40, compute_unit="mxu",
+                                       coupling=cpl40)
+    for g, e in zip(got, ref.chaotic_ann_bits_ref(
+            *w40, x40, 4, off40, lattice=ring40, compute_unit="mxu",
+            coupling=cpl40)):
+        _assert_bitwise(g, e)
+    with pytest.raises(ValueError, match="1,024"):
+        ops.prepare([("mxu", (3, 8, 1_032, 0))])
     bad = dict(default_params(system="chen@ring8"))
     bad["coupling"] = bad["coupling"].copy()
     bad["coupling"][0, 12] = 0.05        # node 0 <- node 4: not a neighbour
@@ -413,7 +437,7 @@ def test_mxu_wrappers_reject_what_the_kernels_do_not_take():
         params_from_numpy(bad, device="cuda")
 
 
-LATTICE_GANGS = ("ring8", "grid8", "ring32")
+LATTICE_GANGS = ("ring8", "grid8", "ring32", "ring40", "grid64")
 
 
 def _lattice_gang(topology):
@@ -572,15 +596,26 @@ def test_lattice_gang_wrappers_reject_what_the_kernels_do_not_take():
                                             lattice=four)
     for g, e in zip(got, want):
         _assert_bitwise(g, e)
+    # 40 nodes: K3 at s_block 4 (a multiple of the CTA's two lanes) and
+    # K4, bitwise; past 1,024 nodes the card refuses (a shape key)
     w40, ring40, _, _ = _lattice_inputs("chen@ring40", 8, torch.float32, 4)
-    w40 = [torch.stack([t] * 2) for t in w40]
-    x40 = torch.zeros(2 * 4, 120, device="cuda")
-    with pytest.raises(ValueError, match="2 to 32"):
-        chaotic_ann.chaotic_ann_gang_bits(*w40, x40, [0, 1], n_steps=4,
-                                          s_block=4, lattice=ring40)
-    with pytest.raises(ValueError, match="2 to 32"):
-        chaotic_ann.chaotic_ann_gang_stacked(*w40, x40.reshape(2, 4, 120),
-                                             n_steps=4, lattice=ring40)
+    w40 = [torch.stack([t, t * 0.9375]) for t in w40]
+    x40 = torch.from_numpy(_x0_np(np.random.default_rng(6), (2 * 4, 120)))
+    x40 = x40.cuda()
+    got = chaotic_ann.chaotic_ann_gang_bits(*w40, x40, [0, 1], n_steps=4,
+                                            s_block=4, lattice=ring40)
+    want = ref.chaotic_ann_gang_bits_ref(*w40, x40, np.array([0, 1]), 4,
+                                         lattice=ring40)
+    for g, e in zip(got, want):
+        _assert_bitwise(g, e)
+    got = chaotic_ann.chaotic_ann_gang_stacked(*w40, x40.reshape(2, 4, 120),
+                                               n_steps=4, lattice=ring40)
+    want = ref.chaotic_ann_gang_stacked_ref(*w40, x40.reshape(2, 4, 120), 4,
+                                            lattice=ring40)
+    for g, e in zip(got, want):
+        _assert_bitwise(g, e)
+    with pytest.raises(ValueError, match="1,024"):
+        ops.prepare([("lattice", (4, 16, 1_026, 0))])
     with pytest.raises(ValueError, match="multiple of 16"):
         chaotic_ann.chaotic_ann_gang_bits(*w, x0[:4 * 8], [0, 1, 2, 3],
                                           n_steps=4, s_block=8,
@@ -589,7 +624,8 @@ def test_lattice_gang_wrappers_reject_what_the_kernels_do_not_take():
 
 # K3's mxu form at every MXU_SHAPES entry: the scalar gangs (3-8, 4-16) and
 # the four 3-8 bases as lattices of each compiled descriptor
-MXU_GANGS = ("3-8", "4-16", "ring8", "grid8", "ring32", "grid32")
+MXU_GANGS = ("3-8", "4-16", "ring8", "grid8", "ring32", "grid32", "ring40",
+             "grid64")
 
 
 def _mxu_gang(gang):
@@ -1133,7 +1169,7 @@ def test_activation_mxu_gang_kernel_bitwise_vs_plain_on_card(gang, dtype,
 # partly live, a ragged last CTA and, for a scalar core, steps whose values
 # start mid-chunk (n_lanes * I * itemsize not a multiple of 16)
 TRAJ_X2_LANES = {1: (1, 3, 37, 255, 1000 + 37), 8: (1, 3, 17, 37),
-                 32: (1, 3, 5, 13)}
+                 32: (1, 3, 5, 13), 40: (1, 3, 5, 13), 64: (1, 3, 5, 13)}
 
 
 @pytest.mark.parametrize("activation", ACTIVATIONS)

@@ -11,10 +11,12 @@ against the JAX package's Pallas kernels in interpret mode.
   lanes and every served ``s_block``; a numpy mirror of ``LanePair`` and
   ``TrajStore`` at N = 3-24 (idle threads past N): every lane computed
   once, every value stored once, 16-byte stores aligned.
-* Refusals: a lattice of more than 32 nodes and one the reference
+* Refusals: a lattice of more than 1,024 nodes and one the reference
   refuses (``n_nodes * base_dim`` not a multiple of 8) raise
-  ``ValueError``, as the reference's kernels do; on the CPU a service, a
-  stream engine and a farm over chen@ring40 are built and serve.
+  ``ValueError`` on the card, the latter as the reference's kernels do;
+  chen@ring40 reaches the build; on the CPU a service, a stream engine
+  and a farm over chen@ring40 are built and serve.  (Lattices of more
+  than 32 nodes: ``tests/test_torch_shapes_wide.py``.)
 * Scalar parity at 3-4, 3-16 and 4-8 (seeded nets), relu and tanh: bf16
   vpu K1 words and final state and K2 trajectory bitwise; mxu K1 bitwise
   in f32 and bf16 (128 lanes, where XLA keeps the forward FMA chain); f32
@@ -35,7 +37,7 @@ from repro.prng.stream import trained_oscillator as jax_trained_oscillator
 from repro.serve.prng_service import PRNGService as JaxService
 from repro_torch.core.ann import lattice_meta_tuple
 from repro_torch.core.dse import LANES, default_config, enumerate_candidates
-from repro_torch.kernels import build, chaotic_ann, ops
+from repro_torch.kernels import build, chaotic_ann, ops, ref
 from repro_torch.prng.stream import ChaoticPRNG, default_params
 from repro_torch.serve.farm import OscillatorFarm
 from repro_torch.serve.prng_service import PRNGService
@@ -311,10 +313,20 @@ def test_card_refuses_what_the_reference_refuses_and_past_32_nodes(
         monkeypatch):
     """Four chen nodes (12 rows, not a whole number of sublanes) are
     refused by the reference's kernels and on the card, both with
-    ValueError;
-    chen@ring40 (120 rows) the reference takes, the card does not (a lane
-    slot is one warp).  Neither reaches nvcc."""
-    monkeypatch.setattr(build, "build_libraries", pytest.fail)
+    ValueError; a lattice of more than 1,024 nodes (given as a descriptor
+    and as shape keys, so no 100 MB expansion is built) the plain version
+    takes and the card does not (a lane slot is one CTA).  Neither
+    reaches nvcc.  chen@ring40 (120 rows) and the 4-16 base at 34 nodes
+    now reach the build (recorded here, not built)."""
+    built = []
+
+    def record(keys, *args, **kwargs):
+        built.extend(keys)
+        return {}
+
+    monkeypatch.setattr(build, "build_libraries", record)
+    monkeypatch.setattr(chaotic_ann, "_SHAPE_LIBS", {})
+    monkeypatch.setattr(chaotic_ann, "_load_shape_library", lambda key: None)
     # four chen nodes (the registry's expansion refuses to build them)
     ring4 = {"w1": np.zeros((12, 32), np.float32),
              "b1": np.zeros(32, np.float32),
@@ -332,15 +344,25 @@ def test_card_refuses_what_the_reference_refuses_and_past_32_nodes(
     for unit in ("vpu", "mxu"):
         with pytest.raises(ValueError, match="sublanes"):
             ops.prepare(ops.kernel_shapes(ring4, unit))
+    lat1032 = (1_032, 3, "ring", 0.05)
+    ref.check_lattice(lat1032, 3_096)            # the plain version's check
+    with pytest.raises(ValueError, match="1,024"):
+        chaotic_ann.check_card_lattice(lat1032, 3_096)
+    for family in ("lattice", "mxu"):
+        with pytest.raises(ValueError, match="1,024"):
+            ops.prepare([(family, (3, 8, 1_032, 0))])
+        with pytest.raises(ValueError, match="1,024"):
+            ops.prepare([(family, (4, 16, 1_026, 1))])
+    assert built == []
     ring40 = default_params(system="chen@ring40")
     lat40 = lattice_meta_tuple(ring40["lattice_meta"])
-    with pytest.raises(ValueError, match="2 to 32"):
-        chaotic_ann.check_card_lattice(lat40, 120)
+    chaotic_ann.check_card_lattice(lat40, 120)
     for unit in ("vpu", "mxu"):
-        with pytest.raises(ValueError, match="2 to 32"):
-            ops.prepare(ops.kernel_shapes(ring40, unit))
-    with pytest.raises(ValueError, match="2 to 32"):
-        ops.prepare([("lattice", (4, 16, 34, 0))])
+        ops.prepare(ops.kernel_shapes(ring40, unit))
+    ops.prepare([("lattice", (4, 16, 34, 0))])
+    chaotic_ann.check_card_lattice((1_024, 3, "grid", 0.05), 3_072)
+    assert built == [("lattice", (3, 8, 40, 0)), ("mxu", (3, 8, 40, 0)),
+                     ("lattice", (4, 16, 34, 0))]
     # on the CPU the plain version takes both, as the JAX ref does
     w = [torch.from_numpy(ring40[k]) for k in KEYS]
     words, _ = chaotic_ann.chaotic_ann_bits(
@@ -350,7 +372,7 @@ def test_card_refuses_what_the_reference_refuses_and_past_32_nodes(
 
 @pytest.mark.parametrize("unit", ["vpu", "mxu"])
 def test_cpu_services_serve_lattices_past_32_nodes(unit, monkeypatch):
-    """The card's 32-node limit is checked only for a card: on the CPU a
+    """The card's shape libraries are built only for a card: on the CPU a
     ``PRNGService``, a ``ChaoticPRNG`` and a farm's core over chen@ring40
     are built and serve (the plain version), and nothing reaches nvcc."""
     monkeypatch.setattr(build, "build_libraries", pytest.fail)

@@ -18,8 +18,9 @@ steps, the mxu kernels x 64 steps, the 3-8-3 mxu K3 and the scalar
 kernels x 256 and 1,024 steps), on the registry weights, by CUDA events
 after a device spin (as ``chip_smoke.py``'s ``cuda_ms``): the lattice
 K4 / K3 / K1 at chen@ring8 (the four bases as lattices of one descriptor)
-in f32 and bf16 with relu, tanh and sigmoid; the f32 lattice K1 at
-chen@ring32 with each activation; the bf16 lattice K2 at chen@ring32
+in f32 and bf16 with relu, tanh and sigmoid, and at chen@ring32 in f32
+and bf16 with relu; the f32 lattice K1 at chen@ring32 with each
+activation; the bf16 lattice K2 at chen@ring32
 (relu) and chen@ring8 (tanh, sigmoid), the f32 one at chen@ring8 (tanh,
 sigmoid); the mxu
 K3 at chen@ring32 (four cores, s_block 128) in f32 and bf16 with each
@@ -86,28 +87,35 @@ def main() -> int:
         return per, [torch.as_tensor(np.stack([p[k] for p in per]),
                                      device=dev) for k in KEYS]
 
-    per, w = stacked([f"{b}@ring8" for b in BASES])
-    lat = lattice_meta_tuple(per[0]["lattice_meta"])
-    xs_f = torch.as_tensor(rng.uniform(-0.9, 0.9, (4, LANES // 4, 24)),
-                           dtype=torch.float32, device=dev)
     offs = torch.zeros((4, LANES // 4), dtype=torch.int64, device=dev)
     off = offs.reshape(-1)
     cmap = np.repeat(np.arange(4), LANES // 4 // 256)
-    for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
-        xs = xs_f.to(dtype)
-        x = xs.reshape(-1, 24).contiguous()
-        for act in ("relu", "tanh", "sigmoid"):
-            kw = dict(n_steps=256, lattice=lat, activation=act)
-            out[f"{tag} lattice K4 chen@ring8 {act}, 4 x 16,384 lanes"] = (
-                cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
-                    *w, xs, offs, **kw)))
-            out[f"{tag} lattice K3 chen@ring8 {act}, s_block 256"] = cuda_ms(
-                torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
-                    *w, x, cmap, off, s_block=256, t_block=256, unroll=8,
-                    **kw))
-            out[f"{tag} lattice K1 chen@ring8 {act} (chen)"] = cuda_ms(
-                torch, lambda: chaotic_ann.chaotic_ann_bits(
-                    *[a[0] for a in w], x, off, **kw))
+    for topo, acts in (("ring8", ("relu", "tanh", "sigmoid")),
+                       ("ring32", ("relu",))):
+        per, w = stacked([f"{b}@{topo}" for b in BASES])
+        lat = lattice_meta_tuple(per[0]["lattice_meta"])
+        i_dim = per[0]["w1"].shape[0]
+        xs_f = torch.as_tensor(rng.uniform(-0.9, 0.9,
+                                           (4, LANES // 4, i_dim)),
+                               dtype=torch.float32, device=dev)
+        for tag, dtype in (("f32", torch.float32), ("bf16", bf16)):
+            xs = xs_f.to(dtype)
+            x = xs.reshape(-1, i_dim).contiguous()
+            if (topo, tag) == ("ring8", "bf16"):
+                x8 = x                      # the mxu K2 at ring8 below
+            for act in acts:
+                kw = dict(n_steps=256, lattice=lat, activation=act)
+                out[f"{tag} lattice K4 chen@{topo} {act}, 4 x 16,384 "
+                    f"lanes"] = cuda_ms(
+                    torch, lambda: chaotic_ann.chaotic_ann_gang_stacked(
+                        *w, xs, offs, **kw))
+                out[f"{tag} lattice K3 chen@{topo} {act}, s_block 256"] = (
+                    cuda_ms(torch, lambda: chaotic_ann.chaotic_ann_gang_bits(
+                        *w, x, cmap, off, s_block=256, t_block=256, unroll=8,
+                        **kw)))
+                out[f"{tag} lattice K1 chen@{topo} {act} (chen)"] = cuda_ms(
+                    torch, lambda: chaotic_ann.chaotic_ann_bits(
+                        *[a[0] for a in w], x, off, **kw))
     p32 = params_from_numpy(default_params(system="chen@ring32"), device=dev)
     x32 = torch.as_tensor(rng.uniform(-0.9, 0.9, (LANES, 96)),
                           dtype=torch.float32, device=dev)
@@ -169,7 +177,6 @@ def main() -> int:
                 torch, lambda: chaotic_ann.chaotic_ann_traj(
                     *wk, xx, n_steps=64, activation=act, **kw32), reps=3)
     p8 = params_from_numpy(default_params(system="chen@ring8"), device=dev)
-    x8 = xs.reshape(-1, 24).contiguous()
     for act in ("tanh", "sigmoid"):
         out[f"bf16 mxu K2 chen@ring8 {act}"] = cuda_ms(
             torch, lambda: chaotic_ann.chaotic_ann_traj(
